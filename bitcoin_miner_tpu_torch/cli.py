@@ -1,0 +1,192 @@
+"""Command line: ``python -m bitcoin_miner_tpu_torch``.
+
+Modes:
+  --pool stratum+tcp://HOST:PORT   Stratum v1 pool mining
+  --bench                          offline sweep of the genesis header
+
+Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
+hit-buffer kernel) and ``cpu`` (the hashlib oracle). ``--device cpu``
+runs the CUDA backends' plain PyTorch versions instead of the kernels;
+without it they need a card. The miner writes no files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import sys
+import time
+from typing import TYPE_CHECKING, Optional
+from urllib.parse import urlparse
+
+from .backends.base import Hasher, get_hasher
+from .core.header import GENESIS_HEADER_HEX, GENESIS_NBITS, GENESIS_NONCE
+from .core.target import nbits_to_target
+from .miner.scheduler import (
+    AdaptiveBatchScheduler,
+    SweepReport,
+    scheduler_for,
+    stream_sweep,
+)
+
+if TYPE_CHECKING:
+    from .miner.runner import StratumMiner
+
+logger = logging.getLogger("tpu_miner_torch")
+
+#: log2 of the nonces per device dispatch when ``--batch-bits`` is not given.
+DEFAULT_BATCH_BITS = 24
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m bitcoin_miner_tpu_torch",
+        description="Bitcoin miner with hand-written CUDA sha256d kernels",
+    )
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--pool", help="stratum+tcp://host:port pool URL")
+    mode.add_argument("--bench", action="store_true",
+                      help="offline sweep around the genesis nonce at the "
+                           "difficulty-1 target")
+    p.add_argument("--user", default="tpu-miner", help="pool username")
+    p.add_argument("--password", default="x", help="pool password")
+    p.add_argument("--backend", default="cuda-tile",
+                   choices=("cuda-tile", "cuda", "cpu"),
+                   help="hasher backend (default: %(default)s)")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the cuda backends run: the card, or their "
+                        "plain PyTorch versions on the CPU")
+    p.add_argument("--batch-bits", type=int, default=None,
+                   help="log2 of nonces per dispatch, fixed; default: the "
+                        "adaptive scheduler sizes requests online over a "
+                        f"2^{DEFAULT_BATCH_BITS}-nonce dispatch grid")
+    p.add_argument("--workers", type=int, default=8,
+                   help="dispatcher workers (nonce-range split ways)")
+    p.add_argument("--stream-depth", type=int, default=2,
+                   help="requests each worker keeps in flight ahead of "
+                        "verification (0 = blocking scan-then-verify loop)")
+    p.add_argument("--bench-nonces", type=int, default=1 << 26,
+                   help="nonces for --bench, centred on the genesis nonce "
+                        "(2^32 sweeps the whole nonce space)")
+    p.add_argument("--report-interval", type=float, default=10.0,
+                   help="seconds between stats lines")
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def make_hasher(args: argparse.Namespace) -> Hasher:
+    if args.backend == "cpu":
+        return get_hasher("cpu")
+    bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
+    return get_hasher(args.backend, batch_size=1 << bits, device=args.device)
+
+
+def make_scheduler(args: argparse.Namespace, hasher: Hasher
+                   ) -> Optional[AdaptiveBatchScheduler]:
+    """The adaptive scheduler, or None when ``--batch-bits`` fixed the
+    dispatch size."""
+    return None if args.batch_bits is not None else scheduler_for(hasher)
+
+
+def run_bench(hasher: Hasher, count: int,
+              scheduler: Optional[AdaptiveBatchScheduler] = None,
+              batch_size: Optional[int] = None) -> dict:
+    """Sweep ``count`` nonces of the genesis header centred on its nonce
+    at the difficulty-1 target, through the hasher's streaming path, and
+    verify the solve on the CPU oracle."""
+    header76 = bytes.fromhex(GENESIS_HEADER_HEX)[:76]
+    target = nbits_to_target(GENESIS_NBITS)
+    start = max(0, GENESIS_NONCE - count // 2)
+    count = min(count, (1 << 32) - start)
+    t0 = time.perf_counter()
+    report: SweepReport = stream_sweep(hasher, header76, start, count, target,
+                                       scheduler=scheduler,
+                                       batch_size=batch_size)
+    seconds = time.perf_counter() - t0
+    found = GENESIS_NONCE in report.nonces
+    verified = found and get_hasher("cpu").verify(
+        header76 + GENESIS_NONCE.to_bytes(4, "little"), target)
+    return {
+        "nonce_start": start, "hashes": report.hashes_done,
+        "dispatches": report.dispatches, "seconds": seconds,
+        "mhs": report.hashes_done / seconds / 1e6, "nonces": report.nonces,
+        "found": found, "verified": verified,
+    }
+
+
+def bench(args: argparse.Namespace) -> dict:
+    """``--bench``: :func:`run_bench` through the hasher and scheduler the
+    options select."""
+    hasher = make_hasher(args)
+    return run_bench(hasher, args.bench_nonces,
+                     scheduler=make_scheduler(args, hasher))
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    out = bench(args)
+    print(
+        f"{out['mhs']:.2f} MH/s over {out['hashes']} nonces in "
+        f"{out['seconds']:.2f}s ({out['dispatches']} dispatches, backend "
+        f"{args.backend} on {args.device}); genesis nonce "
+        f"{'FOUND+VERIFIED' if out['verified'] else 'MISSED'}"
+    )
+    return 0 if out["verified"] else 2
+
+
+async def _run_with_reporter(miner, interval: float) -> None:
+    async def report() -> None:
+        while True:
+            await asyncio.sleep(interval)
+            logger.info("%s", miner.dispatcher.stats.summary())
+
+    reporter = asyncio.create_task(report())
+    try:
+        await miner.run()
+    finally:
+        reporter.cancel()
+        await asyncio.gather(reporter, return_exceptions=True)
+        logger.info("stopped; final: %s", miner.dispatcher.stats.summary())
+
+
+def make_miner(args: argparse.Namespace) -> "StratumMiner":
+    """The ``--pool`` session the options select."""
+    from .miner.runner import StratumMiner
+
+    url = args.pool if "//" in args.pool else f"stratum+tcp://{args.pool}"
+    parsed = urlparse(url)
+    if parsed.scheme != "stratum+tcp":
+        raise SystemExit(f"--pool must be a stratum+tcp:// URL, got {url!r}")
+    try:
+        host, port = parsed.hostname or "127.0.0.1", parsed.port or 3333
+    except ValueError as e:
+        raise SystemExit(f"bad --pool URL: {e}")
+    hasher = make_hasher(args)
+    return StratumMiner(
+        host, port, args.user, args.password, hasher=hasher,
+        n_workers=args.workers,
+        batch_size=getattr(hasher, "batch_size", 1 << DEFAULT_BATCH_BITS),
+        stream_depth=args.stream_depth,
+        scheduler=make_scheduler(args, hasher),
+    )
+
+
+def cmd_pool(args: argparse.Namespace) -> int:
+    miner = make_miner(args)
+    try:
+        asyncio.run(_run_with_reporter(miner, args.report_interval))
+    except KeyboardInterrupt:
+        logger.info("interrupted; final: %s", miner.dispatcher.stats.summary())
+    return 0
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(levelname).1s %(name)s: %(message)s",
+        datefmt="%H:%M:%S",
+    )
+    if args.bench:
+        return cmd_bench(args)
+    return cmd_pool(args)

@@ -1,0 +1,536 @@
+"""Worker pool and job dispatch.
+
+A single-threaded event loop owns all bookkeeping:
+
+- a producer turns the current job into work items: for each extranonce2
+  value (the outermost search axis) the 2^32 nonce space is split into
+  ``n_workers`` disjoint ranges;
+- each worker feeds its items, as dispatch-sized ``ScanRequest``s, to the
+  backend's ``scan_stream`` running on a pump thread, and verifies and
+  submits the results as they stream back — CPU re-verification and share
+  submission overlap device compute;
+- a generation counter cancels stale work: ``set_job`` bumps it, and any
+  result of an older generation is dropped, including dispatches already
+  in flight;
+- every device hit is re-verified on the CPU oracle before it becomes a
+  ``Share`` (the parity gate): a mismatch counts as a hardware error and is
+  never submitted.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import queue as thread_queue
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Any, Awaitable, Callable, Iterator, List, Optional
+
+from ..backends.base import (
+    Hasher,
+    STREAM_FLUSH,
+    ScanRequest,
+    ScanResult,
+    iter_scan_stream,
+)
+from ..core.target import hash_to_int
+from ..parallel.ranges import ExtranonceCounter, NONCE_SPACE, split_range
+from .job import Job
+
+if TYPE_CHECKING:
+    from .scheduler import AdaptiveBatchScheduler
+
+logger = logging.getLogger(__name__)
+
+OnShare = Callable[["Share"], Awaitable[None]]
+
+
+@dataclass(frozen=True)
+class Share:
+    """A verified hit, ready for ``mining.submit``."""
+
+    job_id: str
+    extranonce2: bytes
+    ntime: int
+    nonce: int
+    header80: bytes
+    hash_int: int
+    is_block: bool  # also meets the nbits block target
+    #: BIP 310: the in-mask version bits of this share's header, submitted
+    #: as mining.submit's 6th param; None without version rolling.
+    version_bits: Optional[int] = None
+
+
+@dataclass
+class MinerStats:
+    """Counters of one mining session."""
+
+    hashes: int = 0
+    batches: int = 0
+    shares_found: int = 0
+    shares_accepted: int = 0
+    shares_rejected: int = 0
+    shares_stale: int = 0
+    blocks_found: int = 0
+    hw_errors: int = 0  # device hit that failed CPU re-verification
+    reconnects: int = 0
+    started_at: float = field(default_factory=time.monotonic)
+    #: fed every inter-dispatch gap (seconds): the adaptive scheduler's
+    #: input.
+    gap_listener: Optional[Callable[[float], None]] = field(
+        default=None, repr=False, compare=False
+    )
+
+    def hashrate(self) -> float:
+        """Mean hashes/second since start."""
+        dt = time.monotonic() - self.started_at
+        return self.hashes / dt if dt > 0 else 0.0
+
+    # Busy-interval accounting, called from the event loop only.
+    _active_scans: int = 0
+    _idle_since: float = 0.0  # end of the last busy interval; 0 = never busy
+
+    def scan_started(self) -> None:
+        if self._active_scans == 0:
+            now = time.monotonic()
+            # The idle interval of the busy clock is the inter-dispatch gap.
+            if self._idle_since and self.gap_listener is not None:
+                self.gap_listener(max(0.0, now - self._idle_since))
+        self._active_scans += 1
+
+    def scan_finished(self) -> None:
+        self._active_scans -= 1
+        if self._active_scans == 0:
+            self._idle_since = time.monotonic()
+
+    def summary(self) -> str:
+        line = (
+            f"{self.hashrate() / 1e6:.2f} MH/s | hashes {self.hashes} | "
+            f"shares {self.shares_accepted}/{self.shares_found} accepted "
+            f"({self.shares_rejected} rejected, {self.shares_stale} stale) | "
+            f"blocks {self.blocks_found} | hw_err {self.hw_errors}"
+        )
+        if self.reconnects:
+            line += f" | reconnects {self.reconnects}"
+        return line
+
+
+@dataclass(frozen=True)
+class WorkItem:
+    generation: int
+    job: Job
+    extranonce2: bytes
+    header76: bytes
+    nonce_start: int
+    nonce_count: int
+    #: the ntime and (possibly rolled) version this item's header76 was
+    #: built with — submitted with the share.
+    ntime: int
+    version: Optional[int] = None
+
+
+class Dispatcher:
+    """Owns the worker pool and the current job; bridges protocol ↔ device."""
+
+    def __init__(
+        self,
+        hasher: Hasher,
+        oracle: Optional[Hasher] = None,
+        n_workers: int = 8,
+        batch_size: int = 1 << 24,
+        queue_depth: Optional[int] = None,
+        stream_depth: int = 2,
+        scheduler: Optional["AdaptiveBatchScheduler"] = None,
+    ) -> None:
+        if n_workers < 1:
+            raise ValueError("n_workers must be >= 1")
+        if oracle is None:
+            from ..backends.cpu import CpuHasher
+
+            oracle = CpuHasher()
+        self.hasher = hasher
+        self.oracle = oracle
+        self.n_workers = n_workers
+        self.batch_size = batch_size
+        #: requests a worker keeps in flight ahead of verification. 0 runs
+        #: the blocking scan-then-verify loop. A dispatch ring yields its
+        #: first result only once ring_depth+1 requests are queued, so the
+        #: window is at least the ring's depth — smaller would deadlock.
+        ring_depth = getattr(hasher, "stream_depth", 2)
+        self.stream_depth = (
+            0 if stream_depth <= 0 else max(ring_depth, stream_depth)
+        )
+        self.stats = MinerStats()
+        #: sizes every dispatch when present; else ``batch_size`` is fixed.
+        self.scheduler = scheduler
+        if scheduler is not None:
+            self.stats.gap_listener = scheduler.record_gap
+        self._generation = 0
+        self._job: Optional[Job] = None
+        #: next extranonce2 position per job (bounded LRU), so re-installing
+        #: a job (retarget, or a pool re-announcing it) resumes instead of
+        #: re-mining and re-submitting the space already covered.
+        self._sweep_pos: "OrderedDict[str, int]" = OrderedDict()
+        self._sweep_pos_capacity = 8
+        self._queue: Optional[asyncio.Queue] = None
+        self._queue_depth = queue_depth or n_workers * 2
+        # The resume point lags the enqueued position by enough strides to
+        # cover every queued or in-flight item a generation bump can drop:
+        # bounded duplicate work on resume, never a coverage hole.
+        stream_extra = (self.stream_depth + 1) if self.stream_depth else 0
+        self._resume_lag_strides = -(
+            -(self._queue_depth + n_workers * (1 + stream_extra))
+            // n_workers
+        )
+        self._job_event = asyncio.Event()
+        self._stop_event: Optional[asyncio.Event] = None
+        self._stopping = False
+
+    # ------------------------------------------------------------- job feed
+    def set_job(self, job: Job) -> Job:
+        """Install a new job. Bumps the generation so in-flight work for the
+        old job is dropped; ``clean`` jobs also flush queued items."""
+        self._generation += 1
+        set_mask = getattr(self.hasher, "set_version_mask", None)
+        if set_mask is not None:
+            set_mask(job.version_mask)
+        job = _with_generation(job, self._generation)
+        self._job = job
+        if self.scheduler is not None:
+            self.scheduler.on_job_switch()
+        if job.sweep_key in self._sweep_pos:
+            self._sweep_pos.move_to_end(job.sweep_key)
+        if job.clean and self._queue is not None:
+            while not self._queue.empty():
+                self._queue.get_nowait()
+                self._queue.task_done()
+        self._job_event.set()
+        logger.info(
+            "new job %s gen=%d clean=%s", job.job_id, job.generation, job.clean
+        )
+        return job
+
+    def reset_sweep_positions(self) -> None:
+        """Forget all resume positions: job ids and extranonce1 are
+        per-connection, so after a disconnect or an extranonce migration
+        the old positions describe other headers."""
+        self._sweep_pos.clear()
+
+    def stop(self) -> None:
+        self._stopping = True
+        self._job_event.set()
+        if self._stop_event is not None:
+            self._stop_event.set()
+
+    def _next_dispatch_count(self) -> int:
+        if self.scheduler is not None:
+            return self.scheduler.next_count()
+        return self.batch_size
+
+    # ------------------------------------------------------------ main loop
+    async def run(self, on_share: OnShare) -> None:
+        """Run the producer and N workers until :meth:`stop`; they are
+        cancelled on stop, since they may be blocked on a queue."""
+        self._queue = asyncio.Queue(maxsize=self._queue_depth)
+        self._stop_event = asyncio.Event()
+        if self._stopping:
+            self._stop_event.set()
+        workers = [
+            asyncio.create_task(self._worker(w, on_share), name=f"worker-{w}")
+            for w in range(self.n_workers)
+        ]
+        producer = asyncio.create_task(self._producer(), name="producer")
+        try:
+            await self._stop_event.wait()
+        finally:
+            for t in [producer, *workers]:
+                t.cancel()
+            await asyncio.gather(producer, *workers, return_exceptions=True)
+
+    async def _producer(self) -> None:
+        """Turns the current job into queued WorkItems, extranonce2-major."""
+        queue = self._queue
+        assert queue is not None  # run() builds it before spawning us
+        while not self._stopping:
+            await self._job_event.wait()
+            self._job_event.clear()
+            job = self._job
+            if job is None or self._stopping:
+                continue
+            gen = job.generation
+            try:
+                for item in self._iter_items(job):
+                    if self._stopping or self._generation != gen:
+                        break  # a newer job arrived
+                    await queue.put(item)
+            except Exception:
+                logger.exception("producer failed for job %s", job.job_id)
+
+    def _iter_items(self, job: Job) -> Iterator[WorkItem]:
+        """extranonce2-major work items; once the job's own version
+        exhausts the extranonce2 × nonce space, the BIP 310 version bits
+        roll. Resume positions are one linear index over (version variant,
+        extranonce2), so a re-installed job resumes mid-roll too."""
+        positions = self._stride_positions(job)
+        resume_lin = self._sweep_pos.get(job.sweep_key, -1)
+        start_v, start_idx = (0, 0) if resume_lin < 0 else divmod(
+            resume_lin, positions)
+        for v_idx in range(start_v, job.version_variants):
+            version = job.rolled_version(v_idx)
+            first_idx = start_idx if v_idx == start_v else 0
+            for e2 in self._iter_extranonce2(job, first_idx):
+                self._record_resume(job, e2, v_idx, positions)
+                header76 = job.header76(e2, version=version)
+                for start, count in split_range(0, NONCE_SPACE,
+                                                self.n_workers):
+                    if count:
+                        yield WorkItem(
+                            job.generation, job, e2, header76, start,
+                            count, ntime=job.ntime, version=version,
+                        )
+
+    @staticmethod
+    def _stride_positions(job: Job) -> int:
+        """How many extranonce2 values one version variant sweeps."""
+        return 1 << (8 * job.extranonce2_size)
+
+    @staticmethod
+    def _iter_extranonce2(job: Job, first_idx: int) -> Iterator[bytes]:
+        return iter(ExtranonceCounter(size=job.extranonce2_size,
+                                      start=first_idx))
+
+    def _record_resume(self, job: Job, e2: bytes, v_idx: int,
+                       positions: int) -> None:
+        lin = (v_idx * positions + int.from_bytes(e2, "little")
+               - self._resume_lag_strides)
+        if lin > self._sweep_pos.get(job.sweep_key, -1):
+            self._sweep_pos[job.sweep_key] = lin
+            self._sweep_pos.move_to_end(job.sweep_key)
+            while len(self._sweep_pos) > self._sweep_pos_capacity:
+                self._sweep_pos.popitem(last=False)
+
+    async def _worker(self, wid: int, on_share: OnShare) -> None:
+        if self.stream_depth == 0 or not getattr(
+            self.hasher, "scan_releases_gil", True
+        ):
+            # A pump thread that holds the GIL while hashing would starve
+            # the event loop instead of overlapping with it.
+            await self._worker_blocking(wid, on_share)
+            return
+        while not self._stopping:
+            if not await self._stream_session(wid, on_share):
+                return
+            # The pump died on a hasher error: start a fresh session after
+            # a pause, so an instantly failing backend cannot spin.
+            await asyncio.sleep(0.5)
+
+    async def _worker_blocking(self, wid: int, on_share: OnShare) -> None:
+        """Scan, then verify and submit, one dispatch at a time. The loop
+        re-checks ``_stopping``: a submit's ``wait_for`` can swallow the
+        one cancellation ``run`` sends."""
+        loop = asyncio.get_running_loop()
+        queue = self._queue
+        assert queue is not None  # run() builds it before spawning us
+        while not self._stopping:
+            item: WorkItem = await queue.get()
+            try:
+                await self._mine_item(loop, item, on_share)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                logger.exception("worker %d failed on job %s", wid,
+                                 item.job.job_id)
+            finally:
+                queue.task_done()
+
+    async def _stream_session(self, wid: int, on_share: OnShare) -> bool:
+        """One life of a worker's streaming pipeline: a feeder coroutine
+        slices queued items into requests, at most ``stream_depth + 1``
+        ahead of verification; a pump thread drives ``scan_stream`` over
+        them; the consumer verifies and submits results as they return.
+        Returns True when the pump died on a backend error."""
+        loop = asyncio.get_running_loop()
+        queue = self._queue
+        assert queue is not None  # run() builds it before spawning us
+        req_q: "thread_queue.SimpleQueue" = thread_queue.SimpleQueue()
+        res_q: asyncio.Queue = asyncio.Queue()
+        slots = asyncio.Semaphore(self.stream_depth + 1)
+        # In-flight requests, so teardown can rebalance the busy clock.
+        outstanding = [0]
+        pump_error: List[BaseException] = []
+        end = object()
+
+        def pump() -> None:
+            def requests() -> Iterator[Any]:
+                while True:
+                    req = req_q.get()
+                    if req is None:
+                        return
+                    yield req
+
+            try:
+                for sres in iter_scan_stream(self.hasher, requests()):
+                    try:
+                        loop.call_soon_threadsafe(res_q.put_nowait, sres)
+                    except RuntimeError:
+                        return  # loop closed mid-shutdown
+            except BaseException as e:  # noqa: BLE001 — reported below
+                pump_error.append(e)
+            try:
+                loop.call_soon_threadsafe(res_q.put_nowait, end)
+            except RuntimeError:
+                pass
+
+        thread = threading.Thread(target=pump, name=f"scan-pump-{wid}",
+                                  daemon=True)
+        thread.start()
+
+        async def feed() -> None:
+            while True:
+                if queue.empty():
+                    # About to idle: have the ring finish what it holds, so
+                    # its hits reach verification before a new job makes
+                    # them stale.
+                    req_q.put(STREAM_FLUSH)
+                item: WorkItem = await queue.get()
+                try:
+                    off = 0
+                    while off < item.nonce_count:
+                        if (self._stopping
+                                or item.generation != self._generation):
+                            break  # stale: a new job superseded this item
+                        count = min(self._next_dispatch_count(),
+                                    item.nonce_count - off)
+                        await slots.acquire()
+                        self.stats.scan_started()
+                        outstanding[0] += 1
+                        req_q.put(ScanRequest(
+                            header76=item.header76,
+                            nonce_start=item.nonce_start + off,
+                            count=count, target=item.job.share_target,
+                            tag=item,
+                        ))
+                        off += count
+                finally:
+                    queue.task_done()
+
+        feeder = asyncio.create_task(feed(), name=f"stream-feed-{wid}")
+        try:
+            while not self._stopping:
+                sres = await res_q.get()
+                if sres is end:
+                    break
+                slots.release()
+                self.stats.scan_finished()
+                outstanding[0] -= 1
+                item: WorkItem = sres.request.tag
+                result: ScanResult = sres.result
+                # The hashes were computed, so they count even when stale;
+                # only the hits of a superseded job are dropped.
+                self.stats.hashes += result.hashes_done
+                self.stats.batches += 1
+                if self.scheduler is not None:
+                    self.scheduler.record_result(sres.request.count)
+                if self._stopping or item.generation != self._generation:
+                    continue
+                try:
+                    for share in self._shares_from_result(item, result):
+                        await on_share(share)
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    logger.exception("worker %d failed on job %s", wid,
+                                     item.job.job_id)
+        finally:
+            feeder.cancel()
+            req_q.put(None)  # stop the pump; it drains and exits
+            await asyncio.gather(feeder, return_exceptions=True)
+            for _ in range(outstanding[0]):
+                self.stats.scan_finished()
+        if pump_error:
+            logger.error("worker %d scan stream failed: %s — restarting "
+                         "pipeline", wid, pump_error[0],
+                         exc_info=pump_error[0])
+            return True
+        return False
+
+    async def _mine_item(
+        self, loop: asyncio.AbstractEventLoop, item: WorkItem,
+        on_share: OnShare,
+    ) -> None:
+        """Sweep one nonce range in blocking dispatches; verify and report
+        hits."""
+        off = 0
+        while off < item.nonce_count:
+            if self._stopping or item.generation != self._generation:
+                return  # stale: a new job superseded this item
+            count = min(self._next_dispatch_count(), item.nonce_count - off)
+            self.stats.scan_started()
+            try:
+                result: ScanResult = await loop.run_in_executor(
+                    None, self.hasher.scan, item.header76,
+                    item.nonce_start + off, count, item.job.share_target,
+                )
+            finally:
+                self.stats.scan_finished()
+            self.stats.hashes += result.hashes_done
+            self.stats.batches += 1
+            if self.scheduler is not None:
+                self.scheduler.record_result(count)
+            if item.generation != self._generation:
+                return
+            for share in self._shares_from_result(item, result):
+                await on_share(share)
+            off += count
+
+    def _shares_from_result(
+        self, item: WorkItem, result: ScanResult
+    ) -> Iterator[Share]:
+        """Verified shares from one scan result."""
+        for nonce in result.nonces:
+            share = self._verify_hit(item, nonce)
+            if share is not None:
+                yield share
+
+    def _verify_hit(self, item: WorkItem, nonce: int) -> Optional[Share]:
+        """The parity gate: full CPU sha256d against the share and block
+        targets. A hit the oracle disagrees with is never submitted."""
+        header80 = item.header76 + nonce.to_bytes(4, "little")
+        h = hash_to_int(self.oracle.sha256d(header80))
+        if h > item.job.share_target:
+            self.stats.hw_errors += 1
+            logger.error(
+                "backend hit FAILED CPU verification: job=%s nonce=%#010x "
+                "hash=%064x target=%064x — dropping",
+                item.job.job_id, nonce, h, item.job.share_target,
+            )
+            return None
+        is_block = h <= item.job.block_target
+        self.stats.shares_found += 1
+        if is_block:
+            self.stats.blocks_found += 1
+            logger.warning("BLOCK FOUND: job=%s nonce=%#010x",
+                           item.job.job_id, nonce)
+        version = item.version if item.version is not None else item.job.version
+        return Share(
+            job_id=item.job.job_id,
+            extranonce2=item.extranonce2,
+            ntime=item.ntime,
+            nonce=nonce,
+            header80=header80,
+            hash_int=h,
+            is_block=is_block,
+            version_bits=(
+                version & item.job.version_mask
+                if item.job.version_mask else None
+            ),
+        )
+
+
+def _with_generation(job: Job, generation: int) -> Job:
+    if job.generation == generation:
+        return job
+    return dataclasses.replace(job, generation=generation)

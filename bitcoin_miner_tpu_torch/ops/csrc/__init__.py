@@ -1,0 +1,167 @@
+"""CUDA C++ sources of the scan kernels, and their loader.
+
+Each ``.cu`` file builds with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, under ``build/kernels/`` at the root of
+the checkout, on first use; the library name carries a digest of the
+sources and flags, so an edited source is rebuilt. The libraries are bound
+with ``ctypes``: pointers and the stream pass as ``c_void_p``, and every
+entry point returns ``cudaGetLastError()``, which :func:`check` turns into
+an exception. Nothing builds at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR.parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: library name → source file. Each library is built by one nvcc process.
+SOURCES = {"scan_tile": "scan_tile.cu", "scan_hitbuf": "scan_hitbuf.cu"}
+
+_P, _I, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                    ctypes.c_ulonglong)
+#: C entry point → argtypes; each returns cudaGetLastError() as an int.
+ENTRY_POINTS = {
+    "scan_tile": {
+        # job block, counts, mins, n_steps, block, word7, stream
+        "scan_tile_launch": [_P, _P, _P, _I, _U, _I, _P],
+    },
+    "scan_hitbuf": {
+        # midstate, tail3, limbs, base, limit, blk_hits, blk_counts,
+        # capacity, max_hits, iters, n_blocks, word7, stream
+        "scan_hitbuf_launch": [_P, _P, _P, _P, _P, _P, _P, _ULL, _I, _I,
+                               _I, _I, _P],
+        # blk_hits, blk_counts, n_blocks, max_hits, hits, count, stream
+        "hitbuf_compact_launch": [_P, _P, _I, _I, _P, _P, _P],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class LaunchCounter:
+    """Launches of one kernel: the wrapper adds one right after each
+    launch it makes, and nowhere else. Thread-safe, since several pump
+    threads share one hasher."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._value += 1
+
+    @property
+    def value(self) -> int:
+        return self._value
+
+    def reset(self) -> None:
+        with self._lock:
+            self._value = 0
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the toolkit's
+    default install, else ``nvcc`` on the PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (SOURCES[name], "sha256d.cuh"):
+        digest.update((SRC_DIR / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+    """Build the named libraries that are missing, one ``nvcc`` process per
+    source, all started together. Returns each library's compiler log
+    (``-Xptxas -v``: registers, spills and shared memory per kernel),
+    kept beside the library. Raises with the compiler's output on a
+    failed build."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return {
+        name: (library_path(name).with_suffix(".log").read_text()
+               if library_path(name).with_suffix(".log").exists() else "")
+        for name in names
+    }
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library ``name``, built first if it is missing."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in ENTRY_POINTS[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise when a launch entry point reports a CUDA error: a refused
+    launch never runs, and a later synchronise would not report it."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {rc} at launch")
+
+
+def check_tensor(t: torch.Tensor, device: torch.device, dtype: torch.dtype,
+                 shape: tuple) -> None:
+    """Validate a kernel input: device, type, shape and contiguity."""
+    if not isinstance(t, torch.Tensor) or t.device != device:
+        raise ValueError(f"kernel inputs must all lie on {device}")
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(
+            f"expected a contiguous {dtype} tensor of shape {shape}, got "
+            f"{t.dtype} {tuple(t.shape)}")

@@ -1,0 +1,497 @@
+"""SHA-256d round math in plain PyTorch, and the hit-buffer scan.
+
+Counterpart of ``bitcoin_miner_tpu/ops/sha256_jax.py``. Words are int64
+tensors holding 32-bit values, masked after every add: this torch's uint32
+tensors have no ``+``, shifts, ``<=`` or ``min`` on the CPU, and an int32
+``>>`` shifts arithmetically, which would corrupt every σ/Σ of a word with
+bit 31 set.
+
+Every helper also takes plain Python ints and folds them: job constants
+(midstate, round-3 state, header tail, target limbs) enter as ints, so
+only arithmetic touched by the nonce becomes tensor work — the partial
+evaluation the JAX reference does with its polymorphic helpers.
+:func:`ops_per_nonce` counts the 32-bit operations that depend on the
+nonce, from which :func:`bound_ms` gives the kernels' bound.
+
+:func:`scan_batch` is the hit-buffer scan: the plain version
+(:func:`scan_batch_plain`, the semantics of ``sha256_jax._scan_batch``)
+for CPU tensors, the CUDA kernels of ``csrc/scan_hitbuf.cu`` for CUDA
+tensors.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..core.sha256 import SHA256_IV, SHA256_K
+from . import csrc
+
+MASK32 = 0xFFFFFFFF
+_W2_TAIL = [0x80000000, 0, 0, 0, 0, 0, 0, 256]  # padding of a 32-byte message
+_CHUNK2_PAD = [0x80000000] + [0] * 10 + [640]  # words 4-15 of an 80-byte header
+
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & MASK32
+
+
+def _big_sigma0(x):
+    return _rotr(x, 2) ^ _rotr(x, 13) ^ _rotr(x, 22)
+
+
+def _big_sigma1(x):
+    return _rotr(x, 6) ^ _rotr(x, 11) ^ _rotr(x, 25)
+
+
+def _small_sigma0(x):
+    return _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+
+
+def _small_sigma1(x):
+    return _rotr(x, 17) ^ _rotr(x, 19) ^ (x >> 10)
+
+
+def _ch(e, f, g):
+    return g ^ (e & (f ^ g))
+
+
+def _maj(a, b, c):
+    return b ^ ((a ^ b) & (b ^ c))
+
+
+def _bswap32(x):
+    return (
+        ((x & 0x000000FF) << 24)
+        | ((x & 0x0000FF00) << 8)
+        | ((x >> 8) & 0x0000FF00)
+        | ((x >> 24) & 0x000000FF)
+    )
+
+
+def _add(*xs):
+    """Wrapping 32-bit sum; int terms fold into one literal."""
+    const = 0
+    rest = []
+    for x in xs:
+        if isinstance(x, int):
+            const += x
+        else:
+            rest.append(x)
+    const &= MASK32
+    if not rest:
+        return const
+    acc = rest[0]
+    for x in rest[1:]:
+        acc = acc + x
+    return (acc + const) & MASK32 if const else acc & MASK32
+
+
+def _schedule_word(w: List, i: int):
+    return _add(w[i % 16], _small_sigma0(w[(i - 15) % 16]), w[(i - 7) % 16],
+                _small_sigma1(w[(i - 2) % 16]))
+
+
+def _round(regs: Sequence, i: int, wi) -> Tuple:
+    a, b, c, d, e, f, g, h = regs
+    t1 = _add(h, _big_sigma1(e), _ch(e, f, g), SHA256_K[i], wi)
+    return (_add(t1, _big_sigma0(a), _maj(a, b, c)), a, b, c, _add(d, t1),
+            e, f, g)
+
+
+def expand_schedule(w: Sequence) -> List:
+    """The full 64-entry message schedule from a 16-word window."""
+    ws = list(w)
+    out = list(w)
+    for i in range(16, 64):
+        wi = _schedule_word(ws, i)
+        ws[i % 16] = wi
+        out.append(wi)
+    return out
+
+
+def compress(state: Sequence, w: Sequence, start: int = 0,
+             feedforward: Sequence = None) -> Tuple:
+    """One SHA-256 compression with a rolling 16-word schedule window.
+
+    ``start``/``feedforward`` implement the fixed-prefix precompute: when
+    the first ``start`` message words are job constants, the host runs
+    rounds ``0..start-1`` once (``core.sha256.sha256_rounds``) and the
+    compression resumes from that register ``state``, with ``feedforward``
+    holding the chaining value for the final add (default ``state``)."""
+    w = list(w)
+    ff = state if feedforward is None else feedforward
+    regs = tuple(state)
+    for i in range(start, 64):
+        if i >= 16:
+            w[i % 16] = _schedule_word(w, i)
+        regs = _round(regs, i, w[i % 16])
+    return tuple(_add(s, r) for s, r in zip(ff, regs))
+
+
+def compress_word7(state: Sequence, w: Sequence, start: int = 0,
+                   feedforward: Sequence = None):
+    """Word 7 of one compression, nothing else: the word the target check
+    at any share difficulty ≥ 1 reads first. The e-value made at round 60
+    only shifts e→f→g→h through rounds 61-63, so h[7] = ff[7] + d + t1(60):
+    rounds 61-63, the round-60 t2, three schedule words and seven
+    feedforward adds are skipped."""
+    w = list(w)
+    ff = state if feedforward is None else feedforward
+    regs = tuple(state)
+    for i in range(start, 60):
+        if i >= 16:
+            w[i % 16] = _schedule_word(w, i)
+        regs = _round(regs, i, w[i % 16])
+    a, b, c, d, e, f, g, h = regs
+    t1 = _add(h, _big_sigma1(e), _ch(e, f, g), SHA256_K[60],
+              _schedule_word(w, 60))
+    return _add(ff[7], d, t1)
+
+
+def _words(x, n: int) -> Tuple[int, ...]:
+    """``n`` 32-bit words as Python ints from a tensor, array or sequence."""
+    if isinstance(x, torch.Tensor):
+        vals = x.reshape(-1).tolist()
+    else:
+        vals = np.asarray(x).reshape(-1).tolist()
+    if len(vals) != n:
+        raise ValueError(f"expected {n} words, got {len(vals)}")
+    return tuple(int(v) & MASK32 for v in vals)
+
+
+def _chunk2_state3(midstate, tail3) -> Tuple[int, ...]:
+    """Registers after rounds 0-2 of the chunk-2 compression: those rounds
+    consume only header[64:76], so they run once per job."""
+    regs = _words(midstate, 8)
+    tail = _words(tail3, 3)
+    for i in range(3):
+        regs = _round(regs, i, tail[i])
+    return regs
+
+
+def _as_nonces(nonces) -> torch.Tensor:
+    if not isinstance(nonces, torch.Tensor):
+        nonces = torch.from_numpy(np.asarray(nonces).astype(np.int64))
+    return nonces.to(torch.int64) & MASK32
+
+
+def _digest_inputs(mid, s3, tail, nonces):
+    w1 = [tail[0], tail[1], tail[2], _bswap32(nonces)] + _CHUNK2_PAD
+    h1 = compress(s3, w1, start=3, feedforward=mid)
+    return list(h1) + _W2_TAIL
+
+
+def sha256d_midstate_digests(midstate, tail3, nonces) -> Tuple:
+    """The 8 sha256d digest words (SHA-256 big-endian word order) of the
+    headers ``header[0:76] ‖ nonce``, from the chunk-1 midstate (8 words)
+    and header[64:76] as 3 big-endian words. Each word is shaped like
+    ``nonces``."""
+    mid = _words(midstate, 8)
+    w2 = _digest_inputs(mid, _chunk2_state3(mid, tail3), _words(tail3, 3),
+                        _as_nonces(nonces))
+    return compress(SHA256_IV, w2)
+
+
+def sha256d_midstate_word7(midstate, tail3, nonces):
+    """Digest word 7 only — the early-reject path (:func:`compress_word7`)."""
+    mid = _words(midstate, 8)
+    w2 = _digest_inputs(mid, _chunk2_state3(mid, tail3), _words(tail3, 3),
+                        _as_nonces(nonces))
+    return compress_word7(SHA256_IV, w2)
+
+
+def meets_target_words(h2: Sequence, target_limbs):
+    """hash ≤ target without 256-bit integers: byte-reverse the digest and
+    compare its 8 big-endian limbs lexicographically against the target's
+    (``core.target.target_to_limbs``), from the least significant up."""
+    limbs = _words(target_limbs, 8)
+    le = None
+    for k in range(8):
+        d = _bswap32(h2[k])
+        t = limbs[7 - k]
+        le = d <= t if le is None else (d < t) | ((d == t) & le)
+    return le
+
+
+def _meets(mid, s3, tail, limbs, nonces: torch.Tensor, word7: bool):
+    """Per-nonce verdicts from a job's constants (Python ints): hash ≤
+    target, or with ``word7`` the candidate test bswap32(h2[7]) ≤ limbs[0],
+    a superset of the hits that callers re-verify exactly."""
+    w2 = _digest_inputs(mid, s3, tail, nonces)
+    if word7:
+        return _bswap32(compress_word7(SHA256_IV, w2)) <= limbs[0]
+    return meets_target_words(compress(SHA256_IV, w2), limbs)
+
+
+class OpCount(NamedTuple):
+    """Nonce-dependent 32-bit operations per nonce, by the pipe that can
+    run them on Hopper: ``logic`` (funnel shifts, LOP3, byte permutes,
+    compares) only on the 64-lane integer pipe; ``adds`` (IADD3) there or,
+    as IMAD, on the FMA pipe."""
+
+    logic: int
+    adds: int
+
+    @property
+    def total(self) -> int:
+        return self.logic + self.adds
+
+
+#: Word kinds of the operation count; an int is a known constant.
+UNIFORM = "uniform"  # one value per job
+VARYING = "varying"  # depends on the nonce
+
+
+class OpTally:
+    """Counts the 32-bit operations on nonce-dependent words, walking the
+    round and schedule structure of :func:`compress`. Counting rule: a
+    rotate or shift is one funnel shift and a 3-input logic function one
+    LOP3, so each Σ/σ costs 4 logic operations and Ch, Maj or a byte swap
+    one; in a sum, the constant and uniform terms fold into one, and the
+    n terms left cost ceil((n-1)/2) 3-input adds (IADD3). Work on
+    constants and uniform words alone is free (it folds, or is hoisted per
+    job)."""
+
+    def __init__(self) -> None:
+        self.logic = 0
+        self.adds = 0
+
+    def fn(self, cost: int, plain, *xs):
+        """A logic function of ``cost`` operations; ``plain`` folds it
+        when every operand is a constant."""
+        if VARYING in xs:
+            self.logic += cost
+            return VARYING
+        return UNIFORM if UNIFORM in xs else plain(*xs)
+
+    def add(self, *xs):
+        const = sum(x for x in xs if isinstance(x, int)) & MASK32
+        varying = xs.count(VARYING)
+        if not varying:
+            return UNIFORM if UNIFORM in xs else const
+        self.adds += (varying + (bool(const) or UNIFORM in xs)) // 2
+        return VARYING
+
+    def schedule_word(self, w: List, i: int):
+        return self.add(w[i % 16], self.fn(4, _small_sigma0, w[(i - 15) % 16]),
+                        w[(i - 7) % 16],
+                        self.fn(4, _small_sigma1, w[(i - 2) % 16]))
+
+    def t1(self, regs: Sequence, i: int, wi):
+        e, f, g, h = regs[4:]
+        return self.add(h, self.fn(4, _big_sigma1, e), self.fn(1, _ch, e, f, g),
+                        SHA256_K[i], wi)
+
+    def rounds(self, state: Sequence, w: Sequence, start: int, stop: int):
+        """Registers and schedule window after rounds ``start..stop-1``."""
+        w = list(w)
+        regs = tuple(state)
+        for i in range(start, stop):
+            if i >= 16:
+                w[i % 16] = self.schedule_word(w, i)
+            a, b, c, d = regs[:4]
+            t1 = self.t1(regs, i, w[i % 16])
+            regs = (self.add(t1, self.fn(4, _big_sigma0, a),
+                             self.fn(1, _maj, a, b, c)),
+                    a, b, c, self.add(d, t1), *regs[4:7])
+        return regs, w
+
+
+def ops_per_nonce(word7: bool) -> OpCount:
+    """The operations each nonce needs after the round 0-2 precompute
+    (:class:`OpTally`'s rule), for the path of :func:`_meets`. The target
+    compare adds, per digest limb read, a byte swap and two
+    compare-and-combine operations: one limb in word7 mode, eight
+    otherwise."""
+    tally = OpTally()
+    nonce = tally.fn(1, _bswap32, VARYING)
+    w1 = [UNIFORM] * 3 + [nonce] + _CHUNK2_PAD
+    regs, _ = tally.rounds((UNIFORM,) * 8, w1, 3, 64)
+    w2 = [tally.add(UNIFORM, r) for r in regs] + _W2_TAIL  # midstate feedforward
+    if word7:
+        regs, w = tally.rounds(SHA256_IV, w2, 0, 60)
+        tally.add(SHA256_IV[7], regs[3],
+                  tally.t1(regs, 60, tally.schedule_word(w, 60)))
+        return OpCount(tally.logic + 3, tally.adds)
+    regs, _ = tally.rounds(SHA256_IV, w2, 0, 64)
+    for s, r in zip(SHA256_IV, regs):
+        tally.add(s, r)
+    return OpCount(tally.logic + 8 * 3, tally.adds)
+
+
+#: 32-bit lanes per SM and clock of Hopper's integer pipe (logic, shifts,
+#: IADD3) and of instruction dispatch (4 schedulers × 32 lanes; IMAD adds
+#: on the FMA pipe fill the difference).
+INT_LANES_PER_SM = 64
+DISPATCH_LANES_PER_SM = 128
+
+
+def bound_ms(nonces: int, word7: bool, sms: int, sm_clock_hz: float) -> float:
+    """The least time a card with ``sms`` SMs at ``sm_clock_hz`` could take
+    to hash ``nonces`` nonces: per nonce and SM, the logic operations need
+    ``logic / 64`` clocks on the integer pipe and all operations
+    ``total / 128`` clocks of instruction dispatch, whichever is larger."""
+    ops = ops_per_nonce(word7)
+    clocks = max(ops.logic / INT_LANES_PER_SM,
+                 ops.total / DISPATCH_LANES_PER_SM)
+    return nonces * clocks / (sms * sm_clock_hz) * 1e3
+
+
+def _chunk_size(device: torch.device) -> int:
+    # Nonces per tensor pass of the plain versions: large enough that a
+    # card's launch overhead does not dominate, small enough for the CPU.
+    return 1 << 20 if device.type == "cuda" else 1 << 16
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def _u32(values: torch.Tensor, device: torch.device) -> torch.Tensor:
+    # int64 → uint32 on the CPU, where this torch supports the conversion.
+    return values.cpu().to(torch.uint32).to(device)
+
+
+def scan_batch_plain(midstate, tail3, target_limbs, nonce_base, limit, *,
+                     inner_size: int, n_steps: int, max_hits: int,
+                     word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan ``n_steps × inner_size`` nonces from ``nonce_base``; only
+    offsets < ``limit`` count. Returns ``(hits, count)``: the first
+    ``max_hits`` hit nonces in ascending offset order as uint32, unused
+    slots 0xFFFFFFFF, and the uncapped hit count as a 0-d int32 — the
+    contract of ``bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch``.
+    Nonces wrap modulo 2^32. With ``word7`` the buffer holds candidates."""
+    device = _device_of(midstate)
+    mid = _words(midstate, 8)
+    tail = _words(tail3, 3)
+    limbs = _words(target_limbs, 8)
+    s3 = _chunk2_state3(mid, tail)
+    base = _words(nonce_base, 1)[0]
+    n = min(_words(limit, 1)[0], n_steps * inner_size)
+    chunk = _chunk_size(device)
+    hits: List[int] = []
+    count = 0
+    for off in range(0, n, chunk):
+        offs = torch.arange(off, min(off + chunk, n), dtype=torch.int64,
+                            device=device)
+        nonces = (offs + base) & MASK32
+        meets = _meets(mid, s3, tail, limbs, nonces, word7)
+        count += int(meets.sum())
+        if len(hits) < max_hits:
+            idx = torch.nonzero(meets).flatten()[: max_hits - len(hits)]
+            hits.extend(nonces[idx].tolist())
+    buf = torch.full((max_hits,), MASK32, dtype=torch.int64)
+    buf[: len(hits)] = torch.tensor(hits, dtype=torch.int64)
+    return (_u32(buf, device),
+            torch.tensor(count, dtype=torch.int32, device=device))
+
+
+#: Launches of ``csrc/scan_hitbuf.cu::scan_hitbuf_kernel`` (made by
+#: :func:`scan_batch`) and of its one-block compaction
+#: ``hitbuf_compact_kernel`` (made by :func:`hitbuf_compact`).
+SCAN_HITBUF = csrc.LaunchCounter("scan_hitbuf")
+HITBUF_COMPACT = csrc.LaunchCounter("hitbuf_compact")
+
+_THREADS = 256  # threads per block of scan_hitbuf_kernel
+_WAVE_BLOCKS = 528  # four blocks of 256 threads on each of 132 SMs
+
+
+def hitbuf_geometry(capacity: int) -> Tuple[int, int]:
+    """(iters, n_blocks) of the hit-buffer kernel for ``capacity`` nonces:
+    each block owns ``256·iters`` consecutive nonces, with ``iters`` up to
+    32, shrunk for small scans so that their grid still fills the card."""
+    iters = max(1, min(32, capacity // (_THREADS * _WAVE_BLOCKS)))
+    span = _THREADS * iters
+    return iters, -(-capacity // span)
+
+
+def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
+               inner_size: int, n_steps: int, max_hits: int,
+               word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hit-buffer scan (:func:`scan_batch_plain`'s contract) on the
+    tensors' device. CPU tensors take the plain version; CUDA tensors
+    (uint32: midstate (8,), tail3 (3,), limbs (8,), 0-d base and limit)
+    launch ``scan_hitbuf_kernel``, then :func:`hitbuf_compact`, on the
+    current stream, without synchronising.
+
+    Replaces the XLA scan ``bitcoin_miner_tpu/ops/sha256_jax.py::
+    _scan_batch`` (no Pallas source). Bound: 32-bit integer operations
+    (:func:`bound_ms` over the nonces below ``min(limit, capacity)``); the
+    outputs are a few hundred bytes. Design in ``csrc/scan_hitbuf.cu``."""
+    device = _device_of(midstate)
+    if device.type == "cpu":
+        return scan_batch_plain(
+            midstate, tail3, target_limbs, nonce_base, limit,
+            inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
+            word7=word7)
+    args = (midstate, tail3, target_limbs, nonce_base, limit)
+    for t, shape in zip(args, ((8,), (3,), (8,), (), ())):
+        csrc.check_tensor(t, device, torch.uint32, shape)
+    if not 0 < max_hits <= 1 << 16:
+        raise ValueError(f"max_hits must be in [1, 65536], got {max_hits}")
+    capacity = n_steps * inner_size
+    if not 0 < capacity <= 1 << 32:
+        raise ValueError(f"capacity {capacity} must be in [1, 2^32]")
+    iters, n_blocks = hitbuf_geometry(capacity)
+    blk_hits = torch.empty(n_blocks * max_hits, dtype=torch.uint32,
+                           device=device)
+    blk_counts = torch.empty(n_blocks, dtype=torch.int32, device=device)
+    lib = csrc.load("scan_hitbuf")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        csrc.check(lib.scan_hitbuf_launch(
+            *(t.data_ptr() for t in args), blk_hits.data_ptr(),
+            blk_counts.data_ptr(), capacity, max_hits, iters, n_blocks,
+            int(word7), stream), "scan_hitbuf_kernel")
+        SCAN_HITBUF.add()
+    return hitbuf_compact(blk_hits, blk_counts, max_hits)
+
+
+def hitbuf_compact_plain(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
+                         max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-block hit slots in block order: block ``b`` stored its
+    first ``min(blk_counts[b], max_hits)`` hits at ``blk_hits[b·max_hits:]``.
+    Returns the first ``max_hits`` hits overall (unused slots 0xFFFFFFFF)
+    and the uncapped total as a 0-d int32."""
+    device = blk_hits.device
+    counts = blk_counts.cpu().to(torch.int64).tolist()
+    slots = blk_hits.cpu().to(torch.int64).view(len(counts), max_hits)
+    hits: List[int] = []
+    for b, n in enumerate(counts):
+        if len(hits) < max_hits and n:
+            hits.extend(slots[b, :min(n, max_hits - len(hits))].tolist())
+    buf = torch.full((max_hits,), MASK32, dtype=torch.int64)
+    buf[: len(hits)] = torch.tensor(hits, dtype=torch.int64)
+    return (_u32(buf, device),
+            torch.tensor(sum(counts), dtype=torch.int32, device=device))
+
+
+def hitbuf_compact(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
+                   max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second half of the hit-buffer scan (:func:`hitbuf_compact_plain`'s
+    contract). CPU tensors take the plain version; CUDA tensors launch the
+    one-block ``hitbuf_compact_kernel`` on the current stream.
+
+    Replaces the ordered append of ``bitcoin_miner_tpu/ops/sha256_jax.py::
+    _scan_batch`` (``jnp.nonzero`` and the scatter into the hit buffer).
+    Bound: bytes — the block counts read and the hits copied."""
+    device = blk_hits.device
+    if device.type == "cpu":
+        return hitbuf_compact_plain(blk_hits, blk_counts, max_hits)
+    n_blocks = blk_counts.numel()
+    csrc.check_tensor(blk_counts, device, torch.int32, (n_blocks,))
+    csrc.check_tensor(blk_hits, device, torch.uint32, (n_blocks * max_hits,))
+    hits = torch.empty(max_hits, dtype=torch.uint32, device=device)
+    count = torch.empty((), dtype=torch.int32, device=device)
+    lib = csrc.load("scan_hitbuf")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        csrc.check(lib.hitbuf_compact_launch(
+            blk_hits.data_ptr(), blk_counts.data_ptr(), n_blocks, max_hits,
+            hits.data_ptr(), count.data_ptr(), stream),
+            "hitbuf_compact_kernel")
+        HITBUF_COMPACT.add()
+    return hits, count

@@ -1,0 +1,93 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture for the card and skips
+without one. On a machine with a card:
+``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``
+(the conftest imports JAX, which that machine need not have)."""
+
+import pytest
+import torch
+
+from bitcoin_miner_tpu_torch.backends.cuda import CudaHasher, TileCudaHasher
+from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONCE
+from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
+from bitcoin_miner_tpu_torch.ops import sha256_tile, sha256_torch
+from bitcoin_miner_tpu_torch.ops.sha256_tile import (
+    job_block_from_header,
+    scan_tile,
+    scan_tile_plain,
+)
+from bitcoin_miner_tpu_torch.ops.sha256_torch import (
+    hitbuf_compact,
+    hitbuf_compact_plain,
+    scan_batch,
+    scan_batch_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+GENESIS76 = bytes.fromhex(GENESIS_HEADER_HEX)[:76]
+DIFF1 = nbits_to_target(0x1D00FFFF)
+EASY = difficulty_to_target(1 / (1 << 22))  # ~2^-10 per nonce
+N = 1 << 20
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _equal(got, want):
+    return all(torch.equal(g.cpu().to(torch.int64), w.cpu().to(torch.int64))
+               for g, w in zip(got, want))
+
+
+CASES = [
+    ("genesis", GENESIS76, DIFF1, GENESIS_NONCE - (N // 2), N),
+    ("easy_cut", bytes(range(76)), EASY, 99, N - 3 * 8192 - 77),
+    ("easy_wraps", bytes(76), EASY, (1 << 32) - N // 2, N),
+]
+
+
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_matches_plain(cuda, case, word7):
+    _, header76, target, base, limit = case
+    job = job_block_from_header(header76, target, base, limit).to(cuda)
+    kw = dict(n_steps=N // 8192, block=8192, word7=word7)
+    before = sha256_tile.SCAN_TILE.value
+    got = scan_tile(job, **kw)
+    assert sha256_tile.SCAN_TILE.value == before + 1
+    assert _equal(got, scan_tile_plain(job, **kw))
+
+
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_batch_matches_plain(cuda, case, word7):
+    _, header76, target, base, limit = case
+    job = job_block_from_header(header76, target, base, limit).to(cuda)
+    parts = (job[0:8], job[16:19], job[19:27], job[27], job[28])
+    kw = dict(inner_size=1 << 16, n_steps=N >> 16, max_hits=32, word7=word7)
+    got = scan_batch(*parts, **kw)
+    assert _equal(got, scan_batch_plain(*parts, **kw))
+
+
+def test_hitbuf_compact_matches_plain(cuda):
+    counts = torch.tensor([0, 3, 100, 0, 2] * 500, dtype=torch.int32)
+    slots = torch.arange(counts.numel() * 8, dtype=torch.int64)
+    blk_hits = slots.to(torch.uint32).to(cuda)
+    got = hitbuf_compact(blk_hits, counts.to(cuda), 8)
+    assert _equal(got, hitbuf_compact_plain(blk_hits, counts, 8))
+    assert int(got[1]) == 105 * 500
+
+
+@pytest.mark.parametrize("cls", [TileCudaHasher, CudaHasher])
+def test_hasher_on_card_matches_plain_hasher(cuda, cls):
+    card = cls(batch_size=1 << 20, device="cuda")
+    plain = cls(batch_size=1 << 20, device="cpu")
+    got = card.scan(GENESIS76, GENESIS_NONCE - 3_000_000, 1 << 22, DIFF1)
+    assert got.nonces == [GENESIS_NONCE]
+    easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
