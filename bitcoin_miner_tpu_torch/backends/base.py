@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, Iterator, List
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Tuple
 
 MAX_NONCE = 1 << 32
 
@@ -24,15 +24,29 @@ MAX_NONCE = 1 << 32
 class ScanResult:
     """Result of one ``scan``: the hits (hash ≤ target) in ascending order,
     possibly capped at the backend's hit capacity; the uncapped count, so a
-    caller can detect truncation; and the number of nonces tried."""
+    caller can detect truncation; and the hashes computed (nonces tried ×
+    the chains that hashed each).
+
+    ``version_hits``: hits on version-rolled sibling headers found by a
+    backend that shares the chunk-2 schedule across chains (vshare > 1),
+    as (version, nonce) pairs. They stay out of ``nonces``/``total_hits``,
+    which describe the caller's own header: a consumer that has not opted
+    into version rolling must never submit one against it. Empty for every
+    one-chain backend. ``version_total_hits`` is their uncapped count."""
 
     nonces: List[int] = field(default_factory=list)
     total_hits: int = 0
     hashes_done: int = 0
+    version_hits: List[Tuple[int, int]] = field(default_factory=list)
+    version_total_hits: int = 0
 
     @property
     def truncated(self) -> bool:
         return self.total_hits > len(self.nonces)
+
+    @property
+    def version_truncated(self) -> bool:
+        return self.version_total_hits > len(self.version_hits)
 
 
 @dataclass(frozen=True)

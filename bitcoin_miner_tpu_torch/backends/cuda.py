@@ -5,6 +5,15 @@ per-job constants once (midstate, round-3 state, header tail, target
 limbs; LRU-cached), then streams fixed-size dispatches to the card; each
 returns a few hundred bytes.
 
+With ``vshare`` = k > 1 (overt AsicBoost) every nonce is hashed against k
+version-rolled sibling headers, whose versions xor the job's own with
+patterns inside the session's BIP 310 mask (:func:`sibling_version_patterns`):
+the kernels share one chunk-2 message schedule across the k chains, chain
+0 is the caller's header, and the siblings' hits come back as
+``ScanResult.version_hits``. A mask too narrow for k chains (mask 0: the
+pool granted no rolling) degrades the hasher to chain 0 alone, through the
+one-chain kernels.
+
 Async dispatch does not come free as it does under JAX: a ``.cpu()``
 readback waits for everything queued on the stream, including dispatches
 queued after the one being read. So each dispatch uploads its job words
@@ -28,22 +37,16 @@ import logging
 import struct
 import threading
 from collections import OrderedDict, deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.sha256 import (
-    SHA256_IV,
-    _sha256_pad,
-    sha256_midstate,
-    sha256_rounds,
-    sha256d_from_midstate,
-)
-from ..core.target import target_to_limbs
-from ..ops.sha256_tile import scan_tile
-from ..ops.sha256_torch import compress, scan_batch
+from ..core.sha256 import SHA256_IV, _sha256_pad, sha256d_from_midstate
+from ..ops.csrc import MAX_VSHARE
+from ..ops.sha256_tile import job_words, scan_tile
+from ..ops.sha256_torch import compress, scan_batch_vshare
 from .base import (
     Hasher,
     STREAM_FLUSH,
@@ -56,6 +59,27 @@ from .base import (
 logger = logging.getLogger(__name__)
 
 _LATER_SLICE = "is not ported yet; it waits for a later slice of the port"
+
+#: The standard full BIP 310 version-rolling mask (bits 13-28): the bench's
+#: mask; a mining session replaces it with the pool's through
+#: :meth:`CudaHasher.set_version_mask`.
+DEFAULT_VERSION_MASK = 0x1FFFE000
+
+
+def sibling_version_patterns(mask: int, k: int) -> List[int]:
+    """k-1 distinct nonzero version-xor patterns inside ``mask``: sibling
+    chain c's pattern is c's binary digits spread onto the mask's lowest
+    set bit positions, so every sibling version stays inside the
+    negotiated mask (on the default mask, ``c << 13``). Raises ValueError
+    when the mask has too few bits for k distinct chains."""
+    bits = [i for i in range(32) if (mask >> i) & 1]
+    need = max(1, (k - 1).bit_length())
+    if len(bits) < need:
+        raise ValueError(
+            f"version mask {mask:#010x} has {len(bits)} rollable bits; "
+            f"vshare={k} needs {need}")
+    return [sum(1 << bits[i] for i in range(need) if (c >> i) & 1)
+            for c in range(1, k)]
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -76,12 +100,31 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 @dataclass(frozen=True)
 class JobConstants:
-    """One job's device constants, as host words."""
+    """One job's device constants, as host words, for the chains a hasher
+    mines: row c of ``midstates``/``state3s`` is chain c, the header with
+    version ``versions[c]`` (row 0 the header's own). One row when the
+    hasher runs one chain, or when the mask cannot carry its siblings."""
 
-    midstate: np.ndarray  # (8,) chunk-1 midstate
-    state3: np.ndarray    # (8,) registers after chunk-2 rounds 0-2
-    tail3: np.ndarray     # (3,) header[64:76], big-endian words
-    limbs: np.ndarray     # (8,) target limbs, most significant first
+    midstates: np.ndarray  # (k, 8) chunk-1 midstates
+    state3s: np.ndarray    # (k, 8) registers after chunk-2 rounds 0-2
+    tail3: np.ndarray      # (3,) header[64:76], big-endian words
+    limbs: np.ndarray      # (8,) target limbs, most significant first
+    versions: Tuple[int, ...]
+
+    @classmethod
+    def build(cls, header76: bytes, target: int,
+              versions: Sequence[int]) -> "JobConstants":
+        k = len(versions)
+        words = job_words(header76, target, versions)
+        return cls(midstates=words[:8 * k].reshape(k, 8),
+                   state3s=words[8 * k:16 * k].reshape(k, 8),
+                   tail3=words[16 * k:16 * k + 3],
+                   limbs=words[16 * k + 3:], versions=tuple(versions))
+
+    @property
+    def chains(self) -> int:
+        """Chains hashed per nonce: the hashes each nonce counts for."""
+        return len(self.versions)
 
     @property
     def word7(self) -> bool:
@@ -89,6 +132,28 @@ class JobConstants:
         target limb of 0 (any share difficulty ≥ 1) makes them ≤ 2^-32 per
         nonce, so re-verifying them exactly is free."""
         return int(self.limbs[0]) == 0
+
+
+@dataclass
+class _Found:
+    """The hits of one request, summed over its dispatches: chain 0's (the
+    request's own header) and the sibling chains' as (version, nonce)."""
+
+    hits: List[int] = field(default_factory=list)
+    total: int = 0
+    version_hits: List[Tuple[int, int]] = field(default_factory=list)
+    version_total: int = 0
+
+    def add(self, jc: JobConstants, chain: int, got: List[int],
+            n: int) -> None:
+        """Record chain ``chain``'s verified hits ``got`` and its uncapped
+        count ``n``."""
+        if chain == 0:
+            self.hits.extend(got)
+            self.total += n
+        else:
+            self.version_hits.extend((jc.versions[chain], g) for g in got)
+            self.version_total += n
 
 
 class _Dispatch:
@@ -124,11 +189,12 @@ def _upload(words: Sequence[int], device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
-def _verify_candidates(candidates: List[int], jc: JobConstants
+def _verify_candidates(candidates: List[int], jc: JobConstants, chain: int
                        ) -> Tuple[List[int], int]:
-    """Exact CPU re-check of word7 candidates (about one per 2^32 nonces
-    at difficulty ≥ 1), so the ScanResult stays exact at every target."""
-    mid = tuple(int(x) for x in jc.midstate)
+    """Exact CPU re-check of chain ``chain``'s word7 candidates (about one
+    per 2^32 nonces at difficulty ≥ 1), against its own midstate, so the
+    ScanResult stays exact at every target."""
+    mid = tuple(int(x) for x in jc.midstates[chain])
     tail12 = struct.pack(">3I", *(int(x) for x in jc.tail3))
     target = 0
     for limb in jc.limbs:
@@ -144,10 +210,10 @@ def _verify_candidates(candidates: List[int], jc: JobConstants
 class CudaHasher(Hasher):
     """The hit-buffer kernel behind the dispatch ring (``--backend cuda``).
 
-    Each dispatch of ``batch_size`` nonces returns the first ``max_hits``
-    hits and the uncapped count; at a target whose top limb is 0 the
-    kernel runs in word7 mode and its candidates are re-verified on the
-    CPU."""
+    Each dispatch of ``batch_size`` nonces returns, per chain, the first
+    ``max_hits`` hits and the uncapped count; at a target whose top limb
+    is 0 the kernel runs in word7 mode and its candidates are re-verified
+    on the CPU against their chain's own midstate."""
 
     name = "cuda"
     scan_releases_gil = True
@@ -157,7 +223,7 @@ class CudaHasher(Hasher):
     stream_depth = 2
 
     #: per-job constants kept (LRU): a session alternates between at most
-    #: a few live (header, target) pairs.
+    #: a few live (header, target, mask) triples.
     _CONSTS_CAPACITY = 8
 
     def __init__(
@@ -168,16 +234,18 @@ class CudaHasher(Hasher):
         vshare: int = 1,
         device: Optional[str] = None,
     ) -> None:
-        if vshare != 1:
-            raise NotImplementedError(
-                f"vshare={vshare} (version-rolled sibling chains) {_LATER_SLICE}")
         if batch_size % inner_size:
             raise ValueError("batch_size must be a multiple of inner_size")
+        self._vshare = max(1, vshare)
+        if self._vshare > MAX_VSHARE:
+            raise ValueError(f"vshare={vshare}: the kernels are built for at "
+                             f"most {MAX_VSHARE} chains")
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.inner_size = inner_size
         self.max_hits = max_hits
-        self.version_mask = 0
+        self.version_mask = DEFAULT_VERSION_MASK
+        self._siblings_ok = True
         self._consts_cache: "OrderedDict[tuple, JobConstants]" = OrderedDict()
         self._consts_lock = threading.Lock()
 
@@ -213,44 +281,59 @@ class CudaHasher(Hasher):
         return res.result
 
     def _job_constants(self, header76: bytes, target: int) -> JobConstants:
-        """Per-job constants, computed once per (header76, target) and
-        LRU-cached across scan and stream calls, so a dispatch's own host
-        work is two words."""
-        key = (header76, target)
+        """Per-job constants, computed once per (header76, target, mask)
+        and LRU-cached across scan and stream calls, so a dispatch's own
+        host work is two words. The mask is read once: a scan racing
+        :meth:`set_version_mask` builds every chain from that one reading,
+        and its entry is not cached unless the mask still holds."""
+        mask = self.version_mask
+        key = (header76, target, mask)
         with self._consts_lock:
             entry = self._consts_cache.get(key)
             if entry is not None:
                 self._consts_cache.move_to_end(key)
                 return entry
-        mid = sha256_midstate(header76[:64])
-        tail = struct.unpack(">3I", header76[64:76])
-        entry = JobConstants(
-            midstate=np.asarray(mid, dtype=np.uint32),
-            state3=np.asarray(sha256_rounds(mid, tail, 3), dtype=np.uint32),
-            tail3=np.asarray(tail, dtype=np.uint32),
-            limbs=np.asarray(target_to_limbs(target), dtype=np.uint32),
-        )
-        with self._consts_lock:
-            self._consts_cache[key] = entry
-            self._consts_cache.move_to_end(key)
-            while len(self._consts_cache) > self._CONSTS_CAPACITY:
-                self._consts_cache.popitem(last=False)
+        version = int.from_bytes(header76[:4], "little")
+        entry = JobConstants.build(header76, target,
+                                   self._chain_versions(version, mask))
+        if self.version_mask == mask:
+            with self._consts_lock:
+                self._consts_cache[key] = entry
+                self._consts_cache.move_to_end(key)
+                while len(self._consts_cache) > self._CONSTS_CAPACITY:
+                    self._consts_cache.popitem(last=False)
         return entry
 
-    def _hitbuf(self, jc: JobConstants, base: int, limit: int,
-                capacity: int, inner_size: int, word7: bool) -> _Dispatch:
-        """Queue one hit-buffer scan of ``[base, base + limit)``."""
-        words = _upload(
-            [*jc.midstate, *jc.tail3, *jc.limbs, base & 0xFFFFFFFF, limit],
-            self.device)
-        out = scan_batch(words[0:8], words[8:11], words[11:19], words[19],
-                         words[20], inner_size=inner_size,
-                         n_steps=capacity // inner_size,
-                         max_hits=self.max_hits, word7=word7)
+    def _chain_versions(self, version: int, mask: int) -> Tuple[int, ...]:
+        """The versions of the chains mined under ``mask``: the header's
+        own, then ``vshare - 1`` siblings inside the mask — or the header's
+        own alone when the mask cannot carry them (degraded)."""
+        if self._vshare == 1:
+            return (version,)
+        try:
+            patterns = sibling_version_patterns(mask or 0, self._vshare)
+        except ValueError:
+            return (version,)
+        return (version, *(version ^ p for p in patterns))
+
+    def _hitbuf(self, midstates: np.ndarray, jc: JobConstants, base: int,
+                limit: int, capacity: int, inner_size: int,
+                word7: bool) -> _Dispatch:
+        """Queue one hit-buffer scan of ``[base, base + limit)`` for the
+        chains of ``midstates`` (rows of ``jc.midstates``)."""
+        k = len(midstates)
+        words = _upload([*midstates.ravel(), *jc.tail3, *jc.limbs,
+                         base & 0xFFFFFFFF, limit], self.device)
+        out = scan_batch_vshare(
+            words[:8 * k].view(k, 8), words[8 * k:8 * k + 3],
+            words[8 * k + 3:8 * k + 11], words[8 * k + 11],
+            words[8 * k + 12], inner_size=inner_size,
+            n_steps=capacity // inner_size, max_hits=self.max_hits,
+            word7=word7)
         return _Dispatch(out)
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
-        return self._hitbuf(jc, base, limit, self.batch_size,
+        return self._hitbuf(jc.midstates, jc, base, limit, self.batch_size,
                             self.inner_size, jc.word7)
 
     def _warn_overflow(self, n: int) -> None:
@@ -262,14 +345,15 @@ class CudaHasher(Hasher):
                 "(dropped %d)", n, self.max_hits, n - self.max_hits)
 
     def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
-                 limit: int) -> Tuple[List[int], int]:
-        buf, n = out.result()
-        n = int(n)
-        got = [int(x) for x in buf[:min(n, self.max_hits)]]
-        if not jc.word7:
-            return got, n
-        self._warn_overflow(n)
-        return _verify_candidates(got, jc)
+                 limit: int, found: _Found) -> None:
+        bufs, counts = out.result()
+        for chain in range(jc.chains):
+            n = int(counts[chain])
+            got = [int(x) for x in bufs[chain, :min(n, self.max_hits)]]
+            if jc.word7:
+                self._warn_overflow(n)
+                got, n = _verify_candidates(got, jc, chain)
+            found.add(jc, chain, got, n)
 
     # ------------------------------------------------------------ streaming
     def scan_stream(
@@ -284,16 +368,17 @@ class CudaHasher(Hasher):
         def collect_oldest() -> Optional[StreamResult]:
             out, base, limit, st = pending.popleft()
             if out is not None:
-                got, n = self._collect(out, st["jc"], base, limit)
-                st["hits"].extend(got)
-                st["total"] += n
+                self._collect(out, st["jc"], base, limit, st["found"])
             st["left"] -= 1
             if st["left"] == 0:
-                req = st["req"]
-                hits = sorted(st["hits"])
+                req, found = st["req"], st["found"]
                 return StreamResult(req, ScanResult(
-                    nonces=hits[:min(req.max_hits, self.max_hits)],
-                    total_hits=st["total"], hashes_done=req.count))
+                    nonces=sorted(found.hits)[:min(req.max_hits,
+                                                   self.max_hits)],
+                    total_hits=found.total,
+                    hashes_done=req.count * st["chains"],
+                    version_hits=found.version_hits,
+                    version_total_hits=found.version_total))
             return None
 
         def drain(depth: int) -> Iterator[StreamResult]:
@@ -309,7 +394,7 @@ class CudaHasher(Hasher):
                 yield from drain(0)
                 continue
             self._check_range(req.header76, req.nonce_start, req.count)
-            st = {"req": req, "hits": [], "total": 0,
+            st = {"req": req, "found": _Found(), "chains": 1,
                   "left": max(1, -(-req.count // self.batch_size))}
             if req.count == 0:
                 # An empty range still owes its result in order: it rides
@@ -317,7 +402,11 @@ class CudaHasher(Hasher):
                 pending.append((None, req.nonce_start, 0, st))
                 yield from drain(self.stream_depth)
                 continue
+            # Every dispatch of a request reads the constants built here
+            # from one reading of the mask, so its hashes_done and its
+            # sibling versions agree with what the kernels hashed.
             st["jc"] = self._job_constants(req.header76, req.target)
+            st["chains"] = st["jc"].chains
             off = 0
             while off < req.count:
                 limit = min(self.batch_size, req.count - off)
@@ -330,14 +419,35 @@ class CudaHasher(Hasher):
 
     @property
     def version_roll_bits(self) -> int:
-        """Mask bits the kernel rolls itself: none while vshare is 1."""
-        return 0
+        """How many of the mask's lowest set bit positions the sibling
+        chains occupy: the dispatcher keeps its host-side version axis off
+        them, so the two axes never mine the same header."""
+        if self._vshare == 1 or not self._siblings_ok:
+            return 0
+        return (self._vshare - 1).bit_length()
 
     def set_version_mask(self, mask: int) -> int:
         """Adopt the session's negotiated BIP 310 mask; returns
-        :attr:`version_roll_bits`, which stays 0 at vshare 1, so the host
-        keeps every mask bit for its own version-roll axis."""
+        :attr:`version_roll_bits` under it. A mask that cannot carry
+        ``vshare`` distinct chains (mask 0: the pool granted no rolling)
+        degrades the hasher to chain 0 alone, so every share stays in the
+        mask; the change is logged once."""
+        ok = True
+        try:
+            sibling_version_patterns(mask or 0, self._vshare)
+        except ValueError:
+            ok = self._vshare == 1
+        if (mask, ok) != (self.version_mask, self._siblings_ok):
+            if not ok:
+                logger.error(
+                    "version mask %#010x cannot carry vshare=%d sibling "
+                    "chains — mining chain 0 only (restart with "
+                    "--vshare 1)", mask or 0, self._vshare)
+            elif self._vshare > 1:
+                logger.info("vshare=%d sibling chains rolling within mask "
+                            "%#010x", self._vshare, mask)
         self.version_mask = mask
+        self._siblings_ok = ok
         return self.version_roll_bits
 
 
@@ -346,10 +456,11 @@ class TileCudaHasher(CudaHasher):
     the default).
 
     Each dispatch returns one (count, lowest nonce) pair per step of
-    ``block`` nonces. At real share difficulties a step almost never holds
-    two hits, so the mins are the hits; a step reporting more than one
-    hit, or a word7 candidate, is re-enumerated exactly by the hit-buffer
-    kernel over that step alone."""
+    ``block`` nonces and per chain. At real share difficulties a step
+    almost never holds two hits, so the mins are the hits; a step
+    reporting more than one hit, or a word7 candidate, is re-enumerated
+    exactly by the one-chain hit-buffer kernel over that step alone,
+    against its chain's own midstate."""
 
     name = "cuda-tile"
 
@@ -360,6 +471,7 @@ class TileCudaHasher(CudaHasher):
         max_hits: int = 64,
         vshare: int = 1,
         variant: str = "baseline",
+        cgroup: int = 0,
         device: Optional[str] = None,
     ) -> None:
         if variant != "baseline":
@@ -373,40 +485,47 @@ class TileCudaHasher(CudaHasher):
         rescan_inner = min(block, 1 << 10)
         super().__init__(batch_size=batch_size, inner_size=rescan_inner,
                          max_hits=max_hits, vshare=vshare, device=device)
+        if not 0 <= cgroup <= self._vshare:
+            raise ValueError(
+                f"cgroup must be between 1 and vshare={self._vshare} "
+                "(0 = all chains in one pass)")
+        if cgroup not in (0, self._vshare):
+            raise NotImplementedError(
+                f"cgroup={cgroup} (chain passes smaller than vshare) "
+                f"{_LATER_SLICE}: the layout-variants slice")
         #: nonces per step: the re-enumeration granularity.
         self.tile = block
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
-        job = _upload([*jc.midstate, *jc.state3, *jc.tail3, *jc.limbs,
-                       base & 0xFFFFFFFF, limit], self.device)
+        job = _upload([*jc.midstates.ravel(), *jc.state3s.ravel(),
+                       *jc.tail3, *jc.limbs, base & 0xFFFFFFFF, limit],
+                      self.device)
         return _Dispatch(scan_tile(job, n_steps=self.batch_size // self.tile,
-                                   block=self.tile, word7=jc.word7))
+                                   block=self.tile, word7=jc.word7,
+                                   vshare=jc.chains))
 
     def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
-                 limit: int) -> Tuple[List[int], int]:
+                 limit: int, found: _Found) -> None:
         counts, mins = out.result()
-        hits: List[int] = []
-        total = 0
-        for step in np.nonzero(counts)[0]:
-            step = int(step)
-            if not jc.word7 and int(counts[step]) == 1:
-                got, n = [int(mins[step])], 1  # a single hit IS the min
+        for slot in np.nonzero(counts)[0]:
+            step, chain = divmod(int(slot), jc.chains)
+            if not jc.word7 and int(counts[slot]) == 1:
+                got, n = [int(mins[slot])], 1  # a single hit IS the min
             else:
                 got, n = self._rescan_tile(
-                    jc, base + step * self.tile,
+                    jc, chain, base + step * self.tile,
                     min(self.tile, limit - step * self.tile))
-            hits.extend(got)
-            total += n
-        return hits, total
+            found.add(jc, chain, got, n)
 
-    def _rescan_tile(self, jc: JobConstants, tile_base: int,
+    def _rescan_tile(self, jc: JobConstants, chain: int, tile_base: int,
                      tile_limit: int) -> Tuple[List[int], int]:
-        """Exact (hits, uncapped count) of one step's range, through the
-        hit-buffer kernel at the step's size."""
-        buf, n = self._hitbuf(jc, tile_base, tile_limit, self.tile,
-                              self.inner_size, word7=False).result()
-        n = int(n)
-        return [int(x) for x in buf[:min(n, self.max_hits)]], n
+        """Exact (hits, uncapped count) of one step's range for one chain,
+        through the one-chain hit-buffer kernel at the step's size."""
+        bufs, counts = self._hitbuf(
+            jc.midstates[chain:chain + 1], jc, tile_base, tile_limit,
+            self.tile, self.inner_size, word7=False).result()
+        n = int(counts[0])
+        return [int(x) for x in bufs[0, :min(n, self.max_hits)]], n
 
 
 register_hasher("cuda", CudaHasher)

@@ -7,7 +7,9 @@ Modes:
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
 hit-buffer kernel) and ``cpu`` (the hashlib oracle). ``--device cpu``
 runs the CUDA backends' plain PyTorch versions instead of the kernels;
-without it they need a card. The miner writes no files.
+without it they need a card. ``--vshare k`` hashes every nonce against k
+version-rolled sibling headers (overt AsicBoost) on the CUDA backends.
+The miner writes no files.
 """
 
 from __future__ import annotations
@@ -57,6 +59,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the cuda backends run: the card, or their "
                         "plain PyTorch versions on the CPU")
+    p.add_argument("--vshare", type=int, default=1,
+                   help="cuda backends: k version-rolled midstate chains "
+                        "sharing one chunk-2 schedule per nonce (overt "
+                        "AsicBoost, 1 <= k <= 8). Sibling shares carry BIP "
+                        "310 version bits from the pool's negotiated mask; "
+                        "a pool that grants no (or too narrow a) mask "
+                        "degrades the miner to chain 0 and it says so. "
+                        "Default %(default)s")
+    p.add_argument("--cgroup", type=int, default=0,
+                   help="cuda-tile: chains per pass over the rounds; 0 or "
+                        "--vshare (all chains in one pass) are ported")
     p.add_argument("--batch-bits", type=int, default=None,
                    help="log2 of nonces per dispatch, fixed; default: the "
                         "adaptive scheduler sizes requests online over a "
@@ -76,10 +89,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_hasher(args: argparse.Namespace) -> Hasher:
+    if args.backend != "cuda-tile" and args.cgroup:
+        raise SystemExit(f"--cgroup {args.cgroup} applies only to --backend "
+                         f"cuda-tile; --backend {args.backend} ignores it")
     if args.backend == "cpu":
+        if args.vshare != 1:
+            raise SystemExit(f"--vshare {args.vshare} applies only to the "
+                             "cuda backends; --backend cpu ignores it")
         return get_hasher("cpu")
     bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
-    return get_hasher(args.backend, batch_size=1 << bits, device=args.device)
+    kwargs = {"cgroup": args.cgroup} if args.backend == "cuda-tile" else {}
+    return get_hasher(args.backend, batch_size=1 << bits, device=args.device,
+                      vshare=args.vshare, **kwargs)
 
 
 def make_scheduler(args: argparse.Namespace, hasher: Hasher
@@ -94,7 +115,9 @@ def run_bench(hasher: Hasher, count: int,
               batch_size: Optional[int] = None) -> dict:
     """Sweep ``count`` nonces of the genesis header centred on its nonce
     at the difficulty-1 target, through the hasher's streaming path, and
-    verify the solve on the CPU oracle."""
+    verify the solve on the CPU oracle. ``hashes`` counts every chain's
+    hashes (nonces × vshare); ``version_hits`` are the sibling chains'
+    hits as (version, nonce) pairs."""
     header76 = bytes.fromhex(GENESIS_HEADER_HEX)[:76]
     target = nbits_to_target(GENESIS_NBITS)
     start = max(0, GENESIS_NONCE - count // 2)
@@ -111,7 +134,8 @@ def run_bench(hasher: Hasher, count: int,
         "nonce_start": start, "hashes": report.hashes_done,
         "dispatches": report.dispatches, "seconds": seconds,
         "mhs": report.hashes_done / seconds / 1e6, "nonces": report.nonces,
-        "found": found, "verified": verified,
+        "version_hits": report.version_hits, "found": found,
+        "verified": verified,
     }
 
 
@@ -125,11 +149,14 @@ def bench(args: argparse.Namespace) -> dict:
 
 def cmd_bench(args: argparse.Namespace) -> int:
     out = bench(args)
+    siblings = "".join(f", sibling hit version={v:#010x} nonce={n:#010x}"
+                       for v, n in out["version_hits"])
     print(
-        f"{out['mhs']:.2f} MH/s over {out['hashes']} nonces in "
+        f"{out['mhs']:.2f} MH/s over {out['hashes']} hashes in "
         f"{out['seconds']:.2f}s ({out['dispatches']} dispatches, backend "
-        f"{args.backend} on {args.device}); genesis nonce "
-        f"{'FOUND+VERIFIED' if out['verified'] else 'MISSED'}"
+        f"{args.backend} on {args.device}, vshare {args.vshare}); genesis "
+        f"nonce {'FOUND+VERIFIED' if out['verified'] else 'MISSED'}"
+        f"{siblings}"
     )
     return 0 if out["verified"] else 2
 

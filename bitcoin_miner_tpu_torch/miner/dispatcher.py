@@ -47,6 +47,9 @@ logger = logging.getLogger(__name__)
 
 OnShare = Callable[["Share"], Awaitable[None]]
 
+#: How long a stopping worker waits for its scan pump thread to drain.
+_PUMP_JOIN_S = 30.0
+
 
 @dataclass(frozen=True)
 class Share:
@@ -192,11 +195,17 @@ class Dispatcher:
     # ------------------------------------------------------------- job feed
     def set_job(self, job: Job) -> Job:
         """Install a new job. Bumps the generation so in-flight work for the
-        old job is dropped; ``clean`` jobs also flush queued items."""
+        old job is dropped; ``clean`` jobs also flush queued items. A hasher
+        with sibling chains gets the job's mask and reserves its low bits
+        out of the host's version axis; scans racing the change carry the
+        old generation and are dropped."""
         self._generation += 1
         set_mask = getattr(self.hasher, "set_version_mask", None)
         if set_mask is not None:
-            set_mask(job.version_mask)
+            reserved = set_mask(job.version_mask)
+            if reserved != job.reserved_version_bits:
+                job = dataclasses.replace(job,
+                                          reserved_version_bits=reserved)
         job = _with_generation(job, self._generation)
         self._job = job
         if self.scheduler is not None:
@@ -433,6 +442,8 @@ class Dispatcher:
                 self.stats.hashes += result.hashes_done
                 self.stats.batches += 1
                 if self.scheduler is not None:
+                    # nonces, not hashes_done (× vshare): the scheduler
+                    # sizes requests in nonces.
                     self.scheduler.record_result(sres.request.count)
                 if self._stopping or item.generation != self._generation:
                     continue
@@ -450,6 +461,13 @@ class Dispatcher:
             await asyncio.gather(feeder, return_exceptions=True)
             for _ in range(outstanding[0]):
                 self.stats.scan_finished()
+            # Wait for the pump to finish the dispatches its ring holds: a
+            # process that exits while a pump thread is inside a torch
+            # call aborts ("terminate called without an active exception").
+            await loop.run_in_executor(None, thread.join, _PUMP_JOIN_S)
+            if thread.is_alive():
+                logger.warning("worker %d scan pump still running after "
+                               "%.0f s", wid, _PUMP_JOIN_S)
         if pump_error:
             logger.error("worker %d scan stream failed: %s — restarting "
                          "pipeline", wid, pump_error[0],
@@ -489,11 +507,23 @@ class Dispatcher:
     def _shares_from_result(
         self, item: WorkItem, result: ScanResult
     ) -> Iterator[Share]:
-        """Verified shares from one scan result."""
+        """Verified shares from one scan result: chain 0's nonces, then the
+        sibling chains' hits, each through the same parity gate against its
+        own sibling header (the hasher yields these only while its versions
+        fit the session mask, so every such share is in the mask)."""
         for nonce in result.nonces:
             share = self._verify_hit(item, nonce)
             if share is not None:
                 yield share
+        for version, nonce in result.version_hits:
+            share = self._verify_hit(_sibling_item(item, version), nonce)
+            if share is not None:
+                yield share
+        if result.version_truncated:
+            logger.warning(
+                "sibling version hits truncated (%d stored of %d) — only "
+                "plausible at absurdly easy targets",
+                len(result.version_hits), result.version_total_hits)
 
     def _verify_hit(self, item: WorkItem, nonce: int) -> Optional[Share]:
         """The parity gate: full CPU sha256d against the share and block
@@ -534,3 +564,13 @@ def _with_generation(job: Job, generation: int) -> Job:
     if job.generation == generation:
         return job
     return dataclasses.replace(job, generation=generation)
+
+
+def _sibling_item(item: WorkItem, version: int) -> WorkItem:
+    """The work item as a sibling chain saw it: the same job and range,
+    the header with the sibling's version in bytes 0-3 (little-endian), so
+    that ``_verify_hit`` derives hash, targets and version bits from the
+    sibling header as it does for chain 0."""
+    return dataclasses.replace(
+        item, header76=version.to_bytes(4, "little") + item.header76[4:],
+        version=version)

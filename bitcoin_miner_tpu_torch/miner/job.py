@@ -84,6 +84,11 @@ class Job:
     #: bits inside it are an extra host-side search axis, and the rolled
     #: bits ride the share into ``mining.submit``'s 6th parameter.
     version_mask: int = 0
+    #: how many of the mask's lowest set bit positions the hasher's sibling
+    #: chains (vshare) roll in the kernel: the host axis uses only the
+    #: positions above them, so the two axes never mine — and submit — the
+    #: same header. Set by the dispatcher from the hasher.
+    reserved_version_bits: int = 0
 
     @property
     def block_target(self) -> int:
@@ -93,20 +98,25 @@ class Job:
     def _mask_bit_positions(self) -> List[int]:
         return [i for i in range(32) if (self.version_mask >> i) & 1]
 
+    @cached_property
+    def _roll_bit_positions(self) -> List[int]:
+        """Mask bit positions the host axis rolls (the kernel's excluded)."""
+        return self._mask_bit_positions[self.reserved_version_bits:]
+
     @property
     def version_variants(self) -> int:
         """How many rolled versions the host axis sweeps (1 = none)."""
-        return 1 << len(self._mask_bit_positions)
+        return 1 << len(self._roll_bit_positions)
 
     def rolled_version(self, variant: int) -> int:
         """The header version for roll ``variant`` ∈ [0, version_variants):
-        the variant's bits spread onto the mask's bit positions. Variant 0
-        keeps the job's own version."""
+        the variant's bits spread onto the host-rollable mask positions.
+        Variant 0 keeps the job's own version."""
         if variant == 0:
             return self.version
         mask = 0
         bits = 0
-        for k, pos in enumerate(self._mask_bit_positions):
+        for k, pos in enumerate(self._roll_bit_positions):
             mask |= 1 << pos
             if (variant >> k) & 1:
                 bits |= 1 << pos
@@ -117,7 +127,9 @@ class Job:
         """Identity for sweep-resume bookkeeping. The bare ``job_id`` is not
         enough: Stratum job ids are per-connection and often tiny counters,
         so the key digests the whole work identity, including the
-        per-session extranonce1."""
+        per-session extranonce1. The mask, and the kernel's reserved bit
+        count (which reshapes the host roll axis and with it every resume
+        index), fold in only when nonzero — the reference's key format."""
         ident = hashlib.sha256(
             b"|".join(
                 [
@@ -127,8 +139,12 @@ class Job:
                     self.coinb1,
                     self.coinb2,
                     *self.merkle_branch,
-                    struct.pack("<IIII", self.version, self.nbits,
-                                self.extranonce2_size, self.version_mask),
+                    struct.pack("<III", self.version, self.nbits,
+                                self.extranonce2_size)
+                    + (struct.pack("<I", self.version_mask)
+                       if self.version_mask else b"")
+                    + (struct.pack("<I", self.reserved_version_bits)
+                       if self.reserved_version_bits else b""),
                 ]
             )
         ).hexdigest()[:16]

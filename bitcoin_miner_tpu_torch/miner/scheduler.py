@@ -17,7 +17,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..backends.base import ScanRequest, dispatch_granularity, iter_scan_stream
 
@@ -153,11 +153,14 @@ def scheduler_for(hasher: Any, **overrides: Any) -> AdaptiveBatchScheduler:
 
 @dataclass
 class SweepReport:
-    """Outcome of one :func:`stream_sweep`."""
+    """Outcome of one :func:`stream_sweep`: the header's own hits, the
+    sibling chains' hits as (version, nonce) pairs, the hashes computed
+    (nonces × chains) and the requests made."""
 
     nonces: List[int]
     hashes_done: int
     dispatches: int
+    version_hits: List[Tuple[int, int]]
 
 
 def stream_sweep(
@@ -192,11 +195,14 @@ def stream_sweep(
             off += n
 
     nonces: List[int] = []
+    version_hits: List[Tuple[int, int]] = []
     hashes = 0
     for sres in iter_scan_stream(hasher, requests()):
         if scheduler is not None:
             scheduler.record_result(sres.request.count)
         nonces.extend(sres.result.nonces)
+        version_hits.extend(sres.result.version_hits)
         hashes += sres.result.hashes_done
     return SweepReport(
-        nonces=sorted(nonces), hashes_done=hashes, dispatches=dispatches[0])
+        nonces=sorted(nonces), hashes_done=hashes, dispatches=dispatches[0],
+        version_hits=version_hits)

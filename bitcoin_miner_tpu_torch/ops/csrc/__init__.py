@@ -1,12 +1,13 @@
 """CUDA C++ sources of the scan kernels, and their loader.
 
-Each ``.cu`` file builds with ``nvcc`` for ``sm_90a`` into its own shared
+Each ``.cu`` file builds with ``nvcc`` for ``sm_90a`` once per number K of
+version-rolled chains (``-DVSHARE=K``, 1 ≤ K ≤ 8) into its own shared
 library with a plain C interface, under ``build/kernels/`` at the root of
 the checkout, on first use; the library name carries a digest of the
-sources and flags, so an edited source is rebuilt. The libraries are bound
-with ``ctypes``: pointers and the stream pass as ``c_void_p``, and every
-entry point returns ``cudaGetLastError()``, which :func:`check` turns into
-an exception. Nothing builds at import time.
+sources and flags, defines included, so an edited source is rebuilt. The
+libraries are bound with ``ctypes``: pointers and the stream pass as
+``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
+:func:`check` turns into an exception. Nothing builds at import time.
 """
 
 from __future__ import annotations
@@ -30,19 +31,38 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: library name → source file. Each library is built by one nvcc process.
-SOURCES = {"scan_tile": "scan_tile.cu", "scan_hitbuf": "scan_hitbuf.cu"}
+#: The most version-rolled chains a kernel is built for.
+MAX_VSHARE = 8
+
+
+def kernel_name(kernel: str, vshare: int) -> str:
+    """The name of ``kernel`` built for ``vshare`` chains: its library's
+    and its launch counter's (``scan_tile``, ``scan_tile_k2``, ...)."""
+    if not 1 <= vshare <= MAX_VSHARE:
+        raise ValueError(f"vshare must be in [1, {MAX_VSHARE}], got {vshare}")
+    return kernel if vshare == 1 else f"{kernel}_k{vshare}"
+
+
+#: library name → (source file, chains). Each library is built by one nvcc
+#: process with -DVSHARE=chains.
+SOURCES = {
+    kernel_name(kernel, k): (source, k)
+    for kernel, source in (("scan_tile", "scan_tile.cu"),
+                           ("scan_hitbuf", "scan_hitbuf.cu"))
+    for k in range(1, MAX_VSHARE + 1)
+}
 
 _P, _I, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_ulonglong)
-#: C entry point → argtypes; each returns cudaGetLastError() as an int.
+#: source → C entry point → argtypes, the same for every number of chains;
+#: each returns cudaGetLastError() as an int.
 ENTRY_POINTS = {
-    "scan_tile": {
+    "scan_tile.cu": {
         # job block, counts, mins, n_steps, block, word7, stream
         "scan_tile_launch": [_P, _P, _P, _I, _U, _I, _P],
     },
-    "scan_hitbuf": {
-        # midstate, tail3, limbs, base, limit, blk_hits, blk_counts,
+    "scan_hitbuf.cu": {
+        # midstates, tail3, limbs, base, limit, blk_hits, blk_counts,
         # capacity, max_hits, iters, n_blocks, word7, stream
         "scan_hitbuf_launch": [_P, _P, _P, _P, _P, _P, _P, _ULL, _I, _I,
                                _I, _I, _P],
@@ -78,6 +98,13 @@ class LaunchCounter:
             self._value = 0
 
 
+def launch_counters(kernel: str) -> Dict[int, LaunchCounter]:
+    """One :class:`LaunchCounter` per number of chains ``kernel`` is built
+    for, named by :func:`kernel_name`."""
+    return {k: LaunchCounter(kernel_name(kernel, k))
+            for k in range(1, MAX_VSHARE + 1)}
+
+
 def nvcc() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the toolkit's
     default install, else ``nvcc`` on the PATH."""
@@ -91,9 +118,13 @@ def nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return (*NVCC_FLAGS, f"-DVSHARE={SOURCES[name][1]}")
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (SOURCES[name], "sha256d.cuh"):
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
+    for src in (SOURCES[name][0], "sha256d.cuh"):
         digest.update((SRC_DIR / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
@@ -113,7 +144,8 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / SOURCES[name])]
+        cmd = [nvcc(), *_flags(name), "-o", tmp,
+               str(SRC_DIR / SOURCES[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -142,7 +174,7 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in ENTRY_POINTS[name].items():
+            for fn, argtypes in ENTRY_POINTS[SOURCES[name][0]].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib

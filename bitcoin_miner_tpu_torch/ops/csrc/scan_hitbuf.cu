@@ -1,38 +1,51 @@
-// scan_hitbuf_kernel + hitbuf_compact_kernel: the hit-buffer scan.
+// scan_hitbuf_kernel + hitbuf_compact_kernel: the hit-buffer scan of K
+// version-rolled chains.
 //
-// Replaces the XLA scan bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch
-// (exact and word7 modes). Inputs: midstate(8), tail3(3), limbs(8),
-// nonce_base and limit, each a uint32 device buffer. Outputs: hits[max_hits]
-// — the FIRST max_hits hit nonces in ascending offset order, unused slots
-// 0xFFFFFFFF — and the uncapped hit count, over the offsets below
+// Replaces the XLA scans bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch
+// (K=1) and ::_scan_batch_vshare (K>1), exact and word7 modes. Built once
+// per K with -DVSHARE=K (1 <= K <= 8). Inputs: midstates[K][8] (row 0 the
+// caller's own header), tail3(3), limbs(8), nonce_base and limit, each a
+// uint32 device buffer. Outputs per chain c: hits[c][max_hits] — the FIRST
+// max_hits hit nonces in ascending offset order, unused slots 0xFFFFFFFF —
+// and the uncapped hit count count[c], over the offsets below
 // min(limit, capacity). Nonces wrap modulo 2^32.
 //
 // A global atomic append would keep a different subset of the hits once
 // the count exceeds max_hits, so the order is built in two kernels:
 // - scan_hitbuf_kernel: block b owns offsets [b*256*iters, (b+1)*256*iters)
-//   and walks them 256 at a time. When any thread of the block hits
-//   (__syncthreads_or), a ballot per warp and the warps' popcounts in
-//   shared memory give each hit its rank, so the block stores its first
-//   max_hits hits in offset order into its own slot of blk_hits, and its
-//   uncapped count into blk_counts[b]. Blocks wholly past the limit exit
-//   after one test; nothing carries from one block to another.
-// - hitbuf_compact_kernel, one block: an exclusive scan of blk_counts
-//   gives each block's first rank; blocks copy their stored hits to
-//   hits[rank..] while rank < max_hits, and the total is the count.
+//   and walks them 256 at a time. When any thread of the block hits in any
+//   chain (__syncthreads_or), a ballot per warp and chain and the warps'
+//   popcounts in a [K][warps] shared array give each hit its rank in its
+//   chain, so the block stores each chain's first max_hits hits in offset
+//   order into its own slot blk_hits[c][b], and its uncapped counts into
+//   blk_counts[c][b]. Blocks wholly past the limit exit after one test;
+//   nothing carries from one block to another. The K round-3 states are
+//   derived once per block into shared memory beside the midstates, and
+//   read from there where they are used.
+// - hitbuf_compact_kernel, one block per chain (gridDim.x = K): an
+//   exclusive scan of the chain's blk_counts gives each block's first rank;
+//   blocks copy their stored hits to hits[c][rank..] while rank < max_hits,
+//   and the total is count[c].
 //
 // Bound: 32-bit integer operations, as scan_tile_kernel (about 2.5k per
-// nonce); the compaction moves n_blocks counts plus the hits it copies.
+// nonce at K=1, about 1.2k more per further chain); the compaction moves
+// K*n_blocks counts plus the hits it copies.
 #include "sha256d.cuh"
+
+#ifndef VSHARE
+#error "build with -DVSHARE=K, 1 <= K <= 8"
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCompactThreads = 1024;
+constexpr int kChains = VSHARE;
 
-template <bool WORD7>
+template <int K, bool WORD7>
 __global__ void __launch_bounds__(kThreads)
-    scan_hitbuf_kernel(const uint32_t* __restrict__ midstate,
+    scan_hitbuf_kernel(const uint32_t* __restrict__ midstates,
                        const uint32_t* __restrict__ tail3,
                        const uint32_t* __restrict__ limbs,
                        const uint32_t* __restrict__ nonce_base,
@@ -41,57 +54,92 @@ __global__ void __launch_bounds__(kThreads)
                        int32_t* __restrict__ blk_counts,
                        unsigned long long capacity, int max_hits,
                        int iters) {
-  sha256d::Job j;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    j.mid[i] = __ldg(midstate + i);
-    j.limbs[i] = __ldg(limbs + i);
+  using L = sha256d::Layout<K>;
+  __shared__ uint32_t job[L::kWords];
+  for (int i = threadIdx.x; i < 8 * K; i += kThreads) {
+    job[L::kMid + i] = midstates[i];
   }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) j.tail[i] = __ldg(tail3 + i);
-  sha256d::state3(j);
+  if (threadIdx.x < 3) job[L::kTail + threadIdx.x] = tail3[threadIdx.x];
+  if (threadIdx.x < 8) job[L::kLimbs + threadIdx.x] = limbs[threadIdx.x];
+  if (threadIdx.x < K) {
+    sha256d::state3(midstates + 8 * threadIdx.x, tail3,
+                    job + L::kState3 + 8 * threadIdx.x);
+  }
+  __syncthreads();
   const uint32_t base = __ldg(nonce_base);
   const unsigned long long limit = __ldg(limit_p);
   const unsigned long long n = limit < capacity ? limit : capacity;
 
-  __shared__ uint32_t warp_hits[kWarps];
+  __shared__ uint32_t warp_hits[K][kWarps];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const unsigned long long start =
       static_cast<unsigned long long>(blockIdx.x) * kThreads * iters;
-  uint32_t* const out = blk_hits + static_cast<size_t>(blockIdx.x) * max_hits;
-  uint32_t stored = 0;  // hits of this block so far (same in every thread)
+  uint32_t stored[K];  // hits of this block so far (same in every thread)
+#pragma unroll
+  for (int c = 0; c < K; ++c) stored[c] = 0;
   for (int it = 0; it < iters; ++it) {
     const unsigned long long row = start + static_cast<unsigned long long>(it) * kThreads;
     if (row >= n) break;  // uniform across the block
     const unsigned long long off = row + threadIdx.x;
     const uint32_t nonce = base + static_cast<uint32_t>(off);
-    const bool hit = off < n && sha256d::nonce_meets<WORD7>(j, nonce);
-    if (__syncthreads_or(hit)) {
-      const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, hit);
-      if (lane == 0) warp_hits[warp] = __popc(ballot);
-      __syncthreads();
-      uint32_t rank = stored + __popc(ballot & ((1u << lane) - 1u));
-      uint32_t total = 0;
+    bool hit[K];
+    bool any = false;
+    if (off < n) {
+      sha256d::nonce_meets<K, WORD7>(job, nonce, hit);
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        if (w < warp) rank += warp_hits[w];
-        total += warp_hits[w];
+      for (int c = 0; c < K; ++c) any |= hit[c];
+    } else {
+#pragma unroll
+      for (int c = 0; c < K; ++c) hit[c] = false;
+    }
+    if (__syncthreads_or(any)) {
+      uint32_t ballot[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        ballot[c] = __ballot_sync(0xFFFFFFFFu, hit[c]);
+        if (lane == 0) warp_hits[c][warp] = __popc(ballot[c]);
       }
-      if (hit && rank < static_cast<uint32_t>(max_hits)) out[rank] = nonce;
-      stored += total;
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        uint32_t rank = stored[c] + __popc(ballot[c] & ((1u << lane) - 1u));
+        uint32_t total = 0;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          if (w < warp) rank += warp_hits[c][w];
+          total += warp_hits[c][w];
+        }
+        if (hit[c] && rank < static_cast<uint32_t>(max_hits)) {
+          blk_hits[(static_cast<size_t>(c) * gridDim.x + blockIdx.x) *
+                       max_hits + rank] = nonce;
+        }
+        stored[c] += total;
+      }
       __syncthreads();  // warp_hits is rewritten by the next hitting row
     }
   }
-  if (threadIdx.x == 0) blk_counts[blockIdx.x] = static_cast<int32_t>(stored);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      blk_counts[static_cast<size_t>(c) * gridDim.x + blockIdx.x] =
+          static_cast<int32_t>(stored[c]);
+    }
+  }
 }
 
+// Block c merges chain c: blk_hits[c][n_blocks][max_hits] and
+// blk_counts[c][n_blocks] into hits[c][max_hits] and count[c].
 __global__ void __launch_bounds__(kCompactThreads)
     hitbuf_compact_kernel(const uint32_t* __restrict__ blk_hits,
                           const int32_t* __restrict__ blk_counts,
                           int n_blocks, int max_hits,
                           uint32_t* __restrict__ hits,
                           int32_t* __restrict__ count) {
+  const size_t chain = blockIdx.x;
+  blk_hits += chain * n_blocks * max_hits;
+  blk_counts += chain * n_blocks;
+  hits += chain * max_hits;
   __shared__ uint32_t warp_sums[kCompactThreads / 32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -132,12 +180,12 @@ __global__ void __launch_bounds__(kCompactThreads)
   for (int i = threadIdx.x; i < max_hits; i += kCompactThreads) {
     if (static_cast<uint32_t>(i) >= filled) hits[i] = 0xFFFFFFFFu;
   }
-  if (threadIdx.x == 0) *count = static_cast<int32_t>(carry);
+  if (threadIdx.x == 0) count[chain] = static_cast<int32_t>(carry);
 }
 
 }  // namespace
 
-extern "C" int scan_hitbuf_launch(const uint32_t* midstate,
+extern "C" int scan_hitbuf_launch(const uint32_t* midstates,
                                   const uint32_t* tail3,
                                   const uint32_t* limbs,
                                   const uint32_t* nonce_base,
@@ -147,12 +195,12 @@ extern "C" int scan_hitbuf_launch(const uint32_t* midstate,
                                   int iters, int n_blocks, int word7,
                                   cudaStream_t stream) {
   if (word7) {
-    scan_hitbuf_kernel<true><<<n_blocks, kThreads, 0, stream>>>(
-        midstate, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
+    scan_hitbuf_kernel<kChains, true><<<n_blocks, kThreads, 0, stream>>>(
+        midstates, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
         capacity, max_hits, iters);
   } else {
-    scan_hitbuf_kernel<false><<<n_blocks, kThreads, 0, stream>>>(
-        midstate, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
+    scan_hitbuf_kernel<kChains, false><<<n_blocks, kThreads, 0, stream>>>(
+        midstates, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
         capacity, max_hits, iters);
   }
   return static_cast<int>(cudaGetLastError());
@@ -162,7 +210,7 @@ extern "C" int hitbuf_compact_launch(const uint32_t* blk_hits,
                                      const int32_t* blk_counts, int n_blocks,
                                      int max_hits, uint32_t* hits,
                                      int32_t* count, cudaStream_t stream) {
-  hitbuf_compact_kernel<<<1, kCompactThreads, 0, stream>>>(
+  hitbuf_compact_kernel<<<kChains, kCompactThreads, 0, stream>>>(
       blk_hits, blk_counts, n_blocks, max_hits, hits, count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,13 @@
 //
 // Per nonce: the chunk-2 compression resumes at round 3 from the job's
 // round-3 state (rounds 0-2 read only header[64:76]), with the midstate
-// as feed-forward; then one compression of the 32-byte digest. The same
-// arithmetic as ops/sha256_torch.py, whose plain versions the kernels are
-// held against. Rounds are unrolled at compile time, so the 16-word
+// as feed-forward; then one compression of the 32-byte digest. With K
+// version-rolled chains (vshare, the overt-AsicBoost pattern) the K headers
+// differ only in chunk 1, so their chunk-2 compressions read one message:
+// each round's schedule word is expanded once per nonce and fed to K
+// register states, then each chain runs its own second compression. The
+// same arithmetic as ops/sha256_torch.py, whose plain versions the kernels
+// are held against. Rounds are unrolled at compile time, so the 16-word
 // schedule window and the round constants are register and constant-bank
 // operands, and every rotate is one funnel shift.
 #pragma once
@@ -43,12 +47,15 @@ __device__ __forceinline__ constexpr uint32_t iv(int i) {
                   : 0x5BE0CD19u;
 }
 
-// The per-job constants of one scan, in registers.
-struct Job {
-  uint32_t mid[8];    // chunk-1 midstate: chunk-2 feed-forward
-  uint32_t s3[8];     // registers after chunk-2 rounds 0-2
-  uint32_t tail[3];   // header[64:76] as big-endian words
-  uint32_t limbs[8];  // target, big-endian limbs, most significant first
+// Word offsets of the per-job constants of K chains, the head of the tile
+// kernel's job block: midstate x K | round3_state x K | tail3 | limbs.
+template <int K>
+struct Layout {
+  static constexpr int kMid = 0;             // chunk-1 midstates: feed-forward
+  static constexpr int kState3 = 8 * K;      // registers after rounds 0-2
+  static constexpr int kTail = 16 * K;       // header[64:76], big-endian words
+  static constexpr int kLimbs = 16 * K + 3;  // target, most significant first
+  static constexpr int kWords = 16 * K + 11;
 };
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
@@ -77,10 +84,25 @@ __device__ __forceinline__ uint32_t bswap32(uint32_t x) {
 }
 
 // Message word i (i >= 16) from the rolling window w[i % 16].
-template <int I>
-__device__ __forceinline__ uint32_t schedule(const uint32_t (&w)[16]) {
-  return w[I & 15] + small_sigma0(w[(I - 15) & 15]) + w[(I - 7) & 15] +
-         small_sigma1(w[(I - 2) & 15]);
+__device__ __forceinline__ uint32_t schedule(const uint32_t (&w)[16], int i) {
+  return w[i & 15] + small_sigma0(w[(i - 15) & 15]) + w[(i - 7) & 15] +
+         small_sigma1(w[(i - 2) & 15]);
+}
+
+// Round i on registers s = (a..h) with message word wi.
+__device__ __forceinline__ void sha_round(uint32_t (&s)[8], int i,
+                                          uint32_t wi) {
+  const uint32_t t1 =
+      s[7] + big_sigma1(s[4]) + ch(s[4], s[5], s[6]) + kK[i] + wi;
+  const uint32_t t2 = big_sigma0(s[0]) + maj(s[0], s[1], s[2]);
+  s[7] = s[6];
+  s[6] = s[5];
+  s[5] = s[4];
+  s[4] = s[3] + t1;
+  s[3] = s[2];
+  s[2] = s[1];
+  s[1] = s[0];
+  s[0] = t1 + t2;
 }
 
 // Rounds [START, END) on registers s = (a..h), expanding the schedule in
@@ -89,37 +111,42 @@ template <int START, int END>
 __device__ __forceinline__ void rounds(uint32_t (&s)[8], uint32_t (&w)[16]) {
 #pragma unroll
   for (int i = START; i < END; ++i) {
-    if (i >= 16) {
-      w[i & 15] = w[i & 15] + small_sigma0(w[(i - 15) & 15]) +
-                  w[(i - 7) & 15] + small_sigma1(w[(i - 2) & 15]);
-    }
-    const uint32_t t1 =
-        s[7] + big_sigma1(s[4]) + ch(s[4], s[5], s[6]) + kK[i] + w[i & 15];
-    const uint32_t t2 = big_sigma0(s[0]) + maj(s[0], s[1], s[2]);
-    s[7] = s[6];
-    s[6] = s[5];
-    s[5] = s[4];
-    s[4] = s[3] + t1;
-    s[3] = s[2];
-    s[2] = s[1];
-    s[1] = s[0];
-    s[0] = t1 + t2;
+    if (i >= 16) w[i & 15] = schedule(w, i);
+    sha_round(s, i, w[i & 15]);
   }
 }
 
-// Registers after rounds 0-2 of chunk 2 from the midstate and header tail
-// (the job constant the tile kernel's job block carries precomputed).
-__device__ __forceinline__ void state3(Job& j) {
-  uint32_t w[16] = {j.tail[0], j.tail[1], j.tail[2]};
+// Rounds [START, END) of K compressions of one message, chain c on
+// registers s[c]: each schedule word is expanded once and fed to all K.
+template <int K, int START, int END>
+__device__ __forceinline__ void rounds_shared(uint32_t (&s)[K][8],
+                                              uint32_t (&w)[16]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) j.s3[i] = j.mid[i];
-  rounds<0, 3>(j.s3, w);
+  for (int i = START; i < END; ++i) {
+    if (i >= 16) w[i & 15] = schedule(w, i);
+#pragma unroll
+    for (int c = 0; c < K; ++c) sha_round(s[c], i, w[i & 15]);
+  }
+}
+
+// Registers after rounds 0-2 of chunk 2 from a midstate and the header
+// tail: the round-3 state that the tile kernel's job block carries
+// precomputed, and that scan_hitbuf.cu derives once per block.
+__device__ __forceinline__ void state3(const uint32_t* mid,
+                                       const uint32_t* tail, uint32_t* out) {
+  uint32_t w[16] = {tail[0], tail[1], tail[2]};
+  uint32_t s[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = mid[i];
+  rounds<0, 3>(s, w);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = s[i];
 }
 
 // hash <= target over the byte-reversed digest's 8 limbs, built from the
 // least significant limb up as in ops/sha256_torch.py::meets_target_words.
 __device__ __forceinline__ bool meets_target(const uint32_t (&h2)[8],
-                                             const uint32_t (&limbs)[8]) {
+                                             const uint32_t* limbs) {
   bool le = bswap32(h2[0]) <= limbs[7];
 #pragma unroll
   for (int k = 1; k < 8; ++k) {
@@ -130,43 +157,57 @@ __device__ __forceinline__ bool meets_target(const uint32_t (&h2)[8],
   return le;
 }
 
-// The verdict for one nonce: hash <= target, or with WORD7 the candidate
-// test bswap32(h2[7]) <= limbs[0] (a superset of the hits, re-verified by
-// the host), which stops the second compression after round 60's t1.
-template <bool WORD7>
-__device__ __forceinline__ bool nonce_meets(const Job& j, uint32_t nonce) {
+// The verdicts of K chains for one nonce: hash <= target, or with WORD7 the
+// candidate test bswap32(h2[7]) <= limbs[0] (a superset of the hits,
+// re-verified by the host), which stops the second compression after
+// round 60's t1. `job` holds the constants of K chains (Layout<K>); each
+// word is read where it is used, so at large K the compiler may reload a
+// uniform word instead of holding 16K of them in registers.
+template <int K, bool WORD7>
+__device__ __forceinline__ void nonce_meets(const uint32_t* __restrict__ job,
+                                            uint32_t nonce, bool (&meets)[K]) {
+  using L = Layout<K>;
   uint32_t w[16];
-  w[0] = j.tail[0];
-  w[1] = j.tail[1];
-  w[2] = j.tail[2];
+  w[0] = job[L::kTail];
+  w[1] = job[L::kTail + 1];
+  w[2] = job[L::kTail + 2];
   w[3] = bswap32(nonce);
   w[4] = 0x80000000u;
 #pragma unroll
   for (int i = 5; i < 15; ++i) w[i] = 0u;
   w[15] = 640u;  // 80 bytes
-  uint32_t s[8];
+  uint32_t s[K][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = j.s3[i];
-  rounds<3, 64>(s, w);
+  for (int c = 0; c < K; ++c) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) w[i] = s[i] + j.mid[i];
-  w[8] = 0x80000000u;
-#pragma unroll
-  for (int i = 9; i < 15; ++i) w[i] = 0u;
-  w[15] = 256u;  // 32 bytes
-#pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = iv(i);
-  if (WORD7) {
-    rounds<0, 60>(s, w);
-    const uint32_t t1 = s[7] + big_sigma1(s[4]) + ch(s[4], s[5], s[6]) +
-                        kK[60] + schedule<60>(w);
-    return bswap32(iv(7) + s[3] + t1) <= j.limbs[0];
+    for (int i = 0; i < 8; ++i) s[c][i] = job[L::kState3 + 8 * c + i];
   }
-  rounds<0, 64>(s, w);
-  uint32_t h2[8];
+  rounds_shared<K, 3, 64>(s, w);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h2[i] = s[i] + iv(i);
-  return meets_target(h2, j.limbs);
+  for (int c = 0; c < K; ++c) {
+    uint32_t w2[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w2[i] = s[c][i] + job[L::kMid + 8 * c + i];
+    w2[8] = 0x80000000u;
+#pragma unroll
+    for (int i = 9; i < 15; ++i) w2[i] = 0u;
+    w2[15] = 256u;  // 32 bytes
+    uint32_t t[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) t[i] = iv(i);
+    if (WORD7) {
+      rounds<0, 60>(t, w2);
+      const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
+                          kK[60] + schedule(w2, 60);
+      meets[c] = bswap32(iv(7) + t[3] + t1) <= job[L::kLimbs];
+    } else {
+      rounds<0, 64>(t, w2);
+      uint32_t h2[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h2[i] = t[i] + iv(i);
+      meets[c] = meets_target(h2, job + L::kLimbs);
+    }
+  }
 }
 
 }  // namespace sha256d

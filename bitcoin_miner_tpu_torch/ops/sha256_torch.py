@@ -13,15 +13,20 @@ evaluation the JAX reference does with its polymorphic helpers.
 :func:`ops_per_nonce` counts the 32-bit operations that depend on the
 nonce, from which :func:`bound_ms` gives the kernels' bound.
 
-:func:`scan_batch` is the hit-buffer scan: the plain version
-(:func:`scan_batch_plain`, the semantics of ``sha256_jax._scan_batch``)
-for CPU tensors, the CUDA kernels of ``csrc/scan_hitbuf.cu`` for CUDA
-tensors.
+With ``vshare`` = k version-rolled chains (overt AsicBoost) the k headers
+differ only in chunk 1, so their chunk-2 compressions share one message
+schedule (:func:`compress_multi`).
+
+:func:`scan_batch` and :func:`scan_batch_vshare` are the hit-buffer scans
+of one and of k chains: the plain versions (:func:`scan_batch_plain`,
+:func:`scan_batch_vshare_plain`, the semantics of
+``sha256_jax._scan_batch`` and ``_scan_batch_vshare``) for CPU tensors,
+the CUDA kernels of ``csrc/scan_hitbuf.cu`` for CUDA tensors.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -112,23 +117,34 @@ def expand_schedule(w: Sequence) -> List:
     return out
 
 
-def compress(state: Sequence, w: Sequence, start: int = 0,
-             feedforward: Sequence = None) -> Tuple:
-    """One SHA-256 compression with a rolling 16-word schedule window.
+def compress_multi(states: Sequence[Sequence], w: Sequence, start: int = 0,
+                   feedforwards: Optional[Sequence[Sequence]] = None
+                   ) -> List[Tuple]:
+    """k SHA-256 compressions of one message from k chaining states, the
+    rolling schedule window expanded once and shared by all k (the
+    overt-AsicBoost pattern of ``sha256_jax.compress_multi``).
 
-    ``start``/``feedforward`` implement the fixed-prefix precompute: when
+    ``start``/``feedforwards`` implement the fixed-prefix precompute: when
     the first ``start`` message words are job constants, the host runs
-    rounds ``0..start-1`` once (``core.sha256.sha256_rounds``) and the
-    compression resumes from that register ``state``, with ``feedforward``
-    holding the chaining value for the final add (default ``state``)."""
+    rounds ``0..start-1`` once (``core.sha256.sha256_rounds``) and each
+    compression resumes from its register state, with its feedforward
+    holding the chaining value for the final add (default the state)."""
     w = list(w)
-    ff = state if feedforward is None else feedforward
-    regs = tuple(state)
+    ffs = states if feedforwards is None else feedforwards
+    regs = [tuple(s) for s in states]
     for i in range(start, 64):
         if i >= 16:
             w[i % 16] = _schedule_word(w, i)
-        regs = _round(regs, i, w[i % 16])
-    return tuple(_add(s, r) for s, r in zip(ff, regs))
+        regs = [_round(r, i, w[i % 16]) for r in regs]
+    return [tuple(_add(s, r) for s, r in zip(ff, rr))
+            for ff, rr in zip(ffs, regs)]
+
+
+def compress(state: Sequence, w: Sequence, start: int = 0,
+             feedforward: Sequence = None) -> Tuple:
+    """One SHA-256 compression (:func:`compress_multi` with one state)."""
+    ff = None if feedforward is None else [feedforward]
+    return compress_multi([state], w, start, ff)[0]
 
 
 def compress_word7(state: Sequence, w: Sequence, start: int = 0,
@@ -151,15 +167,24 @@ def compress_word7(state: Sequence, w: Sequence, start: int = 0,
     return _add(ff[7], d, t1)
 
 
-def _words(x, n: int) -> Tuple[int, ...]:
-    """``n`` 32-bit words as Python ints from a tensor, array or sequence."""
+def _words(x, n: Optional[int]) -> Tuple[int, ...]:
+    """``n`` (or any number of, for None) 32-bit words as Python ints from
+    a tensor, array or sequence."""
     if isinstance(x, torch.Tensor):
         vals = x.reshape(-1).tolist()
     else:
         vals = np.asarray(x).reshape(-1).tolist()
-    if len(vals) != n:
+    if n is not None and len(vals) != n:
         raise ValueError(f"expected {n} words, got {len(vals)}")
     return tuple(int(v) & MASK32 for v in vals)
+
+
+def _rows(midstates) -> List[Tuple[int, ...]]:
+    """The chains' midstates, from a (k, 8) or (8,) tensor or array."""
+    words = _words(midstates, None)
+    if not words or len(words) % 8:
+        raise ValueError(f"expected k x 8 midstate words, got {len(words)}")
+    return [words[i:i + 8] for i in range(0, len(words), 8)]
 
 
 def _chunk2_state3(midstate, tail3) -> Tuple[int, ...]:
@@ -178,10 +203,28 @@ def _as_nonces(nonces) -> torch.Tensor:
     return nonces.to(torch.int64) & MASK32
 
 
-def _digest_inputs(mid, s3, tail, nonces):
+def _second_inputs(mids, s3s, tail, nonces) -> List[List]:
+    """Each chain's second message: its chunk-2 digest (the k chunk-2
+    compressions sharing one schedule) and the 32-byte padding."""
     w1 = [tail[0], tail[1], tail[2], _bswap32(nonces)] + _CHUNK2_PAD
-    h1 = compress(s3, w1, start=3, feedforward=mid)
-    return list(h1) + _W2_TAIL
+    h1s = compress_multi(s3s, w1, start=3, feedforwards=mids)
+    return [list(h1) + _W2_TAIL for h1 in h1s]
+
+
+def sha256d_midstate_multi(midstates, tail3, nonces,
+                           word7: bool = False) -> List:
+    """sha256d of k version-rolled sibling headers ``header_c[0:76] ‖
+    nonce`` from their chunk-1 midstates ((k, 8), row 0 the caller's own
+    header) and the shared header[64:76] as 3 big-endian words: the k
+    chunk-2 compressions share one message schedule. Returns k digests (8
+    words each, SHA-256 big-endian word order) or, with ``word7``, k digest
+    words 7 — each word shaped like ``nonces``."""
+    mids = _rows(midstates)
+    tail = _words(tail3, 3)
+    w2s = _second_inputs(mids, [_chunk2_state3(m, tail) for m in mids],
+                         tail, _as_nonces(nonces))
+    second = compress_word7 if word7 else compress
+    return [second(SHA256_IV, w2) for w2 in w2s]
 
 
 def sha256d_midstate_digests(midstate, tail3, nonces) -> Tuple:
@@ -189,18 +232,12 @@ def sha256d_midstate_digests(midstate, tail3, nonces) -> Tuple:
     headers ``header[0:76] ‖ nonce``, from the chunk-1 midstate (8 words)
     and header[64:76] as 3 big-endian words. Each word is shaped like
     ``nonces``."""
-    mid = _words(midstate, 8)
-    w2 = _digest_inputs(mid, _chunk2_state3(mid, tail3), _words(tail3, 3),
-                        _as_nonces(nonces))
-    return compress(SHA256_IV, w2)
+    return sha256d_midstate_multi(midstate, tail3, nonces)[0]
 
 
 def sha256d_midstate_word7(midstate, tail3, nonces):
     """Digest word 7 only — the early-reject path (:func:`compress_word7`)."""
-    mid = _words(midstate, 8)
-    w2 = _digest_inputs(mid, _chunk2_state3(mid, tail3), _words(tail3, 3),
-                        _as_nonces(nonces))
-    return compress_word7(SHA256_IV, w2)
+    return sha256d_midstate_multi(midstate, tail3, nonces, word7=True)[0]
 
 
 def meets_target_words(h2: Sequence, target_limbs):
@@ -216,14 +253,20 @@ def meets_target_words(h2: Sequence, target_limbs):
     return le
 
 
-def _meets(mid, s3, tail, limbs, nonces: torch.Tensor, word7: bool):
-    """Per-nonce verdicts from a job's constants (Python ints): hash ≤
-    target, or with ``word7`` the candidate test bswap32(h2[7]) ≤ limbs[0],
-    a superset of the hits that callers re-verify exactly."""
-    w2 = _digest_inputs(mid, s3, tail, nonces)
-    if word7:
-        return _bswap32(compress_word7(SHA256_IV, w2)) <= limbs[0]
-    return meets_target_words(compress(SHA256_IV, w2), limbs)
+def _meets(mids, s3s, tail, limbs, nonces: torch.Tensor,
+           word7: bool) -> List[torch.Tensor]:
+    """Per-nonce verdicts of each chain from a job's constants (Python
+    ints; ``mids`` and ``s3s`` one 8-tuple per chain): hash ≤ target, or
+    with ``word7`` the candidate test bswap32(h2[7]) ≤ limbs[0], a superset
+    of the hits that callers re-verify exactly."""
+    verdicts = []
+    for w2 in _second_inputs(mids, s3s, tail, nonces):
+        if word7:
+            verdicts.append(_bswap32(compress_word7(SHA256_IV, w2))
+                            <= limbs[0])
+        else:
+            verdicts.append(meets_target_words(compress(SHA256_IV, w2), limbs))
+    return verdicts
 
 
 class OpCount(NamedTuple):
@@ -285,41 +328,57 @@ class OpTally:
         return self.add(h, self.fn(4, _big_sigma1, e), self.fn(1, _ch, e, f, g),
                         SHA256_K[i], wi)
 
+    def round(self, regs: Sequence, i: int, wi) -> Tuple:
+        a, b, c, d = regs[:4]
+        t1 = self.t1(regs, i, wi)
+        return (self.add(t1, self.fn(4, _big_sigma0, a),
+                         self.fn(1, _maj, a, b, c)),
+                a, b, c, self.add(d, t1), *regs[4:7])
+
     def rounds(self, state: Sequence, w: Sequence, start: int, stop: int):
         """Registers and schedule window after rounds ``start..stop-1``."""
+        (regs,), w = self.rounds_shared([state], w, start, stop)
+        return regs, w
+
+    def rounds_shared(self, states: Sequence[Sequence], w: Sequence,
+                      start: int, stop: int):
+        """:meth:`rounds` of compressions of one message from several
+        states: each schedule word counted once, each round per state."""
         w = list(w)
-        regs = tuple(state)
+        regs = [tuple(s) for s in states]
         for i in range(start, stop):
             if i >= 16:
                 w[i % 16] = self.schedule_word(w, i)
-            a, b, c, d = regs[:4]
-            t1 = self.t1(regs, i, w[i % 16])
-            regs = (self.add(t1, self.fn(4, _big_sigma0, a),
-                             self.fn(1, _maj, a, b, c)),
-                    a, b, c, self.add(d, t1), *regs[4:7])
+            regs = [self.round(r, i, w[i % 16]) for r in regs]
         return regs, w
 
 
-def ops_per_nonce(word7: bool) -> OpCount:
+def ops_per_nonce(word7: bool, vshare: int = 1) -> OpCount:
     """The operations each nonce needs after the round 0-2 precompute
-    (:class:`OpTally`'s rule), for the path of :func:`_meets`. The target
-    compare adds, per digest limb read, a byte swap and two
-    compare-and-combine operations: one limb in word7 mode, eight
-    otherwise."""
+    (:class:`OpTally`'s rule), for the path of :func:`_meets` over
+    ``vshare`` chains: the nonce's byte swap and the chunk-2 schedule are
+    counted once, each chain's chunk-2 rounds, feedforward, second
+    compression and compare once per chain. The target compare adds, per
+    digest limb read, a byte swap and two compare-and-combine operations:
+    one limb in word7 mode, eight otherwise."""
     tally = OpTally()
     nonce = tally.fn(1, _bswap32, VARYING)
     w1 = [UNIFORM] * 3 + [nonce] + _CHUNK2_PAD
-    regs, _ = tally.rounds((UNIFORM,) * 8, w1, 3, 64)
-    w2 = [tally.add(UNIFORM, r) for r in regs] + _W2_TAIL  # midstate feedforward
-    if word7:
-        regs, w = tally.rounds(SHA256_IV, w2, 0, 60)
-        tally.add(SHA256_IV[7], regs[3],
-                  tally.t1(regs, 60, tally.schedule_word(w, 60)))
-        return OpCount(tally.logic + 3, tally.adds)
-    regs, _ = tally.rounds(SHA256_IV, w2, 0, 64)
-    for s, r in zip(SHA256_IV, regs):
-        tally.add(s, r)
-    return OpCount(tally.logic + 8 * 3, tally.adds)
+    chains, _ = tally.rounds_shared([(UNIFORM,) * 8] * vshare, w1, 3, 64)
+    compare = 0
+    for regs in chains:
+        w2 = [tally.add(UNIFORM, r) for r in regs] + _W2_TAIL  # feedforward
+        if word7:
+            regs, w = tally.rounds(SHA256_IV, w2, 0, 60)
+            tally.add(SHA256_IV[7], regs[3],
+                      tally.t1(regs, 60, tally.schedule_word(w, 60)))
+            compare += 3
+        else:
+            regs, _ = tally.rounds(SHA256_IV, w2, 0, 64)
+            for s, r in zip(SHA256_IV, regs):
+                tally.add(s, r)
+            compare += 8 * 3
+    return OpCount(tally.logic + compare, tally.adds)
 
 
 #: 32-bit lanes per SM and clock of Hopper's integer pipe (logic, shifts,
@@ -329,12 +388,14 @@ INT_LANES_PER_SM = 64
 DISPATCH_LANES_PER_SM = 128
 
 
-def bound_ms(nonces: int, word7: bool, sms: int, sm_clock_hz: float) -> float:
+def bound_ms(nonces: int, word7: bool, sms: int, sm_clock_hz: float,
+             vshare: int = 1) -> float:
     """The least time a card with ``sms`` SMs at ``sm_clock_hz`` could take
-    to hash ``nonces`` nonces: per nonce and SM, the logic operations need
-    ``logic / 64`` clocks on the integer pipe and all operations
-    ``total / 128`` clocks of instruction dispatch, whichever is larger."""
-    ops = ops_per_nonce(word7)
+    to hash ``nonces`` nonces over ``vshare`` chains (``nonces × vshare``
+    hashes): per nonce and SM, the logic operations need ``logic / 64``
+    clocks on the integer pipe and all operations ``total / 128`` clocks
+    of instruction dispatch, whichever is larger."""
+    ops = ops_per_nonce(word7, vshare)
     clocks = max(ops.logic / INT_LANES_PER_SM,
                  ops.total / DISPATCH_LANES_PER_SM)
     return nonces * clocks / (sms * sm_clock_hz) * 1e3
@@ -355,45 +416,68 @@ def _u32(values: torch.Tensor, device: torch.device) -> torch.Tensor:
     return values.cpu().to(torch.uint32).to(device)
 
 
-def scan_batch_plain(midstate, tail3, target_limbs, nonce_base, limit, *,
-                     inner_size: int, n_steps: int, max_hits: int,
-                     word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scan ``n_steps × inner_size`` nonces from ``nonce_base``; only
-    offsets < ``limit`` count. Returns ``(hits, count)``: the first
-    ``max_hits`` hit nonces in ascending offset order as uint32, unused
-    slots 0xFFFFFFFF, and the uncapped hit count as a 0-d int32 — the
-    contract of ``bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch``.
-    Nonces wrap modulo 2^32. With ``word7`` the buffer holds candidates."""
-    device = _device_of(midstate)
-    mid = _words(midstate, 8)
+def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
+                            *, inner_size: int, n_steps: int, max_hits: int,
+                            word7: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan ``n_steps × inner_size`` nonces from ``nonce_base`` against k
+    version-rolled sibling headers, given by their midstates ((k, 8), row
+    0 the caller's own header); only offsets < ``limit`` count. Returns
+    ``(bufs, counts)``: per chain the first ``max_hits`` hit nonces in
+    ascending offset order as uint32 (k, max_hits), unused slots
+    0xFFFFFFFF, and the uncapped hit counts as int32 (k,) — the contract
+    of ``bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch_vshare``. Nonces
+    wrap modulo 2^32. With ``word7`` the buffers hold candidates."""
+    device = _device_of(midstates)
+    mids = _rows(midstates)
     tail = _words(tail3, 3)
     limbs = _words(target_limbs, 8)
-    s3 = _chunk2_state3(mid, tail)
+    s3s = [_chunk2_state3(m, tail) for m in mids]
     base = _words(nonce_base, 1)[0]
     n = min(_words(limit, 1)[0], n_steps * inner_size)
     chunk = _chunk_size(device)
-    hits: List[int] = []
-    count = 0
+    hits: List[List[int]] = [[] for _ in mids]
+    counts = [0] * len(mids)
     for off in range(0, n, chunk):
         offs = torch.arange(off, min(off + chunk, n), dtype=torch.int64,
                             device=device)
         nonces = (offs + base) & MASK32
-        meets = _meets(mid, s3, tail, limbs, nonces, word7)
-        count += int(meets.sum())
-        if len(hits) < max_hits:
-            idx = torch.nonzero(meets).flatten()[: max_hits - len(hits)]
-            hits.extend(nonces[idx].tolist())
-    buf = torch.full((max_hits,), MASK32, dtype=torch.int64)
-    buf[: len(hits)] = torch.tensor(hits, dtype=torch.int64)
-    return (_u32(buf, device),
-            torch.tensor(count, dtype=torch.int32, device=device))
+        for c, meets in enumerate(_meets(mids, s3s, tail, limbs, nonces,
+                                         word7)):
+            counts[c] += int(meets.sum())
+            if len(hits[c]) < max_hits:
+                idx = torch.nonzero(meets).flatten()[: max_hits - len(hits[c])]
+                hits[c].extend(nonces[idx].tolist())
+    bufs = torch.full((len(mids), max_hits), MASK32, dtype=torch.int64)
+    for c, row in enumerate(hits):
+        bufs[c, : len(row)] = torch.tensor(row, dtype=torch.int64)
+    return (_u32(bufs, device),
+            torch.tensor(counts, dtype=torch.int32, device=device))
+
+
+def scan_batch_plain(midstate, tail3, target_limbs, nonce_base, limit, *,
+                     inner_size: int, n_steps: int, max_hits: int,
+                     word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scan_batch_vshare_plain` of one chain: ``(hits, count)``, the
+    first ``max_hits`` hit nonces (uint32) and the uncapped count as a 0-d
+    int32 — the contract of ``bitcoin_miner_tpu/ops/sha256_jax.py::
+    _scan_batch``."""
+    _words(midstate, 8)
+    bufs, counts = scan_batch_vshare_plain(
+        midstate, tail3, target_limbs, nonce_base, limit,
+        inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
+        word7=word7)
+    return bufs[0], counts[0]
 
 
 #: Launches of ``csrc/scan_hitbuf.cu::scan_hitbuf_kernel`` (made by
-#: :func:`scan_batch`) and of its one-block compaction
-#: ``hitbuf_compact_kernel`` (made by :func:`hitbuf_compact`).
-SCAN_HITBUF = csrc.LaunchCounter("scan_hitbuf")
-HITBUF_COMPACT = csrc.LaunchCounter("hitbuf_compact")
+#: :func:`scan_batch_vshare` and :func:`scan_batch`) and of its compaction
+#: ``hitbuf_compact_kernel`` (made by :func:`hitbuf_compact`), by number of
+#: chains; the one-chain counters also stand alone.
+SCAN_HITBUF_K = csrc.launch_counters("scan_hitbuf")
+HITBUF_COMPACT_K = csrc.launch_counters("hitbuf_compact")
+SCAN_HITBUF = SCAN_HITBUF_K[1]
+HITBUF_COMPACT = HITBUF_COMPACT_K[1]
 
 _THREADS = 256  # threads per block of scan_hitbuf_kernel
 _WAVE_BLOCKS = 528  # four blocks of 256 threads on each of 132 SMs
@@ -408,90 +492,129 @@ def hitbuf_geometry(capacity: int) -> Tuple[int, int]:
     return iters, -(-capacity // span)
 
 
-def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
-               inner_size: int, n_steps: int, max_hits: int,
-               word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The hit-buffer scan (:func:`scan_batch_plain`'s contract) on the
-    tensors' device. CPU tensors take the plain version; CUDA tensors
-    (uint32: midstate (8,), tail3 (3,), limbs (8,), 0-d base and limit)
-    launch ``scan_hitbuf_kernel``, then :func:`hitbuf_compact`, on the
-    current stream, without synchronising.
+def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
+                      inner_size: int, n_steps: int, max_hits: int,
+                      word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k-chain hit-buffer scan (:func:`scan_batch_vshare_plain`'s
+    contract) on the tensors' device. CPU tensors take the plain version;
+    CUDA tensors (uint32: midstates (k, 8) with 1 ≤ k ≤ 8, tail3 (3,),
+    limbs (8,), 0-d base and limit) launch ``scan_hitbuf_kernel`` built
+    for k chains, then :func:`hitbuf_compact`, on the current stream,
+    without synchronising.
 
-    Replaces the XLA scan ``bitcoin_miner_tpu/ops/sha256_jax.py::
-    _scan_batch`` (no Pallas source). Bound: 32-bit integer operations
-    (:func:`bound_ms` over the nonces below ``min(limit, capacity)``); the
-    outputs are a few hundred bytes. Design in ``csrc/scan_hitbuf.cu``."""
-    device = _device_of(midstate)
+    Replaces the XLA scans ``bitcoin_miner_tpu/ops/sha256_jax.py::
+    _scan_batch_vshare`` (and ``_scan_batch`` at k=1; no Pallas source).
+    Bound: 32-bit integer operations (:func:`bound_ms` with ``vshare=k``
+    over the nonces below ``min(limit, capacity)``); the outputs are a few
+    hundred bytes per chain. Design in ``csrc/scan_hitbuf.cu``."""
+    device = _device_of(midstates)
     if device.type == "cpu":
-        return scan_batch_plain(
-            midstate, tail3, target_limbs, nonce_base, limit,
+        return scan_batch_vshare_plain(
+            midstates, tail3, target_limbs, nonce_base, limit,
             inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
             word7=word7)
-    args = (midstate, tail3, target_limbs, nonce_base, limit)
-    for t, shape in zip(args, ((8,), (3,), (8,), (), ())):
+    k = midstates.shape[0] if midstates.dim() == 2 else 0
+    args = (midstates, tail3, target_limbs, nonce_base, limit)
+    for t, shape in zip(args, ((k, 8), (3,), (8,), (), ())):
         csrc.check_tensor(t, device, torch.uint32, shape)
+    name = csrc.kernel_name("scan_hitbuf", k)  # checks 1 <= k <= 8
     if not 0 < max_hits <= 1 << 16:
         raise ValueError(f"max_hits must be in [1, 65536], got {max_hits}")
     capacity = n_steps * inner_size
     if not 0 < capacity <= 1 << 32:
         raise ValueError(f"capacity {capacity} must be in [1, 2^32]")
     iters, n_blocks = hitbuf_geometry(capacity)
-    blk_hits = torch.empty(n_blocks * max_hits, dtype=torch.uint32,
+    blk_hits = torch.empty(k * n_blocks * max_hits, dtype=torch.uint32,
                            device=device)
-    blk_counts = torch.empty(n_blocks, dtype=torch.int32, device=device)
-    lib = csrc.load("scan_hitbuf")
+    blk_counts = torch.empty((k, n_blocks), dtype=torch.int32, device=device)
+    lib = csrc.load(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         csrc.check(lib.scan_hitbuf_launch(
             *(t.data_ptr() for t in args), blk_hits.data_ptr(),
             blk_counts.data_ptr(), capacity, max_hits, iters, n_blocks,
-            int(word7), stream), "scan_hitbuf_kernel")
-        SCAN_HITBUF.add()
+            int(word7), stream), name)
+        SCAN_HITBUF_K[k].add()
     return hitbuf_compact(blk_hits, blk_counts, max_hits)
+
+
+def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
+               inner_size: int, n_steps: int, max_hits: int,
+               word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one-chain hit-buffer scan (:func:`scan_batch_plain`'s contract)
+    on the tensors' device: CPU tensors take the plain version, CUDA
+    tensors (midstate (8,)) :func:`scan_batch_vshare`'s kernels at k=1.
+
+    Replaces the XLA scan ``bitcoin_miner_tpu/ops/sha256_jax.py::
+    _scan_batch``."""
+    if _device_of(midstate).type == "cpu":
+        return scan_batch_plain(
+            midstate, tail3, target_limbs, nonce_base, limit,
+            inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
+            word7=word7)
+    csrc.check_tensor(midstate, midstate.device, torch.uint32, (8,))
+    bufs, counts = scan_batch_vshare(
+        midstate.view(1, 8), tail3, target_limbs, nonce_base, limit,
+        inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
+        word7=word7)
+    return bufs[0], counts[0]
 
 
 def hitbuf_compact_plain(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
                          max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge per-block hit slots in block order: block ``b`` stored its
-    first ``min(blk_counts[b], max_hits)`` hits at ``blk_hits[b·max_hits:]``.
-    Returns the first ``max_hits`` hits overall (unused slots 0xFFFFFFFF)
-    and the uncapped total as a 0-d int32."""
+    """Merge per-block hit slots in block order, per chain: ``blk_counts``
+    is (n_blocks,) for one chain or (k, n_blocks), and block ``b`` of chain
+    ``c`` stored its first ``min(blk_counts[c, b], max_hits)`` hits at
+    ``blk_hits[(c·n_blocks + b)·max_hits:]``. Returns each chain's first
+    ``max_hits`` hits overall (unused slots 0xFFFFFFFF) and its uncapped
+    total as int32: shapes (max_hits,) and () for one chain, (k, max_hits)
+    and (k,) for k."""
     device = blk_hits.device
-    counts = blk_counts.cpu().to(torch.int64).tolist()
-    slots = blk_hits.cpu().to(torch.int64).view(len(counts), max_hits)
-    hits: List[int] = []
-    for b, n in enumerate(counts):
-        if len(hits) < max_hits and n:
-            hits.extend(slots[b, :min(n, max_hits - len(hits))].tolist())
-    buf = torch.full((max_hits,), MASK32, dtype=torch.int64)
-    buf[: len(hits)] = torch.tensor(hits, dtype=torch.int64)
-    return (_u32(buf, device),
-            torch.tensor(sum(counts), dtype=torch.int32, device=device))
+    counts = blk_counts.cpu().to(torch.int64).reshape(-1, blk_counts.shape[-1])
+    k, n_blocks = counts.shape
+    slots = blk_hits.cpu().to(torch.int64).view(k, n_blocks, max_hits)
+    bufs = torch.full((k, max_hits), MASK32, dtype=torch.int64)
+    for c in range(k):
+        hits: List[int] = []
+        for b, n in enumerate(counts[c].tolist()):
+            if len(hits) < max_hits and n:
+                hits.extend(slots[c, b, :min(n, max_hits - len(hits))].tolist())
+        bufs[c, : len(hits)] = torch.tensor(hits, dtype=torch.int64)
+    shape = tuple(blk_counts.shape[:-1])
+    return (_u32(bufs.view(*shape, max_hits), device),
+            counts.sum(1).to(torch.int32).view(shape).to(device))
 
 
 def hitbuf_compact(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
                    max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The second half of the hit-buffer scan (:func:`hitbuf_compact_plain`'s
-    contract). CPU tensors take the plain version; CUDA tensors launch the
-    one-block ``hitbuf_compact_kernel`` on the current stream.
+    contract). CPU tensors take the plain version; CUDA tensors launch
+    ``hitbuf_compact_kernel``, one block per chain, on the current stream.
 
     Replaces the ordered append of ``bitcoin_miner_tpu/ops/sha256_jax.py::
-    _scan_batch`` (``jnp.nonzero`` and the scatter into the hit buffer).
-    Bound: bytes — the block counts read and the hits copied."""
+    _scan_batch`` and ``_scan_batch_vshare`` (``jnp.nonzero`` and the
+    scatter into the hit buffer). Bound: bytes — the block counts read and
+    the hits copied."""
     device = blk_hits.device
     if device.type == "cpu":
         return hitbuf_compact_plain(blk_hits, blk_counts, max_hits)
-    n_blocks = blk_counts.numel()
-    csrc.check_tensor(blk_counts, device, torch.int32, (n_blocks,))
-    csrc.check_tensor(blk_hits, device, torch.uint32, (n_blocks * max_hits,))
-    hits = torch.empty(max_hits, dtype=torch.uint32, device=device)
-    count = torch.empty((), dtype=torch.int32, device=device)
-    lib = csrc.load("scan_hitbuf")
+    if blk_counts.dim() not in (1, 2):
+        raise ValueError("blk_counts must be (n_blocks,) or (k, n_blocks)")
+    shape = tuple(blk_counts.shape[:-1])
+    k = blk_counts.shape[0] if shape else 1
+    n_blocks = blk_counts.shape[-1]
+    csrc.check_tensor(blk_counts, device, torch.int32, tuple(blk_counts.shape))
+    csrc.check_tensor(blk_hits, device, torch.uint32,
+                      (k * n_blocks * max_hits,))
+    name = csrc.kernel_name("scan_hitbuf", k)
+    hits = torch.empty((*shape, max_hits), dtype=torch.uint32, device=device)
+    count = torch.empty(shape, dtype=torch.int32, device=device)
+    lib = csrc.load(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         csrc.check(lib.hitbuf_compact_launch(
             blk_hits.data_ptr(), blk_counts.data_ptr(), n_blocks, max_hits,
             hits.data_ptr(), count.data_ptr(), stream),
-            "hitbuf_compact_kernel")
-        HITBUF_COMPACT.add()
+            csrc.kernel_name("hitbuf_compact", k))
+        HITBUF_COMPACT_K[k].add()
     return hits, count

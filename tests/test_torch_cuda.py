@@ -8,7 +8,12 @@ without one. On a machine with a card:
 import pytest
 import torch
 
-from bitcoin_miner_tpu_torch.backends.cuda import CudaHasher, TileCudaHasher
+from bitcoin_miner_tpu_torch.backends.cuda import (
+    DEFAULT_VERSION_MASK,
+    CudaHasher,
+    TileCudaHasher,
+    sibling_version_patterns,
+)
 from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONCE
 from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
 from bitcoin_miner_tpu_torch.ops import sha256_tile, sha256_torch
@@ -22,6 +27,8 @@ from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     hitbuf_compact_plain,
     scan_batch,
     scan_batch_plain,
+    scan_batch_vshare,
+    scan_batch_vshare_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -91,3 +98,64 @@ def test_hasher_on_card_matches_plain_hasher(cuda, cls):
     assert got.nonces == [GENESIS_NONCE]
     easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
     assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+
+
+def _k_job(case, k, cuda):
+    _, header76, target, base, limit = case
+    version = int.from_bytes(header76[:4], "little")
+    versions = [version] + [version ^ p for p in
+                            sibling_version_patterns(DEFAULT_VERSION_MASK, k)]
+    return job_block_from_header(header76, target, base, limit,
+                                 versions=versions).to(cuda)
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_vshare_matches_plain(cuda, case, word7, k):
+    job = _k_job(case, k, cuda)
+    kw = dict(n_steps=N // 8192, block=8192, word7=word7, vshare=k)
+    before = sha256_tile.SCAN_TILE_K[k].value
+    got = scan_tile(job, **kw)
+    assert sha256_tile.SCAN_TILE_K[k].value == before + 1
+    assert got[0].shape == (N // 8192 * k,)
+    assert _equal(got, scan_tile_plain(job, **kw))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_batch_vshare_matches_plain(cuda, case, word7, k):
+    """Per-chain hit buffers, with overflow in every chain at the easy
+    target (~2^-10 per nonce over 2^20 nonces, 32 slots)."""
+    job = _k_job(case, k, cuda)
+    t = 16 * k
+    parts = (job[:8 * k].view(k, 8), job[t:t + 3], job[t + 3:t + 11],
+             job[t + 11], job[t + 12])
+    kw = dict(inner_size=1 << 16, n_steps=N >> 16, max_hits=32, word7=word7)
+    before = (sha256_torch.SCAN_HITBUF_K[k].value,
+              sha256_torch.HITBUF_COMPACT_K[k].value)
+    got = scan_batch_vshare(*parts, **kw)
+    assert (sha256_torch.SCAN_HITBUF_K[k].value,
+            sha256_torch.HITBUF_COMPACT_K[k].value) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = scan_batch_vshare_plain(*parts, **kw)
+    assert _equal(got, want)
+    if case[0] != "genesis":
+        assert int(want[1].min()) > 32
+
+
+@pytest.mark.parametrize("cls", [TileCudaHasher, CudaHasher])
+def test_vshare_hasher_on_card_matches_plain_hasher(cuda, cls):
+    card = cls(batch_size=1 << 20, device="cuda", vshare=2)
+    plain = cls(batch_size=1 << 20, device="cpu", vshare=2)
+    got = card.scan(GENESIS76, GENESIS_NONCE - 3_000_000, 1 << 22, DIFF1)
+    assert got.nonces == [GENESIS_NONCE] and got.hashes_done == 1 << 23
+    easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy.version_hits
+    for mask in (0, 1 << 20):
+        card.set_version_mask(mask)
+        plain.set_version_mask(mask)
+        assert card.scan(bytes(76), 5, 1 << 20, EASY) == plain.scan(
+            bytes(76), 5, 1 << 20, EASY)

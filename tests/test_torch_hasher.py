@@ -157,12 +157,21 @@ class TestScanStream:
 
 class TestConstruction:
     def test_later_slice_options_raise(self):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TileCudaHasher(batch_size=BATCH, vshare=2, device="cpu")
+        """The layout variants and chain passes smaller than vshare wait
+        for a later slice; vshare itself is ported (test_torch_vshare)."""
         with pytest.raises(NotImplementedError, match="later slice"):
             TileCudaHasher(batch_size=BATCH, variant="wstage", device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            CudaHasher(batch_size=BATCH, inner_size=BATCH, vshare=4,
+        with pytest.raises(NotImplementedError, match="layout-variants"):
+            TileCudaHasher(batch_size=BATCH, vshare=4, cgroup=2,
+                           device="cpu")
+        for cgroup in (0, 4):
+            assert TileCudaHasher(batch_size=BATCH, vshare=4, cgroup=cgroup,
+                                  device="cpu").version_roll_bits == 2
+        with pytest.raises(ValueError, match="cgroup"):
+            TileCudaHasher(batch_size=BATCH, vshare=2, cgroup=3,
+                           device="cpu")
+        with pytest.raises(ValueError, match="at most 8"):
+            CudaHasher(batch_size=BATCH, inner_size=BATCH, vshare=9,
                        device="cpu")
 
     def test_geometry_checks(self):
