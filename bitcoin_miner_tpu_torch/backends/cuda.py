@@ -34,6 +34,7 @@ waits on its own event, and the per-job constants cache has a lock.
 from __future__ import annotations
 
 import logging
+import math
 import struct
 import threading
 from collections import OrderedDict, deque
@@ -45,7 +46,13 @@ import torch
 
 from ..core.sha256 import SHA256_IV, _sha256_pad, sha256d_from_midstate
 from ..ops.csrc import MAX_VSHARE
-from ..ops.sha256_tile import job_words, scan_tile
+from ..ops.sha256_tile import (
+    LANES,
+    check_layout,
+    check_plane,
+    job_words,
+    scan_tile,
+)
 from ..ops.sha256_torch import compress, scan_batch_vshare
 from .base import (
     Hasher,
@@ -57,8 +64,6 @@ from .base import (
 )
 
 logger = logging.getLogger(__name__)
-
-_LATER_SLICE = "is not ported yet; it waits for a later slice of the port"
 
 #: The standard full BIP 310 version-rolling mask (bits 13-28): the bench's
 #: mask; a mining session replaces it with the pool's through
@@ -451,58 +456,108 @@ class CudaHasher(Hasher):
         return self.version_roll_bits
 
 
+def tile_geometry(batch_size: int, sublanes: int, inner_tiles: int,
+                  interleave: int, variant: str) -> Tuple[int, int]:
+    """The (inner_tiles, interleave) a tile hasher runs, as
+    ``PallasTpuHasher`` clamps them: inner_tiles down to a divisor of the
+    batch's ``sublanes``×128-nonce tiles, interleave down to a divisor of
+    inner_tiles, and for vroll-db, whose loop body covers two interleave
+    groups, until inner_tiles holds an even number of them (interleave
+    first). Values that fit are never changed; a changed geometry is
+    logged, since a measurement must not be credited to a geometry that
+    never ran."""
+    requested = (inner_tiles, interleave)
+    n_tiles = max(1, batch_size // (sublanes * LANES))
+    inner_tiles = max(1, min(inner_tiles, n_tiles))
+    while n_tiles % inner_tiles:
+        inner_tiles -= 1
+    interleave = max(1, min(interleave, inner_tiles))
+    while inner_tiles % interleave:
+        interleave -= 1
+    if variant == "vroll-db":
+        # A batch too small for two tile groups cannot double-buffer at
+        # all: the layout check then raises.
+        while inner_tiles % (2 * interleave):
+            if interleave > 1:
+                interleave -= 1
+                while inner_tiles % interleave:
+                    interleave -= 1
+            elif inner_tiles > 1:
+                inner_tiles -= 1
+                while n_tiles % inner_tiles:
+                    inner_tiles -= 1
+            else:
+                break
+    if (inner_tiles, interleave) != requested:
+        logger.warning(
+            "tile geometry clamped: inner_tiles=%d interleave=%d "
+            "(requested %d/%d) for batch_size=%d sublanes=%d",
+            inner_tiles, interleave, *requested, batch_size, sublanes)
+    return inner_tiles, interleave
+
+
 class TileCudaHasher(CudaHasher):
     """The tile kernel behind the dispatch ring (``--backend cuda-tile``,
     the default).
 
     Each dispatch returns one (count, lowest nonce) pair per step of
-    ``block`` nonces and per chain. At real share difficulties a step
-    almost never holds two hits, so the mins are the hits; a step
-    reporting more than one hit, or a word7 candidate, is re-enumerated
-    exactly by the one-chain hit-buffer kernel over that step alone,
-    against its chain's own midstate."""
+    ``sublanes``×128×``inner_tiles`` nonces (the Pallas kernel's grid step,
+    so the outputs compare with it slot by slot) and per chain. At real
+    share difficulties a step almost never holds two hits, so the mins are
+    the hits; a step reporting more than one hit, or a word7 candidate, is
+    re-enumerated exactly by the one-chain hit-buffer kernel over that step
+    alone, against its chain's own midstate.
+
+    ``variant``, ``cgroup`` and ``interleave`` choose the tile kernel's
+    layout (``ops.sha256_tile``); the geometry is clamped as
+    :func:`tile_geometry` says, and checked as the Pallas hasher checks it.
+    In degraded mode (one chain) the same layout runs built for one chain,
+    its chain pass clamped to that chain."""
 
     name = "cuda-tile"
 
     def __init__(
         self,
         batch_size: int = 1 << 24,
-        block: int = 8192,
+        sublanes: int = 8,
+        inner_tiles: int = 8,
+        interleave: int = 1,
         max_hits: int = 64,
         vshare: int = 1,
         variant: str = "baseline",
         cgroup: int = 0,
         device: Optional[str] = None,
     ) -> None:
-        if variant != "baseline":
-            raise NotImplementedError(
-                f"kernel variant {variant!r} {_LATER_SLICE}")
-        block = min(block, batch_size)
-        if block % 256 or batch_size % block:
-            raise ValueError(
-                f"block={block} must be a multiple of 256 dividing "
-                f"batch_size={batch_size}")
-        rescan_inner = min(block, 1 << 10)
-        super().__init__(batch_size=batch_size, inner_size=rescan_inner,
+        inner_tiles, interleave = tile_geometry(batch_size, sublanes,
+                                                inner_tiles, interleave,
+                                                variant)
+        check_layout(max(1, vshare), variant, cgroup, interleave, inner_tiles)
+        tile = sublanes * LANES * inner_tiles
+        if batch_size % tile:
+            raise ValueError(f"batch_size must be a multiple of {tile}")
+        # The rescan of one step: its hit buffer's capacity is the step.
+        super().__init__(batch_size=batch_size,
+                         inner_size=math.gcd(tile, 1 << 10),
                          max_hits=max_hits, vshare=vshare, device=device)
-        if not 0 <= cgroup <= self._vshare:
-            raise ValueError(
-                f"cgroup must be between 1 and vshare={self._vshare} "
-                "(0 = all chains in one pass)")
-        if cgroup not in (0, self._vshare):
-            raise NotImplementedError(
-                f"cgroup={cgroup} (chain passes smaller than vshare) "
-                f"{_LATER_SLICE}: the layout-variants slice")
+        if self.device.type == "cuda":
+            check_plane(variant, interleave)
+        self.sublanes = sublanes
+        self.inner_tiles = inner_tiles
+        self.interleave = interleave
+        self.variant = variant
+        self.cgroup = cgroup
         #: nonces per step: the re-enumeration granularity.
-        self.tile = block
+        self.tile = tile
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
-        job = _upload([*jc.midstates.ravel(), *jc.state3s.ravel(),
-                       *jc.tail3, *jc.limbs, base & 0xFFFFFFFF, limit],
-                      self.device)
-        return _Dispatch(scan_tile(job, n_steps=self.batch_size // self.tile,
-                                   block=self.tile, word7=jc.word7,
-                                   vshare=jc.chains))
+        words = np.concatenate([
+            jc.midstates.ravel(), jc.state3s.ravel(), jc.tail3, jc.limbs,
+            np.asarray([base & 0xFFFFFFFF, limit], dtype=np.uint32)])
+        return _Dispatch(scan_tile(
+            _upload(words, self.device), n_steps=self.batch_size // self.tile,
+            block=self.tile, word7=jc.word7, vshare=jc.chains,
+            variant=self.variant, cgroup=min(self.cgroup, jc.chains),
+            interleave=self.interleave, host_words=words))
 
     def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
                  limit: int, found: _Found) -> None:

@@ -9,7 +9,9 @@ hit-buffer kernel) and ``cpu`` (the hashlib oracle). ``--device cpu``
 runs the CUDA backends' plain PyTorch versions instead of the kernels;
 without it they need a card. ``--vshare k`` hashes every nonce against k
 version-rolled sibling headers (overt AsicBoost) on the CUDA backends.
-The miner writes no files.
+``--variant``, ``--cgroup``, ``--interleave``, ``--sublanes`` and
+``--inner-tiles`` choose the tile kernel's layout and step on
+``cuda-tile``; the other backends refuse them. The miner writes no files.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import TYPE_CHECKING, Optional
 from urllib.parse import urlparse
 
 from .backends.base import Hasher, get_hasher
+from .ops.sha256_tile import VARIANTS
 from .core.header import GENESIS_HEADER_HEX, GENESIS_NBITS, GENESIS_NONCE
 from .core.target import nbits_to_target
 from .miner.scheduler import (
@@ -67,9 +70,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "a pool that grants no (or too narrow a) mask "
                         "degrades the miner to chain 0 and it says so. "
                         "Default %(default)s")
-    p.add_argument("--cgroup", type=int, default=0,
-                   help="cuda-tile: chains per pass over the rounds; 0 or "
-                        "--vshare (all chains in one pass) are ported")
+    p.add_argument("--variant", default=None, choices=VARIANTS,
+                   help="cuda-tile: layout of the tile kernel, the same "
+                        "hashes on another schedule: baseline (job words "
+                        "read from the card where used), regchain (job "
+                        "words as launch parameters), wsplit (regchain in "
+                        "chain passes of one), wstage (the 64-word "
+                        "schedule expanded once per nonce into shared "
+                        "memory, read back by each chain pass), vroll "
+                        "(wstage version-major: each pass over all nonces "
+                        "in flight) or vroll-db (vroll over two staged "
+                        "groups of nonces). Default baseline")
+    p.add_argument("--cgroup", type=int, default=None,
+                   help="cuda-tile: chains per pass over the rounds, 1 <= g "
+                        "<= --vshare; default from --variant (1 for "
+                        "wsplit/wstage/vroll/vroll-db, k otherwise)")
+    p.add_argument("--interleave", type=int, default=None,
+                   help="cuda-tile: nonces in flight per thread (ILP for "
+                        "the serial round chain); clamped down to a "
+                        "divisor of the effective --inner-tiles (logged "
+                        "when it changes), default 1")
+    p.add_argument("--sublanes", type=int, default=None,
+                   help="cuda-tile: 128-nonce rows per tile, default 8")
+    p.add_argument("--inner-tiles", type=int, default=None,
+                   help="cuda-tile: tiles per step (a step of sublanes x "
+                        "128 x inner-tiles nonces is one (count, min) slot "
+                        "per chain), clamped down to fit the batch, "
+                        "default 8")
     p.add_argument("--batch-bits", type=int, default=None,
                    help="log2 of nonces per dispatch, fixed; default: the "
                         "adaptive scheduler sizes requests online over a "
@@ -88,17 +115,40 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: The tile kernel's layout options and the value each takes when not given.
+TILE_OPTIONS = (("variant", "baseline"), ("cgroup", 0), ("interleave", 1),
+                ("sublanes", 8), ("inner_tiles", 8))
+
+
 def make_hasher(args: argparse.Namespace) -> Hasher:
-    if args.backend != "cuda-tile" and args.cgroup:
-        raise SystemExit(f"--cgroup {args.cgroup} applies only to --backend "
-                         f"cuda-tile; --backend {args.backend} ignores it")
+    # A run must not be labelled with a geometry that never ran: layout
+    # options that only the tile kernel has are refused elsewhere (an
+    # explicit interleave of 1 describes what runs, and passes).
+    if args.backend != "cuda-tile":
+        for flag, default in TILE_OPTIONS:
+            val = getattr(args, flag)
+            if val is not None and (flag, val) != ("interleave", 1):
+                raise SystemExit(
+                    f"--{flag.replace('_', '-')} {val} applies only to "
+                    f"--backend cuda-tile; --backend {args.backend} "
+                    "ignores it")
     if args.backend == "cpu":
         if args.vshare != 1:
             raise SystemExit(f"--vshare {args.vshare} applies only to the "
                              "cuda backends; --backend cpu ignores it")
         return get_hasher("cpu")
     bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
-    kwargs = {"cgroup": args.cgroup} if args.backend == "cuda-tile" else {}
+    kwargs = {}
+    if args.backend == "cuda-tile":
+        kwargs = {flag: default if getattr(args, flag) is None
+                  else getattr(args, flag) for flag, default in TILE_OPTIONS}
+        if min(kwargs["sublanes"], kwargs["inner_tiles"],
+               kwargs["interleave"], args.vshare) < 1:
+            raise SystemExit("--sublanes, --inner-tiles, --interleave and "
+                             "--vshare must be >= 1")
+        if not 0 <= kwargs["cgroup"] <= args.vshare:
+            raise SystemExit(
+                f"--cgroup must be between 1 and --vshare ({args.vshare})")
     return get_hasher(args.backend, batch_size=1 << bits, device=args.device,
                       vshare=args.vshare, **kwargs)
 
@@ -154,7 +204,8 @@ def cmd_bench(args: argparse.Namespace) -> int:
     print(
         f"{out['mhs']:.2f} MH/s over {out['hashes']} hashes in "
         f"{out['seconds']:.2f}s ({out['dispatches']} dispatches, backend "
-        f"{args.backend} on {args.device}, vshare {args.vshare}); genesis "
+        f"{args.backend} on {args.device}, vshare {args.vshare}"
+        f"{', variant ' + args.variant if args.variant else ''}); genesis "
         f"nonce {'FOUND+VERIFIED' if out['verified'] else 'MISSED'}"
         f"{siblings}"
     )

@@ -1,11 +1,16 @@
 """CUDA C++ sources of the scan kernels, and their loader.
 
-Each ``.cu`` file builds with ``nvcc`` for ``sm_90a`` once per number K of
-version-rolled chains (``-DVSHARE=K``, 1 ≤ K ≤ 8) into its own shared
-library with a plain C interface, under ``build/kernels/`` at the root of
-the checkout, on first use; the library name carries a digest of the
-sources and flags, defines included, so an edited source is rebuilt. The
-libraries are bound with ``ctypes``: pointers and the stream pass as
+Each library is one ``.cu`` file built with ``nvcc`` for ``sm_90a`` under a
+set of defines: the number K of version-rolled chains (``-DVSHARE=K``,
+1 ≤ K ≤ 8) and, for the tile kernel's layouts, ``-DVARIANT``,
+``-DCGROUP`` and ``-DINTERLEAVE``. The baseline libraries (``scan_tile``,
+``scan_tile_k2``, …, ``scan_hitbuf``, …) are known up front
+(:data:`SOURCES`); a layout's library is registered by
+:func:`register` when it is first asked for. Each builds into its own
+shared library with a plain C interface, under ``build/kernels/`` at the
+root of the checkout, on first use; the library name carries a digest of
+the sources and flags, defines included, so an edited source is rebuilt.
+The libraries are bound with ``ctypes``: pointers and the stream pass as
 ``c_void_p``, and every entry point returns ``cudaGetLastError()``, which
 :func:`check` turns into an exception. Nothing builds at import time.
 """
@@ -20,7 +25,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -43,14 +48,27 @@ def kernel_name(kernel: str, vshare: int) -> str:
     return kernel if vshare == 1 else f"{kernel}_k{vshare}"
 
 
-#: library name → (source file, chains). Each library is built by one nvcc
-#: process with -DVSHARE=chains.
-SOURCES = {
-    kernel_name(kernel, k): (source, k)
+#: library name → (source file, defines). Each library is built by one nvcc
+#: process with -D<name>=<value> for each define.
+SOURCES: Dict[str, Tuple[str, Tuple[Tuple[str, int], ...]]] = {
+    kernel_name(kernel, k): (source, (("VSHARE", k),))
     for kernel, source in (("scan_tile", "scan_tile.cu"),
                            ("scan_hitbuf", "scan_hitbuf.cu"))
     for k in range(1, MAX_VSHARE + 1)
 }
+#: The libraries :func:`build` builds when given no names.
+BASELINE = tuple(SOURCES)
+
+
+def register(name: str, source: str, **defines: int) -> str:
+    """Add library ``name``: ``source`` built with ``defines``. Returns the
+    name; registering a name again with the same spec is a no-op."""
+    spec = (source, tuple(defines.items()))
+    with _names_lock:
+        if SOURCES.setdefault(name, spec) != spec:
+            raise ValueError(f"library {name} is already {SOURCES[name]}")
+    return name
+
 
 _P, _I, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                     ctypes.c_ulonglong)
@@ -58,8 +76,11 @@ _P, _I, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 #: each returns cudaGetLastError() as an int.
 ENTRY_POINTS = {
     "scan_tile.cu": {
-        # job block, counts, mins, n_steps, block, word7, stream
-        "scan_tile_launch": [_P, _P, _P, _I, _U, _I, _P],
+        # job block (card), job words (host), counts, mins, n_steps, block,
+        # word7, stream
+        "scan_tile_launch": [_P, _P, _P, _P, _I, _U, _I, _P],
+        # word7, threads*, shared bytes*, blocks per SM*
+        "scan_tile_occupancy": [_I, _P, _P, _P],
     },
     "scan_hitbuf.cu": {
         # midstates, tail3, limbs, base, limit, blk_hits, blk_counts,
@@ -72,7 +93,8 @@ ENTRY_POINTS = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # held while a library builds and loads
+_names_lock = threading.Lock()  # SOURCES and the launch counters
 
 
 class LaunchCounter:
@@ -98,10 +120,27 @@ class LaunchCounter:
             self._value = 0
 
 
+_counters: Dict[str, LaunchCounter] = {}
+
+
+def launch_counter(name: str) -> LaunchCounter:
+    """The one :class:`LaunchCounter` named ``name``, made on first use."""
+    with _names_lock:
+        if name not in _counters:
+            _counters[name] = LaunchCounter(name)
+        return _counters[name]
+
+
+def counters() -> Tuple[LaunchCounter, ...]:
+    """Every launch counter made so far."""
+    with _names_lock:
+        return tuple(_counters.values())
+
+
 def launch_counters(kernel: str) -> Dict[int, LaunchCounter]:
     """One :class:`LaunchCounter` per number of chains ``kernel`` is built
     for, named by :func:`kernel_name`."""
-    return {k: LaunchCounter(kernel_name(kernel, k))
+    return {k: launch_counter(kernel_name(kernel, k))
             for k in range(1, MAX_VSHARE + 1)}
 
 
@@ -119,7 +158,7 @@ def nvcc() -> str:
 
 
 def _flags(name: str) -> tuple:
-    return (*NVCC_FLAGS, f"-DVSHARE={SOURCES[name][1]}")
+    return (*NVCC_FLAGS, *(f"-D{d}={v}" for d, v in SOURCES[name][1]))
 
 
 def library_path(name: str) -> Path:
@@ -129,7 +168,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
+def build(names: Iterable[str] = BASELINE) -> Dict[str, str]:
     """Build the named libraries that are missing, one ``nvcc`` process per
     source, all started together. Returns each library's compiler log
     (``-Xptxas -v``: registers, spills and shared memory per kernel),

@@ -8,6 +8,9 @@
 // differ only in chunk 1, so their chunk-2 compressions read one message:
 // each round's schedule word is expanded once per nonce and fed to K
 // register states, then each chain runs its own second compression. The
+// chains may run in passes of G (chains_meet), each pass expanding the
+// schedule anew; or the schedule may be expanded once into a shared-memory
+// plane and read back by every pass (stage_schedule, staged_pass). The
 // same arithmetic as ops/sha256_torch.py, whose plain versions the kernels
 // are held against. Rounds are unrolled at compile time, so the 16-word
 // schedule window and the round constants are register and constant-bank
@@ -116,19 +119,6 @@ __device__ __forceinline__ void rounds(uint32_t (&s)[8], uint32_t (&w)[16]) {
   }
 }
 
-// Rounds [START, END) of K compressions of one message, chain c on
-// registers s[c]: each schedule word is expanded once and fed to all K.
-template <int K, int START, int END>
-__device__ __forceinline__ void rounds_shared(uint32_t (&s)[K][8],
-                                              uint32_t (&w)[16]) {
-#pragma unroll
-  for (int i = START; i < END; ++i) {
-    if (i >= 16) w[i & 15] = schedule(w, i);
-#pragma unroll
-    for (int c = 0; c < K; ++c) sha_round(s[c], i, w[i & 15]);
-  }
-}
-
 // Registers after rounds 0-2 of chunk 2 from a midstate and the header
 // tail: the round-3 state that the tile kernel's job block carries
 // precomputed, and that scan_hitbuf.cu derives once per block.
@@ -143,31 +133,28 @@ __device__ __forceinline__ void state3(const uint32_t* mid,
   for (int i = 0; i < 8; ++i) out[i] = s[i];
 }
 
-// hash <= target over the byte-reversed digest's 8 limbs, built from the
-// least significant limb up as in ops/sha256_torch.py::meets_target_words.
+// hash <= target over the byte-reversed digest's 8 limbs (job words at..at+7,
+// most significant first), built from the least significant limb up as in
+// ops/sha256_torch.py::meets_target_words.
+template <class Job>
 __device__ __forceinline__ bool meets_target(const uint32_t (&h2)[8],
-                                             const uint32_t* limbs) {
-  bool le = bswap32(h2[0]) <= limbs[7];
+                                             const Job& job, int at) {
+  bool le = bswap32(h2[0]) <= job[at + 7];
 #pragma unroll
   for (int k = 1; k < 8; ++k) {
     const uint32_t d = bswap32(h2[k]);
-    const uint32_t t = limbs[7 - k];
+    const uint32_t t = job[at + 7 - k];
     le = (d < t) || ((d == t) && le);
   }
   return le;
 }
 
-// The verdicts of K chains for one nonce: hash <= target, or with WORD7 the
-// candidate test bswap32(h2[7]) <= limbs[0] (a superset of the hits,
-// re-verified by the host), which stops the second compression after
-// round 60's t1. `job` holds the constants of K chains (Layout<K>); each
-// word is read where it is used, so at large K the compiler may reload a
-// uniform word instead of holding 16K of them in registers.
-template <int K, bool WORD7>
-__device__ __forceinline__ void nonce_meets(const uint32_t* __restrict__ job,
-                                            uint32_t nonce, bool (&meets)[K]) {
+// The chunk-2 message window of one nonce: header[64:76], the nonce, and
+// the padding of an 80-byte message.
+template <int K, class Job>
+__device__ __forceinline__ void window(const Job& job, uint32_t nonce,
+                                       uint32_t (&w)[16]) {
   using L = Layout<K>;
-  uint32_t w[16];
   w[0] = job[L::kTail];
   w[1] = job[L::kTail + 1];
   w[2] = job[L::kTail + 2];
@@ -176,37 +163,160 @@ __device__ __forceinline__ void nonce_meets(const uint32_t* __restrict__ job,
 #pragma unroll
   for (int i = 5; i < 15; ++i) w[i] = 0u;
   w[15] = 640u;  // 80 bytes
-  uint32_t s[K][8];
+}
+
+// Rounds [START, END) of the chunk-2 compressions of I nonces, nonce v on
+// its own window w[v] and on G register states s[v][0..G): each schedule
+// word is expanded once per nonce and fed to all G states.
+template <int G, int I, int START, int END>
+__device__ __forceinline__ void rounds_shared(uint32_t (&s)[I][G][8],
+                                              uint32_t (&w)[I][16]) {
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
+  for (int i = START; i < END; ++i) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s[c][i] = job[L::kState3 + 8 * c + i];
-  }
-  rounds_shared<K, 3, 64>(s, w);
+    for (int v = 0; v < I; ++v) {
+      if (i >= 16) w[v][i & 15] = schedule(w[v], i);
 #pragma unroll
-  for (int c = 0; c < K; ++c) {
-    uint32_t w2[16];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) w2[i] = s[c][i] + job[L::kMid + 8 * c + i];
-    w2[8] = 0x80000000u;
-#pragma unroll
-    for (int i = 9; i < 15; ++i) w2[i] = 0u;
-    w2[15] = 256u;  // 32 bytes
-    uint32_t t[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) t[i] = iv(i);
-    if (WORD7) {
-      rounds<0, 60>(t, w2);
-      const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
-                          kK[60] + schedule(w2, 60);
-      meets[c] = bswap32(iv(7) + t[3] + t1) <= job[L::kLimbs];
-    } else {
-      rounds<0, 64>(t, w2);
-      uint32_t h2[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) h2[i] = t[i] + iv(i);
-      meets[c] = meets_target(h2, job + L::kLimbs);
+      for (int g = 0; g < G; ++g) sha_round(s[v][g], i, w[v][i & 15]);
     }
+  }
+}
+
+// Chain c's verdict from its registers s after round 63 of chunk 2: the
+// feedforward of its midstate, then the compression of the 32-byte digest.
+// With WORD7 the candidate test bswap32(h2[7]) <= limbs[0] (a superset of
+// the hits, re-verified by the host), which stops after round 60's t1;
+// otherwise hash <= target.
+template <int K, bool WORD7, class Job>
+__device__ __forceinline__ bool second_meets(const Job& job, int c,
+                                             const uint32_t (&s)[8]) {
+  using L = Layout<K>;
+  uint32_t w2[16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w2[i] = s[i] + job[L::kMid + 8 * c + i];
+  w2[8] = 0x80000000u;
+#pragma unroll
+  for (int i = 9; i < 15; ++i) w2[i] = 0u;
+  w2[15] = 256u;  // 32 bytes
+  uint32_t t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = iv(i);
+  if (WORD7) {
+    rounds<0, 60>(t, w2);
+    const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
+                        kK[60] + schedule(w2, 60);
+    return bswap32(iv(7) + t[3] + t1) <= job[L::kLimbs];
+  }
+  rounds<0, 64>(t, w2);
+  uint32_t h2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h2[i] = t[i] + iv(i);
+  return meets_target(h2, job, L::kLimbs);
+}
+
+// The verdicts of K chains for I nonces (meets[v][c]), the chains in passes
+// of G over the rounds (the cgroup axis), from chain C0 on: each pass sets
+// up every nonce's window anew, expands its schedule in registers and feeds
+// it to the pass's chains, then runs their second compressions. A pass
+// alone holds I x (8G + 16) words across the rounds, not I x (8K + 16);
+// but passes, like the I nonces, are independent dataflow that the
+// scheduler may overlap, so the register count stays the compiler's
+// choice. G = K, I = 1 is the one-pass form of the baseline. The passes
+// recurse at compile time, since a loop over them could exceed what the
+// compiler unrolls and leave the chains' arrays in local memory. `job`
+// holds the constants of K chains (Layout<K>), read where each is used:
+// through a pointer, a load the compiler may hold or repeat; from launch
+// parameters, a constant-bank operand.
+template <int K, int G, int I, bool WORD7, int C0 = 0, class Job>
+__device__ __forceinline__ void chains_meet(const Job& job,
+                                            const uint32_t (&nonce)[I],
+                                            bool (&meets)[I][K]) {
+  if constexpr (C0 < K) {
+    using L = Layout<K>;
+    constexpr int N = K - C0 < G ? K - C0 : G;  // chains of this pass
+    uint32_t w[I][16];
+#pragma unroll
+    for (int v = 0; v < I; ++v) window<K>(job, nonce[v], w[v]);
+    uint32_t s[I][N][8];
+#pragma unroll
+    for (int v = 0; v < I; ++v) {
+#pragma unroll
+      for (int g = 0; g < N; ++g) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s[v][g][i] = job[L::kState3 + 8 * (C0 + g) + i];
+        }
+      }
+    }
+    rounds_shared<N, I, 3, 64>(s, w);
+#pragma unroll
+    for (int g = 0; g < N; ++g) {
+#pragma unroll
+      for (int v = 0; v < I; ++v) {
+        meets[v][C0 + g] = second_meets<K, WORD7>(job, C0 + g, s[v][g]);
+      }
+    }
+    chains_meet<K, G, I, WORD7, C0 + G>(job, nonce, meets);
+  }
+}
+
+// The verdicts of K chains for one nonce, all chains in one pass.
+template <int K, bool WORD7>
+__device__ __forceinline__ void nonce_meets(const uint32_t* __restrict__ job,
+                                            uint32_t nonce, bool (&meets)[K]) {
+  const uint32_t nonces[1] = {nonce};
+  bool m[1][K];
+  chains_meet<K, K, 1, WORD7>(job, nonces, m);
+#pragma unroll
+  for (int c = 0; c < K; ++c) meets[c] = m[0][c];
+}
+
+// Staged tile, phase 1: one nonce's chunk-2 schedule words W[16..63],
+// expanded in its window and stored to the thread's column of a plane of T
+// threads, col[(t - 16) * T], so that a warp stores 32 consecutive words.
+template <int K, int T, class Job>
+__device__ __forceinline__ void stage_schedule(const Job& job, uint32_t nonce,
+                                               uint32_t* col) {
+  uint32_t w[16];
+  window<K>(job, nonce, w);
+#pragma unroll
+  for (int i = 16; i < 64; ++i) {
+    w[i & 15] = schedule(w, i);
+    col[(i - 16) * T] = w[i & 15];
+  }
+}
+
+// Staged tile, phase 2: chains [C0, C0 + N) of one nonce over chunk-2
+// rounds 3-63 from their round-3 states. Message word 3 is the nonce's,
+// words 4-15 the padding, and words 16-63 are loaded back from the thread's
+// column of the plane, each once per pass and fed to the pass's chains: no
+// schedule window lives across the rounds. Then each chain's second
+// compression.
+template <int K, int C0, int N, int T, bool WORD7, class Job>
+__device__ __forceinline__ void staged_pass(const Job& job, uint32_t nonce,
+                                            const uint32_t* col,
+                                            bool (&meets)[N]) {
+  using L = Layout<K>;
+  uint32_t s[N][8];
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[g][i] = job[L::kState3 + 8 * (C0 + g) + i];
+  }
+  const uint32_t w3 = bswap32(nonce);
+#pragma unroll
+  for (int i = 3; i < 64; ++i) {
+    const uint32_t wi = i >= 16  ? col[(i - 16) * T]
+                        : i == 3 ? w3
+                        : i == 4 ? 0x80000000u
+                        : i == 15 ? 640u
+                                  : 0u;
+#pragma unroll
+    for (int g = 0; g < N; ++g) sha_round(s[g], i, wi);
+  }
+#pragma unroll
+  for (int g = 0; g < N; ++g) {
+    meets[g] = second_meets<K, WORD7>(job, C0 + g, s[g]);
   }
 }
 

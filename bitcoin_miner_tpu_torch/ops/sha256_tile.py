@@ -1,16 +1,18 @@
 """The tile scan: one (hit count, lowest hit nonce) pair per step of
 ``block`` nonces and per version-rolled chain, and the job block it reads.
 
-Counterpart of ``bitcoin_miner_tpu/ops/sha256_pallas.py`` (the
-``baseline`` layout, vshare = k chains). :func:`scan_tile` runs the plain
-version (:func:`scan_tile_plain`) for a CPU job block and the CUDA kernel
+Counterpart of ``bitcoin_miner_tpu/ops/sha256_pallas.py`` in each of its
+layouts (:data:`VARIANTS`, the chain-pass size ``cgroup`` and
+``interleave``), vshare = k chains. Every layout computes the same
+function, so :func:`scan_tile_plain` is the plain version of all of them.
+:func:`scan_tile` runs it for a CPU job block and the layout's CUDA kernel
 of ``csrc/scan_tile.cu`` for a CUDA one.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +32,109 @@ def job_block_words(vshare: int) -> int:
 
 #: Words of the one-chain job block.
 JOB_BLOCK_WORDS = job_block_words(1)
+
+#: Nonces per row of a tile (the TPU's lane width): a step is a whole
+#: number of rows.
+LANES = 128
+
+#: The layouts of the tile kernel (``sha256_pallas.VARIANTS``, in the order
+#: of ``csrc/scan_tile.cu``'s ``Variant``): the same function on other
+#: schedules.
+VARIANTS = ("baseline", "regchain", "wsplit", "wstage", "vroll",
+            "vroll-db")
+
+#: Layouts that expand the chunk-2 schedule once per nonce into a plane in
+#: shared memory, read back by every chain pass; the others re-expand it
+#: in registers in each pass.
+STAGED_VARIANTS = ("wstage", "vroll", "vroll-db")
+
+#: Layouts whose default chain-pass size is 1.
+_PER_CHAIN_PASS_VARIANTS = ("wsplit",) + STAGED_VARIANTS
+
+
+def _chain_groups(k: int, g: int) -> List[Tuple[int, ...]]:
+    """Chain indices 0..k-1 in passes of (at most) g: each pass's chains
+    share one schedule expansion (or one plane read), passes run one after
+    another, so the live set across the rounds scales with g, not k."""
+    return [tuple(range(k))[i:i + g] for i in range(0, k, g)]
+
+
+def _cgroup_size(cgroup: int, variant: str, k: int) -> int:
+    """The chain-pass size: ``cgroup`` when given; else 1 for wsplit and
+    the staged layouts, k (one pass) for the others."""
+    if cgroup:
+        return cgroup
+    return 1 if variant in _PER_CHAIN_PASS_VARIANTS else k
+
+
+def check_layout(vshare: int, variant: str, cgroup: int, interleave: int,
+                 inner_tiles: int) -> None:
+    """``make_pallas_scan_fn``'s checks of a layout, with its messages:
+    ``inner_tiles`` tiles per step, ``interleave`` of them in flight."""
+    if interleave < 1 or inner_tiles % interleave:
+        raise ValueError("interleave must divide inner_tiles")
+    if vshare < 1:
+        raise ValueError("vshare must be >= 1")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown kernel variant {variant!r}; "
+                         f"have {VARIANTS}")
+    if variant == "vroll-db" and inner_tiles % (2 * interleave):
+        raise ValueError(
+            "vroll-db needs inner_tiles to be a multiple of "
+            f"2*interleave (got inner_tiles={inner_tiles}, "
+            f"interleave={interleave}): each loop body pipelines two "
+            "interleave groups through the double-buffered scratch")
+    if cgroup < 0 or cgroup > vshare:
+        raise ValueError(
+            f"cgroup must be between 1 and vshare={vshare} "
+            "(0 = variant default)")
+
+
+#: Threads per block of the staged kernels, and the words of a nonce's
+#: schedule they stage (W[16..63]).
+STAGED_THREADS = 128
+PLANE_WORDS = 48
+#: Shared memory one thread block may use on an H100, less the kernels'
+#: own reduction arrays at 8 chains.
+MAX_PLANE_BYTES = 232448 - 2 * 8 * 8 * 4
+
+
+def plane_bytes(variant: str, interleave: int) -> int:
+    """Dynamic shared memory of a staged kernel's block: one plane slot
+    per nonce in flight (2·interleave for vroll-db), 0 for the others."""
+    if variant not in STAGED_VARIANTS:
+        return 0
+    slots = interleave * (2 if variant == "vroll-db" else 1)
+    return slots * PLANE_WORDS * 4 * STAGED_THREADS
+
+
+def check_plane(variant: str, interleave: int) -> None:
+    """Refuse a staged layout whose plane does not fit one thread block's
+    shared memory on the card (vroll-db beyond interleave 4, wstage and
+    vroll beyond 9)."""
+    if plane_bytes(variant, interleave) > MAX_PLANE_BYTES:
+        raise ValueError(
+            f"{variant} at interleave={interleave} needs "
+            f"{plane_bytes(variant, interleave)} bytes of shared memory per "
+            f"block of {STAGED_THREADS} threads; an H100 block has "
+            f"{MAX_PLANE_BYTES} for the plane")
+
+
+def tile_library(vshare: int, variant: str = "baseline", cgroup: int = 0,
+                 interleave: int = 1) -> str:
+    """The name of the library (and launch counter) of a layout at k =
+    ``vshare`` chains, registered with its defines: ``scan_tile``,
+    ``scan_tile_k2``, … for the baseline's one pass and one nonce in
+    flight, else e.g. ``scan_tile_vroll_k2_g1_i1``."""
+    base = csrc.kernel_name("scan_tile", vshare)  # checks 1 <= k <= 8
+    g = _cgroup_size(cgroup, variant, vshare)
+    if variant == "baseline" and g == vshare and interleave == 1:
+        return base
+    name = (f"scan_tile_{variant.replace('-', '_')}_k{vshare}_g{g}"
+            f"_i{interleave}")
+    return csrc.register(name, "scan_tile.cu", VSHARE=vshare,
+                         VARIANT=VARIANTS.index(variant), CGROUP=g,
+                         INTERLEAVE=interleave)
 
 
 def job_words(header76: bytes, target: int,
@@ -104,46 +209,67 @@ def scan_tile_plain(job_block: torch.Tensor, *, n_steps: int, block: int,
     return counts.view(-1).to(torch.int32), _u32(mins.view(-1), device)
 
 
-#: Launches of ``csrc/scan_tile.cu::scan_tile_kernel``, by number of
-#: chains; the one-chain counter also stands alone.
+#: Launches of the baseline ``csrc/scan_tile.cu`` libraries, by number of
+#: chains; the one-chain counter also stands alone. Each layout's library
+#: has its own counter (``csrc.launch_counter(tile_library(...))``).
 SCAN_TILE_K = csrc.launch_counters("scan_tile")
 SCAN_TILE = SCAN_TILE_K[1]
 
-_THREADS = 256  # threads per block of scan_tile_kernel
-
 
 def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
-              word7: bool = False, vshare: int = 1
+              word7: bool = False, vshare: int = 1,
+              variant: str = "baseline", cgroup: int = 0,
+              interleave: int = 1,
+              host_words: Optional[np.ndarray] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tile scan (:func:`scan_tile_plain`'s contract) on the job
-    block's device. A CPU block takes the plain version; a CUDA block
-    (uint32, 16k+13 words for ``vshare`` = k chains, 1 ≤ k ≤ 8) launches
-    ``scan_tile_kernel`` built for k chains on the current stream with one
-    thread block per step, without synchronising.
+    block's device, in the layout ``variant`` with chain passes of
+    ``cgroup`` (0: the variant's default) and ``interleave`` nonces in
+    flight per thread. ``block`` is a multiple of 128 (128-nonce rows);
+    the layout is checked as ``make_pallas_scan_fn`` checks it, with
+    ``block / 128`` rows as its tiles. A CPU block takes the plain version;
+    a CUDA block (uint32, 16k+13 words for ``vshare`` = k chains, 1 ≤ k ≤
+    8) launches the layout's kernel built for k chains on the current
+    stream with one thread block per step, without synchronising. Every
+    layout but the baseline takes the job block as launch parameters:
+    ``host_words`` holds the same words in host memory, so that the launch
+    never reads them back from the card.
 
     Replaces the Pallas kernel ``bitcoin_miner_tpu/ops/sha256_pallas.py::
     _scan_tile_kernel``. Bound: 32-bit integer operations
     (``sha256_torch.bound_ms`` with ``vshare=k`` over the nonces below
     ``limit``); the outputs are 8k bytes per step. Design in
     ``csrc/scan_tile.cu``."""
+    if block <= 0 or block % LANES:
+        raise ValueError(f"block must be a positive multiple of {LANES}")
+    check_layout(vshare, variant, cgroup, interleave, block // LANES)
     device = job_block.device
     if device.type == "cpu":
         return scan_tile_plain(job_block, n_steps=n_steps, block=block,
                                word7=word7, vshare=vshare)
-    name = csrc.kernel_name("scan_tile", vshare)  # checks 1 <= k <= 8
-    csrc.check_tensor(job_block, device, torch.uint32,
-                      (job_block_words(vshare),))
-    if block <= 0 or block % _THREADS:
-        raise ValueError(f"block must be a positive multiple of {_THREADS}")
+    name = tile_library(vshare, variant, cgroup, interleave)
+    n_words = job_block_words(vshare)
+    csrc.check_tensor(job_block, device, torch.uint32, (n_words,))
     if not 0 < n_steps * block <= 1 << 32:
         raise ValueError("n_steps * block must be in [1, 2^32]")
+    host = None
+    if variant != "baseline":
+        if host_words is not None:
+            host = np.ascontiguousarray(host_words, dtype=np.uint32)
+        if host is None or host.shape != (n_words,):
+            raise ValueError(
+                f"variant {variant!r} takes the job block as launch "
+                f"parameters: pass its {n_words} words in host memory as "
+                "host_words")
+    check_plane(variant, interleave)
     counts = torch.empty(n_steps * vshare, dtype=torch.int32, device=device)
     mins = torch.empty(n_steps * vshare, dtype=torch.uint32, device=device)
     lib = csrc.load(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         csrc.check(lib.scan_tile_launch(
-            job_block.data_ptr(), counts.data_ptr(), mins.data_ptr(),
-            n_steps, block, int(word7), stream), name)
-        SCAN_TILE_K[vshare].add()
+            job_block.data_ptr(), None if host is None else host.ctypes.data,
+            counts.data_ptr(), mins.data_ptr(), n_steps, block, int(word7),
+            stream), name)
+        csrc.launch_counter(name).add()
     return counts, mins

@@ -353,18 +353,25 @@ class OpTally:
         return regs, w
 
 
-def ops_per_nonce(word7: bool, vshare: int = 1) -> OpCount:
+def ops_per_nonce(word7: bool, vshare: int = 1, passes: int = 1) -> OpCount:
     """The operations each nonce needs after the round 0-2 precompute
     (:class:`OpTally`'s rule), for the path of :func:`_meets` over
-    ``vshare`` chains: the nonce's byte swap and the chunk-2 schedule are
-    counted once, each chain's chunk-2 rounds, feedforward, second
-    compression and compare once per chain. The target compare adds, per
-    digest limb read, a byte swap and two compare-and-combine operations:
-    one limb in word7 mode, eight otherwise."""
+    ``vshare`` chains: the nonce's byte swap once, the chunk-2 schedule
+    once per pass over the chains (``passes``, 1 ≤ passes ≤ vshare: the
+    windowed layouts' chain passes each expand it anew), each chain's
+    chunk-2 rounds, feedforward, second compression and compare once per
+    chain. The target compare adds, per digest limb read, a byte swap and
+    two compare-and-combine operations: one limb in word7 mode, eight
+    otherwise."""
+    if not 1 <= passes <= vshare:
+        raise ValueError(f"passes must be in [1, vshare={vshare}]")
     tally = OpTally()
     nonce = tally.fn(1, _bswap32, VARYING)
     w1 = [UNIFORM] * 3 + [nonce] + _CHUNK2_PAD
-    chains, _ = tally.rounds_shared([(UNIFORM,) * 8] * vshare, w1, 3, 64)
+    chains = []
+    for size in [vshare - passes + 1] + [1] * (passes - 1):
+        regs, _ = tally.rounds_shared([(UNIFORM,) * 8] * size, w1, 3, 64)
+        chains += regs
     compare = 0
     for regs in chains:
         w2 = [tally.add(UNIFORM, r) for r in regs] + _W2_TAIL  # feedforward
@@ -389,22 +396,26 @@ DISPATCH_LANES_PER_SM = 128
 
 
 def bound_ms(nonces: int, word7: bool, sms: int, sm_clock_hz: float,
-             vshare: int = 1) -> float:
+             vshare: int = 1, passes: int = 1) -> float:
     """The least time a card with ``sms`` SMs at ``sm_clock_hz`` could take
     to hash ``nonces`` nonces over ``vshare`` chains (``nonces × vshare``
-    hashes): per nonce and SM, the logic operations need ``logic / 64``
-    clocks on the integer pipe and all operations ``total / 128`` clocks
-    of instruction dispatch, whichever is larger."""
-    ops = ops_per_nonce(word7, vshare)
+    hashes), expanding the schedule once per pass over the chains
+    (``passes``; 1 is the least work): per nonce and SM, the logic
+    operations need ``logic / 64`` clocks on the integer pipe and all
+    operations ``total / 128`` clocks of instruction dispatch, whichever is
+    larger."""
+    ops = ops_per_nonce(word7, vshare, passes)
     clocks = max(ops.logic / INT_LANES_PER_SM,
                  ops.total / DISPATCH_LANES_PER_SM)
     return nonces * clocks / (sms * sm_clock_hz) * 1e3
 
 
 def _chunk_size(device: torch.device) -> int:
-    # Nonces per tensor pass of the plain versions: large enough that a
-    # card's launch overhead does not dominate, small enough for the CPU.
-    return 1 << 20 if device.type == "cuda" else 1 << 16
+    # Nonces per tensor pass of the plain versions: large enough that the
+    # host's launch overhead does not dominate on a card (a few thousand
+    # tensor operations per pass; at 8 chains a pass holds ~3 GB of int64
+    # temporaries there), small enough for the CPU.
+    return 1 << 22 if device.type == "cuda" else 1 << 16
 
 
 def _device_of(x) -> torch.device:

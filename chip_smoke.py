@@ -4,14 +4,19 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. prints the card's name and power limit and builds the kernels from
-   ``bitcoin_miner_tpu_torch/ops/csrc`` (one nvcc per source and number of
-   version-rolled chains K = 1..8, all at once), printing ptxas' registers
-   and spills for every kernel and K;
+   ``bitcoin_miner_tpu_torch/ops/csrc`` (one nvcc per library, all at
+   once: each source per number of version-rolled chains K = 1..8, and the
+   tile kernel's layouts it drives), printing ptxas' registers, spills and
+   shared memory, the SASS shared-memory stores and loads, and the blocks
+   per SM of every tile library;
 2. holds every kernel against its plain PyTorch version on the card at the
    main path's shapes (2^24-nonce dispatches, the genesis job, a limit
    that cuts a step, a base near 2^32, a hit-buffer overflow), the tile
    scan at K = 1, 2, 3, 4, 8 and the hit-buffer scan at K = 1, 2, 4 —
-   exact equality, since every output is an integer;
+   exact equality, since every output is an integer; then the tile
+   kernel's layouts (regchain, wsplit, wstage, vroll, vroll-db at K = 1,
+   2, 4, 8; chain passes of 2 at K = 4; two nonces in flight at K = 2;
+   steps of 128 and 256 nonces) against the same plain version;
 3. sweeps the genesis header's whole 2^32 nonce space at the difficulty-1
    target as ``--bench`` does with the command line's defaults
    (``TileCudaHasher`` in word7 mode, 2^24-nonce dispatches, the adaptive
@@ -33,10 +38,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    of chain 0, then mines a fixed window whose rate counts K=2 launches ×
    2^24 × 2 hashes; and the same miner against a pool that grants no mask,
    which must degrade to chain 0 and launch only K=1 kernels;
-7. times each kernel with CUDA events beside its plain version and its
-   bound, the tile scan at K = 1, 2, 4 (and K = 3, 8 alone).
+7. sweeps the genesis nonce space with each layout (``--variant``) at K=1
+   and at ``--vshare 2``, each finding and verifying 2083236893 and, at
+   K=2, the sibling hit the baseline finds; mines the ``--vshare 2
+   --variant vroll`` session and its degraded twin as in 6;
+8. times each kernel with CUDA events beside its plain version and its
+   bound: the tile scan in every layout and K it drives.
 
-Phases 3 to 6 are the main path: the launch counts are set to 0 just
+Phases 3 to 7 are the main path: the launch counts are set to 0 just
 before each and read just after, and each kernel must have launched.
 Every phase prints a JSON line; the kernel table and the card follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
@@ -47,7 +56,9 @@ prints no result.
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -60,6 +71,8 @@ SESSION_WINDOW_S = 5.0  # the Stratum sessions' measured window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SWEEP_MHS_PR2 = 6823.0  # one-chain genesis sweep, H100 80GB HBM3 at 700 W
 VERSION_MASK = 0x1FFFE000  # the full BIP 310 mask the vshare pool grants
+SIBLING_HIT = (0x00002001, 2209238384)  # the genesis sibling at --vshare 2
+SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock: 32 banks x 4 B
 
 
 def emit(obj: dict) -> None:
@@ -71,34 +84,113 @@ def launched(counts: dict) -> dict:
     return {name: n for name, n in counts.items() if n}
 
 
+def tile_chains(name: str) -> int:
+    """K of a tile library's name (``scan_tile`` 1, ``scan_tile_k2`` and
+    ``scan_tile_vroll_k2_g1_i1`` 2)."""
+    k = re.search(r"_k(\d+)", name)
+    return int(k.group(1)) if k else 1
+
+
+def kernel_of(mangled: str) -> tuple:
+    """(kernel, mode) of a mangled kernel name: the ``..._kernel`` function
+    and word7/exact from its ``bool WORD7`` template argument."""
+    kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
+                       r"|scan_hitbuf_kernel|hitbuf_compact_kernel)",
+                       mangled).group(1)
+    mode = re.search(r"Lb([01])E", mangled)
+    return kernel, (("word7" if mode.group(1) == "1" else "exact")
+                    if mode else None)
+
+
 def ptxas_table(logs: dict) -> list:
-    """Registers and spill bytes of every kernel in ptxas' ``-v`` logs,
-    one row per library and entry function."""
+    """Registers, spill bytes and static shared memory of every kernel in
+    ptxas' ``-v`` logs, one row per library and entry function."""
     rows = []
     for lib, log in logs.items():
         row = None
         for line in log.splitlines():
             entry = re.search(r"Compiling entry function '(\S+)'", line)
             if entry:
-                mangled = entry.group(1)
-                kernel = next(k for k in ("scan_tile", "scan_hitbuf",
-                                          "hitbuf_compact")
-                              if f"{k}_kernel" in mangled)
-                mode = re.search(r"kernelILi\d+ELb([01])E", mangled)
-                row = {"library": lib, "kernel": kernel,
-                       "mode": ("word7" if mode.group(1) == "1" else "exact")
-                       if mode else None}
+                kernel, mode = kernel_of(entry.group(1))
+                row = {"library": lib, "kernel": kernel, "mode": mode}
                 rows.append(row)
                 continue
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             if row is not None and spill:
                 row["spill_stores"] = int(spill.group(1))
                 row["spill_loads"] = int(spill.group(2))
             if row is not None and regs:
                 row["registers"] = int(regs.group(1))
+            if row is not None and smem:
+                row["static_smem"] = int(smem.group(1))
     return rows
+
+
+#: SASS opcodes counted per kernel: shared-memory stores and loads (the
+#: staged plane), global, local (spill) and constant loads.
+SASS_OPS = ("STS", "LDS", "LDG", "STL", "LDL", "LDC", "ULDC")
+
+
+def sass_counts(cuobjdump: str, libraries: dict) -> dict:
+    """Per library (name → path) and kernel (``kernel/mode``), how many of
+    its SASS instructions are each of :data:`SASS_OPS`, from ``cuobjdump
+    -sass``, one process per library, all at once."""
+    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(path)],
+                                    stdout=subprocess.PIPE, text=True)
+             for name, path in libraries.items()}
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump failed on {name}")
+        out[name] = _count_ops(text)
+    return out
+
+
+def _count_ops(sass: str) -> dict:
+    counts: dict = {}
+    ops = None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            kernel, mode = kernel_of(fn.group(1))
+            ops = counts.setdefault(f"{kernel}/{mode}",
+                                    dict.fromkeys(SASS_OPS, 0))
+            continue
+        insn = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                        r"([A-Z][A-Z0-9]*)", line)
+        if ops is not None and insn and insn.group(1) in ops:
+            ops[insn.group(1)] += 1
+    return counts
+
+
+def tile_layouts(tile) -> list:
+    """The tile kernel's layouts the smoke test drives, as (K, variant,
+    cgroup, interleave) (``tile`` is ``ops.sha256_tile``): each new variant
+    at K = 1, 2, 4, 8 with its default chain passes; chain passes of 2 at
+    K = 4; two nonces in flight at K = 2."""
+    return ([(k, v, 0, 1) for v in tile.VARIANTS[1:] for k in (1, 2, 4, 8)]
+            + [(4, v, 2, 1) for v in ("baseline", "wsplit", "wstage", "vroll")]
+            + [(2, v, 0, 2) for v in ("regchain", "wstage", "vroll",
+                                      "vroll-db")])
+
+
+def tile_occupancy(csrc, name: str) -> dict:
+    """Per mode, a tile library's launch shape at the default geometry
+    (threads per block, dynamic shared bytes) and the blocks of it that
+    fit on one SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = csrc.load(name)
+    out = {}
+    for mode, word7 in (("word7", 1), ("exact", 0)):
+        vals = [ctypes.c_int() for _ in range(3)]
+        csrc.check(lib.scan_tile_occupancy(
+            word7, *(ctypes.addressof(v) for v in vals)), name)
+        out[mode] = dict(zip(("threads", "dynamic_smem", "blocks_per_sm"),
+                             (v.value for v in vals)))
+    return out
 
 
 def nvidia_smi(query: str, units: bool = True) -> str:
@@ -115,8 +207,10 @@ class Smoke:
         self.pkg = pkg
         self.dev = torch.device("cuda", 0)
         self.failed: list = []
-        self.launches = {c.name: 0 for c in pkg.counters}
+        self.launches: dict = {}  # on the main path
+        self.seen: set = set()  # kernels launched in any phase
         self.kernels: dict = {}
+        self.plain: dict = {}  # (k, case) -> the plain tile scan's outputs
 
     # -------------------------------------------------------------- helpers
     def phase(self, name, fn) -> None:
@@ -130,25 +224,34 @@ class Smoke:
             emit({"phase": name, "ok": False, "error": repr(e),
                   "trace": traceback.format_exc().splitlines()[-6:]})
 
+    def note_launches(self) -> None:
+        self.seen.update(c.name for c in self.pkg.csrc.counters() if c.value)
+
     def reset_counts(self) -> None:
-        for c in self.pkg.counters:
+        self.note_launches()
+        for c in self.pkg.csrc.counters():
             c.reset()
 
     def read_counts(self) -> dict:
-        counts = {c.name: c.value for c in self.pkg.counters}
+        """Every kernel's launches since :meth:`reset_counts`, added to the
+        main path's."""
+        self.note_launches()
+        counts = {c.name: c.value for c in self.pkg.csrc.counters()}
         for name, n in counts.items():
-            self.launches[name] += n
+            self.launches[name] = self.launches.get(name, 0) + n
         return counts
 
-    def job(self, header76, target, base, limit, k=1):
+    def job(self, header76, target, base, limit, k=1, host=False):
         """The job block of ``k`` chains: the header's own version and
-        k-1 siblings inside VERSION_MASK."""
+        k-1 siblings inside VERSION_MASK; on the card, or with ``host`` its
+        words in host memory (the launch parameters of the layouts)."""
         version = int.from_bytes(header76[:4], "little")
         versions = [version] + [
             version ^ p
             for p in self.pkg.sibling_version_patterns(VERSION_MASK, k)]
-        return self.pkg.job_block_from_header(
-            header76, target, base, limit, versions=versions).to(self.dev)
+        job = self.pkg.job_block_from_header(header76, target, base, limit,
+                                             versions=versions)
+        return job.numpy() if host else job.to(self.dev)
 
     @staticmethod
     def hitbuf_parts(job, k=1):
@@ -207,8 +310,14 @@ def run(torch, pkg) -> int:
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def bound(nonces, word7, k=1):
-        return pkg.bound_ms(nonces, word7, sms, sm_clock_mhz * 1e6, vshare=k)
+    tile = pkg.sha256_tile
+    layouts = tile_layouts(tile)
+    ptxas_of: dict = {}  # (library, mode) -> its ptxas row
+    occupancy_of: dict = {}  # library -> mode -> launch shape
+
+    def bound(nonces, word7, k=1, passes=1):
+        return pkg.bound_ms(nonces, word7, sms, sm_clock_mhz * 1e6, vshare=k,
+                            passes=passes)
     genesis76 = bytes.fromhex(pkg.GENESIS_HEADER_HEX)[:76]
     genesis_version = int.from_bytes(genesis76[:4], "little")
     diff1 = pkg.nbits_to_target(0x1D00FFFF)
@@ -219,28 +328,63 @@ def run(torch, pkg) -> int:
 
     def device_and_build():
         t0 = time.perf_counter()
-        logs = pkg.csrc.build()
+        names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts)]
+        logs = pkg.csrc.build(names)
+        build_seconds = time.perf_counter() - t0
+        rows = ptxas_table(logs)
+        ptxas_of.update(((r["library"], r["mode"]), r) for r in rows)
+        for name in names:
+            if name.startswith("scan_tile"):
+                occupancy_of[name] = tile_occupancy(pkg.csrc, name)
+        # SASS of the staged libraries, and of the K=2 baseline and regchain
+        # (job words loaded from the card against kernel parameters).
+        cuobjdump = os.path.join(os.path.dirname(pkg.csrc.nvcc()), "cuobjdump")
+        sass = sass_counts(cuobjdump, {
+            name: pkg.csrc.library_path(name)
+            for name in ("scan_tile_k2", tile.tile_library(2, "regchain"),
+                         *(tile.tile_library(*l) for l in layouts
+                           if l[1] in tile.STAGED_VARIANTS))})
+        # Each staged library must read its plane back from shared memory:
+        # 48 loads per slot and chain pass, not words forwarded in registers.
+        staged = {}
+        for k, variant, cgroup, interleave in layouts:
+            if variant not in tile.STAGED_VARIANTS:
+                continue
+            name = tile.tile_library(k, variant, cgroup, interleave)
+            slots = tile.plane_bytes(variant, interleave) // (
+                4 * tile.PLANE_WORDS * tile.STAGED_THREADS)
+            passes = len(tile._chain_groups(
+                k, tile._cgroup_size(cgroup, variant, k)))
+            for fn, ops in sass[name].items():
+                assert ops["STS"] >= tile.PLANE_WORDS * slots, (name, fn, ops)
+                assert ops["LDS"] >= tile.PLANE_WORDS * slots * passes, (
+                    name, fn, ops)
+            staged[name] = {"slots": slots, "passes": passes,
+                            "plane_loads_expected": tile.PLANE_WORDS * slots
+                            * passes}
         return {"card": name_power, "sm_clock_max_mhz": sm_clock_mhz,
                 "sms": sms, "torch": torch.__version__,
                 "cuda": torch.version.cuda,
-                "build_seconds": round(time.perf_counter() - t0, 3),
-                "libraries": len(logs), "ptxas": ptxas_table(logs)}
+                "build_seconds": round(build_seconds, 3),
+                "libraries": len(logs), "ptxas": rows, "sass": sass,
+                "occupancy": occupancy_of, "staged": staged}
+
+    tile_cases = [
+        ("genesis_word7", genesis76, diff1, GENESIS_NONCE - (1 << 23),
+         DISPATCH, True),
+        ("genesis_exact", genesis76, diff1, GENESIS_NONCE - (1 << 23),
+         DISPATCH, False),
+        ("easy_cut_top_exact", header, easy, top_base, cut, False),
+        ("easy_cut_top_word7", header, easy, top_base, cut, True),
+    ]
 
     def kernels_vs_plain():
         checks = []
-        tile_cases = [
-            ("genesis_word7", genesis76, diff1, GENESIS_NONCE - (1 << 23),
-             DISPATCH, True),
-            ("genesis_exact", genesis76, diff1, GENESIS_NONCE - (1 << 23),
-             DISPATCH, False),
-            ("easy_cut_top_exact", header, easy, top_base, cut, False),
-            ("easy_cut_top_word7", header, easy, top_base, cut, True),
-        ]
         for label, h, t, base, limit, word7 in tile_cases:
             job = s.job(h, t, base, limit)
             kw = dict(n_steps=DISPATCH // 8192, block=8192, word7=word7)
             got = pkg.scan_tile(job, **kw)
-            want = pkg.scan_tile_plain(job, **kw)
+            want = s.plain[1, label] = pkg.scan_tile_plain(job, **kw)
             torch.cuda.synchronize()
             s.compare("scan_tile", got, want)
             checks.append({"kernel": "scan_tile", "case": label,
@@ -283,7 +427,7 @@ def run(torch, pkg) -> int:
                 kw = dict(n_steps=DISPATCH // 8192, block=8192, word7=word7,
                           vshare=k)
                 got = pkg.scan_tile(job, **kw)
-                want = pkg.scan_tile_plain(job, **kw)
+                want = s.plain[k, label] = pkg.scan_tile_plain(job, **kw)
                 torch.cuda.synchronize()
                 s.compare(f"scan_tile_k{k}", got, want)
                 per_chain = want[0].view(-1, k)
@@ -310,6 +454,60 @@ def run(torch, pkg) -> int:
                 checks.append({"kernel": f"scan_hitbuf_k{k}", "case": label,
                                "counts": counts})
         return {"checks": checks, "tolerance": "exact (integers)"}
+
+    def variants_vs_plain():
+        """Every layout the smoke test drives against the plain scan of
+        kernels_vs_plain, on the same cases and job blocks."""
+        checks = []
+
+        def check(layout, h, t, base, limit, word7, block, n, want, case):
+            k, variant, cgroup, interleave = layout
+            name = tile.tile_library(*layout)
+            kw = dict(n_steps=n // block, block=block, word7=word7, vshare=k)
+            job = s.job(h, t, base, limit, k)
+            if want is None:
+                want = pkg.scan_tile_plain(job, **kw)
+            got = pkg.scan_tile(job, variant=variant, cgroup=cgroup,
+                                interleave=interleave,
+                                host_words=s.job(h, t, base, limit, k,
+                                                 host=True), **kw)
+            torch.cuda.synchronize()
+            s.compare(name, got, want)
+            checks.append((name, case))
+
+        for label, h, t, base, limit, word7 in tile_cases:
+            for layout in layouts:
+                check(layout, h, t, base, limit, word7, 8192, DISPATCH,
+                      s.plain[layout[0], label], label)
+        # Steps of 128 and 256 nonces, over 2^20 nonces.
+        n = 1 << 20
+        for label, h, t, base, limit, word7 in (
+                ("genesis_word7", genesis76, diff1, GENESIS_NONCE - n // 2,
+                 n, True),
+                ("easy_cut_wraps_exact", header, easy, (1 << 32) - n // 2,
+                 n - 3 * 256 - 77, False)):
+            for layout, block in (((1, "baseline", 0, 1), 128),
+                                  ((1, "wstage", 0, 1), 128),
+                                  ((2, "vroll-db", 0, 1), 256)):
+                check(layout, h, t, base, limit, word7, block, n, None,
+                      f"{label}_step{block}")
+        # A staged plane too large for a block is refused, never launched.
+        before = {c.name: c.value for c in pkg.csrc.counters()}
+        try:
+            pkg.scan_tile(s.job(header, easy, 0, 2048, 2), n_steps=1,
+                          block=2048, vshare=2, variant="vroll-db",
+                          interleave=8,
+                          host_words=s.job(header, easy, 0, 2048, 2,
+                                           host=True))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("vroll-db at interleave 8 launched")
+        assert before == {c.name: c.value for c in pkg.csrc.counters()}
+        return {"checks": len(checks),
+                "libraries": sorted({name for name, _ in checks}),
+                "cases": sorted({case for _, case in checks}),
+                "tolerance": "exact (integers)", "refused": refused}
 
     def genesis_sweep():
         args = pkg.cli.build_parser().parse_args(
@@ -408,20 +606,125 @@ def run(torch, pkg) -> int:
         assert result["sibling_accepted"] == 0, result
         return {**result, "launches": launched(counts)}
 
+    def genesis_sweep_variants():
+        """The whole genesis sweep through ``cli.bench`` with each layout,
+        at K=1 and at ``--vshare 2``."""
+        runs = []
+        for variant in tile.VARIANTS[1:]:
+            for k in (1, 2):
+                name = tile.tile_library(k, variant)
+                args = pkg.cli.build_parser().parse_args(
+                    ["--bench", "--bench-nonces", str(1 << 32), "--variant",
+                     variant, "--vshare", str(k)])
+                s.reset_counts()
+                out = pkg.cli.bench(args)
+                counts = s.read_counts()
+                assert out["verified"], f"{name}: genesis not found {out}"
+                assert out["hashes"] == k << 32 and out["nonce_start"] == 0
+                tiles = {n: c for n, c in counts.items()
+                         if n.startswith("scan_tile") and c}
+                assert tiles == {name: (1 << 32) // DISPATCH}, counts
+                assert counts["scan_hitbuf"] > 0, counts  # the rescans
+                siblings = [tuple(v) for v in out["version_hits"]]
+                if k == 2:
+                    assert SIBLING_HIT in siblings, (name, siblings)
+                    version, nonce = SIBLING_HIT
+                    header80 = (version.to_bytes(4, "little") + genesis76[4:]
+                                + nonce.to_bytes(4, "little"))
+                    assert int.from_bytes(pkg.sha256d(header80),
+                                          "little") <= diff1
+                runs.append({"library": name, "mhs": out["mhs"],
+                             "hashes": out["hashes"],
+                             "sweep_seconds": out["seconds"],
+                             "hits": out["nonces"],
+                             "sibling_hits": siblings,
+                             "launches": launched(counts)})
+        return {"runs": runs}
+
+    def stratum_session_variant():
+        """The --vshare 2 session with --variant vroll, then its degraded
+        twin against a pool that grants no mask."""
+        out = {}
+        for label, mask, k, window in (("vroll", VERSION_MASK, 2, 2.0),
+                                       ("degraded", 0, 1, 1.0)):
+            s.reset_counts()
+            result = asyncio.run(asyncio.wait_for(
+                stratum(pkg, vshare=2, pool_mask=mask, window_s=window,
+                        variant="vroll"), 300))
+            counts = s.read_counts()
+            tiles = {n for n, c in counts.items()
+                     if n.startswith("scan_tile") and c}
+            assert tiles == {tile.tile_library(k, "vroll")}, counts
+            if mask:
+                assert result["sibling_accepted"] >= 3, result
+                assert result["chain0_accepted"] >= 3, result
+            else:
+                assert result["sibling_accepted"] == 0, result
+            out[label] = {**result, "launches": launched(counts)}
+        return out
+
     def timings():
         rows = {}
-        g_job = s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23), DISPATCH)
         tile_kw = dict(n_steps=DISPATCH // 8192, block=8192)
-        rows["scan_tile"] = {
-            "ms": s.time_ms(lambda: pkg.scan_tile(g_job, word7=True,
-                                                  **tile_kw), 20),
-            "ms_exact": s.time_ms(lambda: pkg.scan_tile(g_job, **tile_kw), 20),
-            "plain_ms": s.plain_ms(lambda: pkg.scan_tile_plain(
-                g_job, word7=True, **tile_kw)),
-            "bound_ms": bound(DISPATCH, True),
-            "bound_ms_exact": bound(DISPATCH, False),
-            "nonces": DISPATCH, "mode": "word7 (genesis sweep)",
-        }
+        jobs = {k: (s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23),
+                          DISPATCH, k),
+                    s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23),
+                          DISPATCH, k, host=True))
+                for k in (1, 2, 3, 4, 8)}
+        g_job = jobs[1][0]
+        # The plain tile scan is the same function for every layout: timed
+        # once per K.
+        plain = {k: s.plain_ms(lambda: pkg.scan_tile_plain(
+            jobs[k][0], word7=True, vshare=k, **tile_kw)) for k in jobs}
+
+        def tile_row(k, variant="baseline", cgroup=0, interleave=1):
+            """The tile scan of one layout per 2^24-nonce dispatch of the
+            genesis job (word7, as the sweep; exact, as the session),
+            beside the baseline's bound at K (the same work) and the
+            layout's own operations and shared-memory traffic."""
+            name = tile.tile_library(k, variant, cgroup, interleave)
+            job, host = jobs[k]
+            kw = dict(vshare=k, variant=variant, cgroup=cgroup,
+                      interleave=interleave, host_words=host, **tile_kw)
+            ms = s.time_ms(lambda: pkg.scan_tile(job, word7=True, **kw), 20)
+            ms_exact = s.time_ms(lambda: pkg.scan_tile(job, **kw), 20)
+            passes = len(tile._chain_groups(
+                k, tile._cgroup_size(cgroup, variant, k)))
+            staged = variant in tile.STAGED_VARIANTS
+            own = 1 if staged else passes  # schedule expansions per nonce
+            smem_bytes = 4 * tile.PLANE_WORDS * (1 + passes) if staged else 0
+            smem_ms = (DISPATCH * smem_bytes / (SMEM_BYTES_PER_CLOCK * sms
+                                                * sm_clock_mhz * 1e6) * 1e3)
+            own_bound = bound(DISPATCH, True, k, own)
+            row = {
+                "ms": ms, "ms_exact": ms_exact, "plain_ms": plain[k],
+                "bound_ms": bound(DISPATCH, True, k),
+                "bound_ms_exact": bound(DISPATCH, False, k),
+                "hashes_per_s": DISPATCH * k / ms * 1e3,
+                "hashes_per_s_exact": DISPATCH * k / ms_exact * 1e3,
+                "vshare": k, "variant": variant, "passes": passes,
+                "interleave": interleave,
+                "ops_per_nonce": pkg.ops_per_nonce(True, k, own).total,
+                "own_bound_ms": own_bound,
+                "smem_bytes_per_nonce": smem_bytes, "smem_ms": smem_ms,
+                "larger_bound": ("operations" if own_bound >= smem_ms
+                                 else "shared memory"),
+                "nonces": DISPATCH, "mode": "word7 (genesis sweep)",
+            }
+            for mode in ("word7", "exact"):
+                ptx = ptxas_of.get((name, mode), {})
+                row[f"registers_{mode}"] = ptx.get("registers")
+                row[f"spill_bytes_{mode}"] = ptx.get("spill_stores")
+                row[f"blocks_per_sm_{mode}"] = (
+                    occupancy_of[name][mode]["blocks_per_sm"])
+            row["threads"] = occupancy_of[name]["word7"]["threads"]
+            row["dynamic_smem"] = occupancy_of[name]["word7"]["dynamic_smem"]
+            rows[name] = row
+
+        for k in (1, 2, 3, 4, 8):
+            tile_row(k)
+        for layout in layouts:
+            tile_row(*layout)
         tile_parts = s.hitbuf_parts(s.job(genesis76, diff1,
                                           GENESIS_NONCE - 4000, 8192))
         small = dict(inner_size=1024, n_steps=8, max_hits=64)
@@ -439,104 +742,57 @@ def run(torch, pkg) -> int:
                 lambda: pkg.scan_batch_plain(*big_parts, word7=True, **big)),
             "bound_ms_2p24_word7": bound(DISPATCH, True),
         }
-        # The compaction alone, on the rescan's 32 block slots.
-        iters, n_blocks = pkg.hitbuf_geometry(8192)
-        blk_counts = torch.zeros(n_blocks, dtype=torch.int32, device=s.dev)
-        blk_counts[n_blocks // 2] = 1
-        blk_hits = torch.full((n_blocks * 64,), GENESIS_NONCE,
-                              dtype=torch.int64).to(torch.uint32).to(s.dev)
-
-        def compact():
-            return pkg.hitbuf_compact(blk_hits, blk_counts, 64)
-
-        def compact_plain():
-            return pkg.hitbuf_compact_plain(blk_hits, blk_counts, 64)
-
-        s.compare("hitbuf_compact", compact(), compact_plain())
-        rows["hitbuf_compact"] = {
-            "ms": s.time_ms(compact, 200),
-            "plain_ms": s.plain_ms(compact_plain),
-            # n_blocks counts read, one stored hit read, 64 slots and the
-            # count written.
-            "bound_ms": (n_blocks * 4 + 4 + 64 * 4 + 4) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "blocks": n_blocks,
-        }
-        # K chains: the tile scan of the --vshare main path (word7 in the
-        # bench, exact in the Stratum session) at K = 2 and 4, hashes per
-        # second counting K hashes per nonce; K = 3 and 8 timed alone.
+        # The K-chain hit-buffer scan at the cuda backend's 2^24 dispatch.
         for k in (2, 4):
-            job_k = s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23),
-                          DISPATCH, k)
-            kw = dict(vshare=k, **tile_kw)
-            ms = s.time_ms(lambda: pkg.scan_tile(job_k, word7=True, **kw), 20)
-            ms_exact = s.time_ms(lambda: pkg.scan_tile(job_k, **kw), 20)
-            rows[f"scan_tile_k{k}"] = {
-                "ms": ms, "ms_exact": ms_exact,
-                "plain_ms": s.plain_ms(lambda: pkg.scan_tile_plain(
-                    job_k, word7=True, **kw)),
+            parts = s.hitbuf_parts(jobs[k][0], k)
+            ms = s.time_ms(lambda: pkg.scan_batch_vshare(*parts, word7=True,
+                                                         **big), 20)
+            rows[f"scan_hitbuf_k{k}"] = {
+                "ms": ms,
+                "plain_ms": s.plain_ms(lambda: pkg.scan_batch_vshare_plain(
+                    *parts, word7=True, **big)),
                 "bound_ms": bound(DISPATCH, True, k),
-                "bound_ms_exact": bound(DISPATCH, False, k),
                 "hashes_per_s": DISPATCH * k / ms * 1e3,
-                "hashes_per_s_exact": DISPATCH * k / ms_exact * 1e3,
-                "nonces": DISPATCH, "mode": "word7 (genesis sweep)",
+                "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
             }
-        for k in (3, 8):
-            job_k = s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23),
-                          DISPATCH, k)
-            ms = s.time_ms(lambda: pkg.scan_tile(job_k, word7=True, vshare=k,
-                                                 **tile_kw), 20)
-            rows[f"scan_tile_k{k}_alone"] = {
-                "ms": ms, "bound_ms": bound(DISPATCH, True, k),
-                "hashes_per_s": DISPATCH * k / ms * 1e3}
-        rows["scan_tile"]["hashes_per_s"] = DISPATCH / rows["scan_tile"]["ms"] * 1e3
-        rows["scan_tile"]["hashes_per_s_exact"] = (
-            DISPATCH / rows["scan_tile"]["ms_exact"] * 1e3)
-        # The K=2 hit-buffer scan at the cuda backend's 2^24 dispatch.
-        parts2 = s.hitbuf_parts(s.job(genesis76, diff1,
-                                      GENESIS_NONCE - (1 << 23), DISPATCH, 2), 2)
-        ms = s.time_ms(lambda: pkg.scan_batch_vshare(*parts2, word7=True,
-                                                     **big), 20)
-        rows["scan_hitbuf_k2"] = {
-            "ms": ms,
-            "plain_ms": s.plain_ms(lambda: pkg.scan_batch_vshare_plain(
-                *parts2, word7=True, **big)),
-            "bound_ms": bound(DISPATCH, True, 2),
-            "hashes_per_s": DISPATCH * 2 / ms * 1e3,
-            "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
-        }
-        # Its compaction alone, on the 2 x 2048 block slots of that shape.
-        iters2, n_blocks2 = pkg.hitbuf_geometry(DISPATCH)
-        counts2 = torch.zeros((2, n_blocks2), dtype=torch.int32, device=s.dev)
-        counts2[:, n_blocks2 // 2] = 1
-        hits2 = torch.full((2 * n_blocks2 * 64,), GENESIS_NONCE,
-                           dtype=torch.int64).to(torch.uint32).to(s.dev)
+        # The compaction alone: on the rescan's 32 block slots at K=1, on
+        # the K x 2048 block slots of a 2^24 dispatch at K = 2 and 4.
+        for k, capacity in ((1, 8192), (2, DISPATCH), (4, DISPATCH)):
+            _, n_blocks = pkg.hitbuf_geometry(capacity)
+            shape = (n_blocks,) if k == 1 else (k, n_blocks)
+            blk_counts = torch.zeros(shape, dtype=torch.int32, device=s.dev)
+            blk_counts[..., n_blocks // 2] = 1
+            blk_hits = torch.full((k * n_blocks * 64,), GENESIS_NONCE,
+                                  dtype=torch.int64).to(torch.uint32).to(s.dev)
 
-        def compact2():
-            return pkg.hitbuf_compact(hits2, counts2, 64)
+            def compact():
+                return pkg.hitbuf_compact(blk_hits, blk_counts, 64)
 
-        def compact2_plain():
-            return pkg.hitbuf_compact_plain(hits2, counts2, 64)
+            def compact_plain():
+                return pkg.hitbuf_compact_plain(blk_hits, blk_counts, 64)
 
-        s.compare("hitbuf_compact_k2", compact2(), compact2_plain())
-        rows["hitbuf_compact_k2"] = {
-            "ms": s.time_ms(compact2, 200),
-            "plain_ms": s.plain_ms(compact2_plain),
-            # per chain: n_blocks counts read, one stored hit read, 64
-            # slots and the count written.
-            "bound_ms": 2 * (n_blocks2 * 4 + 4 + 64 * 4 + 4)
-            / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "blocks": n_blocks2, "chains": 2,
-        }
+            name = "hitbuf_compact" if k == 1 else f"hitbuf_compact_k{k}"
+            s.compare(name, compact(), compact_plain())
+            rows[name] = {
+                "ms": s.time_ms(compact, 200),
+                "plain_ms": s.plain_ms(compact_plain),
+                # per chain: n_blocks counts read, one stored hit read, 64
+                # slots and the count written.
+                "bound_ms": k * (n_blocks * 4 + 4 + 64 * 4 + 4)
+                / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "blocks": n_blocks, "chains": k,
+            }
         for row in rows.values():
-            for k, v in list(row.items()):
+            for key, v in list(row.items()):
                 if isinstance(v, float):
-                    row[k] = float(f"{v:.6g}")
+                    row[key] = float(f"{v:.6g}")
         return {"card": name_power, "rows": rows}
 
     s.phase("device_and_build", device_and_build)
     if s.failed:
         return 1
     s.phase("kernels_vs_plain", kernels_vs_plain)
+    s.phase("variants_vs_plain", variants_vs_plain)
     s.phase("genesis_sweep", genesis_sweep)
     s.phase("stratum_session", stratum_session)
     s.phase("cuda_backend_window", cuda_backend_window)
@@ -544,6 +800,8 @@ def run(torch, pkg) -> int:
     s.phase("cuda_backend_window_vshare", cuda_backend_window_vshare)
     s.phase("stratum_session_vshare", stratum_session_vshare)
     s.phase("stratum_session_degraded", stratum_session_degraded)
+    s.phase("genesis_sweep_variants", genesis_sweep_variants)
+    s.phase("stratum_session_variant", stratum_session_variant)
     timing = {}
 
     def timing_phase():
@@ -556,30 +814,36 @@ def run(torch, pkg) -> int:
         emit({"failed_phases": s.failed})
         return 1
 
-    sources = {
-        "scan_tile": ("bitcoin_miner_tpu_torch/ops/csrc/scan_tile.cu",
-                      "bitcoin_miner_tpu/ops/sha256_pallas.py:115"),
-        "scan_hitbuf": ("bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu",
-                        "bitcoin_miner_tpu/ops/sha256_jax.py:780"),
-        "hitbuf_compact": ("bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu",
-                           "bitcoin_miner_tpu/ops/sha256_jax.py:826"),
-        "scan_tile_k2": ("bitcoin_miner_tpu_torch/ops/csrc/scan_tile.cu",
-                         "bitcoin_miner_tpu/ops/sha256_pallas.py:115"),
-        "scan_hitbuf_k2": ("bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu",
-                           "bitcoin_miner_tpu/ops/sha256_jax.py:857"),
-        "hitbuf_compact_k2": ("bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu",
-                              "bitcoin_miner_tpu/ops/sha256_jax.py:896"),
-    }
-    unlaunched = [name for name in sources if not s.launches[name]]
+    hitbuf_src = "bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu"
+
+    def source_of(name: str) -> tuple:
+        """(source, the TPU kernel or XLA program it replaces)."""
+        if name.startswith("scan_tile"):
+            return ("bitcoin_miner_tpu_torch/ops/csrc/scan_tile.cu",
+                    "bitcoin_miner_tpu/ops/sha256_pallas.py:115")
+        one = tile_chains(name) == 1
+        if name.startswith("scan_hitbuf"):
+            return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
+                                + ("780" if one else "857"))
+        return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
+                            + ("826" if one else "896"))
+
+    main_path = ["scan_tile", "scan_hitbuf", "hitbuf_compact", "scan_tile_k2",
+                 "scan_hitbuf_k2", "hitbuf_compact_k2",
+                 *(tile.tile_library(k, v) for v in tile.VARIANTS[1:]
+                   for k in (1, 2))]
+    unlaunched = [name for name in main_path if not s.launches.get(name)]
     if unlaunched:
         emit({"failed_phases": [], "never_launched_on_main_path": unlaunched})
         return 1
+    s.note_launches()
     table = []
-    for name, (source, replaces) in sources.items():
+    for name in sorted(s.seen, key=lambda n: (n.split("_k")[0], len(n), n)):
+        source, replaces = source_of(name)
         row = timing[name]
         table.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": s.launches[name],
+            "replaces": replaces, "launches": s.launches.get(name, 0),
             "max_abs_err": s.kernels[name]["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
@@ -597,7 +861,8 @@ def run(torch, pkg) -> int:
 
 
 async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
-                  window_s: float = SESSION_WINDOW_S) -> dict:
+                  window_s: float = SESSION_WINDOW_S,
+                  variant: str = None) -> dict:
     """A Stratum session as ``python -m bitcoin_miner_tpu_torch --pool URL
     --workers 4 [--vshare k]`` builds it (the tile kernel on the card
     behind its ring, the adaptive scheduler), against the package's
@@ -621,7 +886,8 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
     ))
     args = pkg.cli.build_parser().parse_args(
         ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
-         "--workers", "4", "--vshare", str(vshare)])
+         "--workers", "4", "--vshare", str(vshare),
+         *(["--variant", variant] if variant else [])])
     miner = pkg.cli.make_miner(args)
     dispatcher = miner.dispatcher
     hasher = dispatcher.hasher
@@ -640,10 +906,12 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
             await asyncio.sleep(0.05)
 
     def mark() -> tuple:
-        hashes = sum(c.value * k for k, c in pkg.scan_tile_k.items())
+        tiles = [c for c in pkg.csrc.counters()
+                 if c.name.startswith("scan_tile")]
+        hashes = sum(c.value * tile_chains(c.name) for c in tiles)
         return (time.perf_counter(), hashes * hasher.batch_size,
                 stats.hashes, stats.shares_accepted,
-                sum(c.value for c in pkg.scan_tile_k.values()))
+                sum(c.value for c in tiles))
 
     own_bits = 0x20000000 & pool_mask if pool_mask else None
 
@@ -733,12 +1001,8 @@ class _Package:
         self.hitbuf_compact_plain = sha256_torch.hitbuf_compact_plain
         self.hitbuf_geometry = sha256_torch.hitbuf_geometry
         self.bound_ms = sha256_torch.bound_ms
-        self.scan_tile_k = sha256_tile.SCAN_TILE_K
-        self.counters = tuple(
-            c for counters in (sha256_tile.SCAN_TILE_K,
-                               sha256_torch.SCAN_HITBUF_K,
-                               sha256_torch.HITBUF_COMPACT_K)
-            for c in counters.values())
+        self.ops_per_nonce = sha256_torch.ops_per_nonce
+        self.sha256_tile = sha256_tile
 
 
 def main() -> int:

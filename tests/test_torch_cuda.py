@@ -16,11 +16,13 @@ from bitcoin_miner_tpu_torch.backends.cuda import (
 )
 from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONCE
 from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
-from bitcoin_miner_tpu_torch.ops import sha256_tile, sha256_torch
+from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
 from bitcoin_miner_tpu_torch.ops.sha256_tile import (
+    VARIANTS,
     job_block_from_header,
     scan_tile,
     scan_tile_plain,
+    tile_library,
 )
 from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     hitbuf_compact,
@@ -39,10 +41,26 @@ EASY = difficulty_to_target(1 / (1 << 22))  # ~2^-10 per nonce
 N = 1 << 20
 
 
+# The tile kernel's layouts held against the plain scan: (K, variant,
+# cgroup, interleave). Each new variant at its default chain passes; chain
+# passes of 2 at K=4; two nonces in flight at K=2.
+LAYOUTS = ([(k, v, 0, 1) for v in VARIANTS[1:] for k in (1, 2, 4, 8)]
+           + [(4, v, 2, 1) for v in ("baseline", "wsplit", "wstage", "vroll")]
+           + [(2, v, 0, 2) for v in ("regchain", "wstage", "vroll",
+                                     "vroll-db")])
+# Steps smaller than a block of threads: (layout, nonces per step).
+SMALL_STEPS = [((1, "baseline", 0, 1), 128), ((1, "wstage", 0, 1), 128),
+               ((2, "vroll-db", 0, 1), 256), ((1, "regchain", 0, 2), 256)]
+
+
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # Every library of this module, built at once (one nvcc each).
+    csrc.build([*csrc.BASELINE,
+                *(tile_library(*l) for l in LAYOUTS),
+                *(tile_library(*l) for l, _ in SMALL_STEPS)])
     return torch.device("cuda", 0)
 
 
@@ -100,13 +118,16 @@ def test_hasher_on_card_matches_plain_hasher(cuda, cls):
     assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
 
 
-def _k_job(case, k, cuda):
+def _k_job(case, k, cuda, host=False):
+    """The job block of k chains on the card, or with ``host`` its words in
+    host memory."""
     _, header76, target, base, limit = case
     version = int.from_bytes(header76[:4], "little")
     versions = [version] + [version ^ p for p in
                             sibling_version_patterns(DEFAULT_VERSION_MASK, k)]
-    return job_block_from_header(header76, target, base, limit,
-                                 versions=versions).to(cuda)
+    job = job_block_from_header(header76, target, base, limit,
+                                versions=versions)
+    return job.numpy() if host else job.to(cuda)
 
 
 @pytest.mark.parametrize("k", [2, 3, 4, 8])
@@ -159,3 +180,76 @@ def test_vshare_hasher_on_card_matches_plain_hasher(cuda, cls):
         plain.set_version_mask(mask)
         assert card.scan(bytes(76), 5, 1 << 20, EASY) == plain.scan(
             bytes(76), 5, 1 << 20, EASY)
+
+
+def _layout_matches_plain(cuda, case, word7, layout, block=8192):
+    k, variant, cgroup, interleave = layout
+    job = _k_job(case, k, cuda)
+    kw = dict(n_steps=N // block, block=block, word7=word7, vshare=k)
+    counter = csrc.launch_counter(tile_library(*layout))
+    before = counter.value
+    got = scan_tile(job, variant=variant, cgroup=cgroup,
+                    interleave=interleave,
+                    host_words=_k_job(case, k, cuda, host=True), **kw)
+    assert counter.value == before + 1
+    assert got[0].shape == (N // block * k,)
+    assert _equal(got, scan_tile_plain(job, **kw))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS,
+                         ids=lambda l: "-".join(map(str, l)))
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_layout_matches_plain(cuda, case, word7, layout):
+    _layout_matches_plain(cuda, case, word7, layout)
+
+
+@pytest.mark.parametrize("layout, block", SMALL_STEPS,
+                         ids=lambda x: "-".join(map(str, x))
+                         if isinstance(x, tuple) else str(x))
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_small_steps_match_plain(cuda, case, word7, layout, block):
+    """Steps of 128 and 256 nonces: fewer threads than a block holds."""
+    _layout_matches_plain(cuda, case, word7, layout, block)
+
+
+def test_staged_plane_too_large_raises(cuda):
+    """vroll-db at interleave 8 needs 384 KB of shared memory per block:
+    refused before any launch, by the wrapper and by the hasher."""
+    case = CASES[1]
+    before = {c.name: c.value for c in csrc.counters()}
+    with pytest.raises(ValueError, match="shared memory"):
+        scan_tile(_k_job(case, 2, cuda), n_steps=1, block=2048, vshare=2,
+                  variant="vroll-db", interleave=8,
+                  host_words=_k_job(case, 2, cuda, host=True))
+    with pytest.raises(ValueError, match="shared memory"):
+        TileCudaHasher(batch_size=1 << 20, inner_tiles=16, interleave=16,
+                       variant="wstage", device="cuda")
+    assert {c.name: c.value for c in csrc.counters()} == before
+
+
+def test_layouts_need_the_host_words(cuda):
+    job = _k_job(CASES[0], 1, cuda)
+    with pytest.raises(ValueError, match="host_words"):
+        scan_tile(job, n_steps=N // 8192, block=8192, variant="regchain")
+
+
+@pytest.mark.parametrize("variant", ["regchain", "wsplit", "vroll"])
+def test_layout_hasher_on_card_matches_plain_hasher(cuda, variant):
+    card = TileCudaHasher(batch_size=1 << 20, device="cuda", vshare=2,
+                          variant=variant)
+    plain = TileCudaHasher(batch_size=1 << 20, device="cpu", vshare=2,
+                           variant=variant)
+    got = card.scan(GENESIS76, GENESIS_NONCE - 3_000_000, 1 << 22, DIFF1)
+    assert got.nonces == [GENESIS_NONCE] and got.hashes_done == 1 << 23
+    easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy.version_hits
+    card.set_version_mask(0)  # degraded: the layout's K=1 build
+    plain.set_version_mask(0)
+    counter = csrc.launch_counter(tile_library(1, variant))
+    before = counter.value
+    assert card.scan(bytes(76), 5, 1 << 20, EASY) == plain.scan(
+        bytes(76), 5, 1 << 20, EASY)
+    assert counter.value == before + 1

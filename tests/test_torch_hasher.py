@@ -17,6 +17,7 @@ from bitcoin_miner_tpu_torch.backends.base import (
 )
 from bitcoin_miner_tpu_torch.backends.cuda import CudaHasher, TileCudaHasher
 from bitcoin_miner_tpu_torch.core.sha256 import sha256d
+from bitcoin_miner_tpu_torch.ops.sha256_tile import VARIANTS
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -157,26 +158,29 @@ class TestScanStream:
 
 class TestConstruction:
     def test_later_slice_options_raise(self):
-        """The layout variants and chain passes smaller than vshare wait
-        for a later slice; vshare itself is ported (test_torch_vshare)."""
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TileCudaHasher(batch_size=BATCH, variant="wstage", device="cpu")
-        with pytest.raises(NotImplementedError, match="layout-variants"):
-            TileCudaHasher(batch_size=BATCH, vshare=4, cgroup=2,
-                           device="cpu")
-        for cgroup in (0, 4):
-            assert TileCudaHasher(batch_size=BATCH, vshare=4, cgroup=cgroup,
-                                  device="cpu").version_roll_bits == 2
-        with pytest.raises(ValueError, match="cgroup"):
-            TileCudaHasher(batch_size=BATCH, vshare=2, cgroup=3,
-                           device="cpu")
+        """Every layout variant and every chain-pass size in 0..k now
+        constructs (test_torch_variants* hold them against the reference);
+        bad values raise the reference hasher's ValueErrors."""
+        for variant in VARIANTS:
+            for cgroup in range(5):
+                assert TileCudaHasher(batch_size=BATCH, vshare=4,
+                                      variant=variant, cgroup=cgroup,
+                                      device="cpu").version_roll_bits == 2
+        for bad in (dict(variant="nope"), dict(vshare=2, cgroup=3),
+                    dict(vshare=2, cgroup=-1)):
+            with pytest.raises(ValueError) as ref:
+                PallasTpuHasher(batch_size=BATCH, interpret=True, unroll=8,
+                                **bad)
+            with pytest.raises(ValueError) as port:
+                TileCudaHasher(batch_size=BATCH, device="cpu", **bad)
+            assert str(port.value) == str(ref.value)
         with pytest.raises(ValueError, match="at most 8"):
             CudaHasher(batch_size=BATCH, inner_size=BATCH, vshare=9,
                        device="cpu")
 
     def test_geometry_checks(self):
-        with pytest.raises(ValueError):
-            TileCudaHasher(batch_size=3 << 10, block=2048, device="cpu")
+        with pytest.raises(ValueError, match="multiple of 2048"):
+            TileCudaHasher(batch_size=3 << 10, sublanes=16, device="cpu")
         with pytest.raises(ValueError):
             CudaHasher(batch_size=BATCH, inner_size=3 << 8, device="cpu")
         assert TileCudaHasher(batch_size=BATCH, device="cpu").tile == BATCH

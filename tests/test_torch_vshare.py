@@ -582,12 +582,15 @@ class TestCommandLine:
         with pytest.raises(SystemExit, match="--cgroup"):
             cli.make_hasher(parse(["--bench", "--backend", "cuda",
                                    "--device", "cpu", "--cgroup", "2"]))
-        with pytest.raises(NotImplementedError, match="layout-variants"):
+        for cgroup in range(5):  # every chain-pass size in 0..k
+            h = cli.make_hasher(parse(["--bench", "--device", "cpu",
+                                       "--vshare", "4", "--cgroup",
+                                       str(cgroup)]))
+            assert isinstance(h, TileCudaHasher) and h.version_roll_bits == 2
+            assert h.cgroup == cgroup
+        with pytest.raises(SystemExit, match=r"between 1 and --vshare \(4\)"):
             cli.make_hasher(parse(["--bench", "--device", "cpu",
-                                   "--vshare", "4", "--cgroup", "2"]))
-        h = cli.make_hasher(parse(["--bench", "--device", "cpu",
-                                   "--vshare", "4", "--cgroup", "4"]))
-        assert isinstance(h, TileCudaHasher) and h.version_roll_bits == 2
+                                   "--vshare", "4", "--cgroup", "5"]))
 
     def test_vshare_needs_a_card_unless_asked_for_the_cpu(self):
         if torch.cuda.is_available():
