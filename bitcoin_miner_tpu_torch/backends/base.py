@@ -3,9 +3,16 @@ backend plugs in, and its streaming form ``scan_stream``.
 
 Backends register by name:
 
-    cpu        — hashlib oracle (always available; the specification)
-    cuda       — the hit-buffer scan kernel (``ops/sha256_torch.py``)
-    cuda-tile  — the per-step (count, min) tile kernel (``ops/sha256_tile.py``)
+    cpu              — hashlib oracle (always available; the specification)
+    cuda             — the hit-buffer scan kernel (``ops/sha256_torch.py``)
+    cuda-tile        — the per-step (count, min) tile kernel
+                       (``ops/sha256_tile.py``)
+    cuda-mesh        — the hit-buffer scan sharded over several devices
+    cuda-tile-mesh   — the tile scan sharded over several devices
+    cuda-fanout      — whole requests round-robined to per-device hashers
+                       (``parallel/fanout.py``)
+    cuda-mesh-native — the sharded scan behind one ring, with a degradation
+                       ladder (``parallel/meshring.py``)
 
 The dispatcher re-verifies every device hit on a CPU hasher before it
 becomes a share.
@@ -110,9 +117,13 @@ def iter_scan_stream(
 def dispatch_granularity(hasher: Any, default: int = 1) -> int:
     """The backend's per-dispatch grid in nonces, which request counts
     should be multiples of (a partial dispatch still launches the whole
-    grid): ``batch_size`` for device backends, ``default`` for the oracle,
-    whose cost is linear in the count."""
-    return int(getattr(hasher, "batch_size", None) or default)
+    grid): ``dispatch_size`` where a backend has one (the sharded backends:
+    ``batch_per_device × n_devices``; the fan-out: one child's dispatch,
+    since requests go whole to one device), else ``batch_size`` (one
+    device), else ``default`` for the oracle, whose cost is linear in the
+    count."""
+    return int(getattr(hasher, "dispatch_size", None)
+               or getattr(hasher, "batch_size", None) or default)
 
 
 class Hasher(ABC):
@@ -170,6 +181,10 @@ class Hasher(ABC):
 
 _REGISTRY: Dict[str, Callable[..., Hasher]] = {}
 
+#: The backends ``backends/cuda.py`` registers.
+CUDA_BACKENDS = ("cuda", "cuda-tile", "cuda-mesh", "cuda-tile-mesh",
+                 "cuda-fanout", "cuda-mesh-native")
+
 
 def register_hasher(name: str, factory: Callable[..., Hasher]) -> None:
     _REGISTRY[name] = factory
@@ -185,12 +200,12 @@ def get_hasher(name: str, **kwargs: Any) -> Hasher:
     if name not in _REGISTRY:
         if name == "cpu":
             from . import cpu  # noqa: F401
-        elif name in ("cuda", "cuda-tile"):
+        elif name in CUDA_BACKENDS:
             from . import cuda  # noqa: F401
     try:
         factory = _REGISTRY[name]
     except KeyError:
-        known = sorted(set(available_hashers()) | {"cpu", "cuda", "cuda-tile"})
+        known = sorted(set(available_hashers()) | {"cpu", *CUDA_BACKENDS})
         raise ValueError(
             f"unknown hasher {name!r}; available: {known}"
         ) from None

@@ -19,9 +19,16 @@ readback waits for everything queued on the stream, including dispatches
 queued after the one being read. So each dispatch uploads its job words
 from pinned memory without blocking, launches its kernels on the current
 stream, copies its outputs into pinned host memory without blocking and
-records a CUDA event; collecting it waits on that event alone. The ring
-in :meth:`CudaHasher.scan_stream` therefore keeps dispatch k+1 (and up to
-``stream_depth``) queued while the host reads and verifies dispatch k.
+records a CUDA event on each device it ran on; collecting it waits on
+those events alone. The ring in :meth:`CudaHasher.scan_stream` therefore
+keeps dispatch k+1 (and up to ``stream_depth``) queued while the host
+reads and verifies dispatch k.
+
+:class:`ShardedCudaHasher` (``cuda-mesh``) and :class:`ShardedTileCudaHasher`
+(``cuda-tile-mesh``) ride the same ring with dispatches sharded over
+several devices (``parallel/mesh.py``): one dispatch is
+``batch_per_device × n_devices`` nonces (``dispatch_size``), each shard's
+job words go to its own device, and the shards' outputs merge on the host.
 
 Several dispatcher pump threads share one hasher: launches from all of
 them go to the current stream in the order they are made, each collect
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core.sha256 import SHA256_IV, _sha256_pad, sha256d_from_midstate
-from ..ops.csrc import MAX_VSHARE
+from ..ops.csrc import MAX_VSHARE, form_defines
 from ..ops.sha256_tile import (
     LANES,
     check_layout,
@@ -53,7 +60,20 @@ from ..ops.sha256_tile import (
     job_words,
     scan_tile,
 )
-from ..ops.sha256_torch import compress, scan_batch_vshare
+from ..ops.sha256_torch import (
+    HITBUF_SPEC_ONLY,
+    compress,
+    scan_batch_vshare,
+    upload_words,
+)
+from ..parallel.mesh import (
+    ShardedScan,
+    make_mesh,
+    make_sharded_scan_fn,
+    make_sharded_scan_fn_vshare,
+    make_sharded_tile_scan_fn,
+    merge_device_hits,
+)
 from .base import (
     Hasher,
     STREAM_FLUSH,
@@ -131,6 +151,14 @@ class JobConstants:
         """Chains hashed per nonce: the hashes each nonce counts for."""
         return len(self.versions)
 
+    def block(self, base: int, limit: int) -> np.ndarray:
+        """The tile kernel's job block of these chains for the dispatch
+        ``[base, base + limit)``."""
+        return np.concatenate([
+            self.midstates.ravel(), self.state3s.ravel(), self.tail3,
+            self.limbs,
+            np.asarray([base & 0xFFFFFFFF, limit], dtype=np.uint32)])
+
     @property
     def word7(self) -> bool:
         """Early reject pays only when candidates are almost never: a top
@@ -163,35 +191,36 @@ class _Found:
 
 class _Dispatch:
     """One queued dispatch: its outputs on their way to host memory,
-    behind an event. On the CPU the outputs are already there."""
+    behind one event per card they lie on (a sharded dispatch spans
+    several). Outputs on the CPU are already there. ``mesh`` is the tuple
+    of devices a sharded dispatch was launched on, in shard order: the
+    hasher's mesh may be rebuilt before the dispatch is collected."""
 
-    def __init__(self, outputs: Sequence[torch.Tensor]) -> None:
-        device = outputs[0].device
-        if device.type == "cuda":
-            self._host = [t.to("cpu", non_blocking=True) for t in outputs]
+    def __init__(self, outputs: Sequence[torch.Tensor],
+                 mesh: Tuple[torch.device, ...] = ()) -> None:
+        self.mesh = mesh
+        self._host = []
+        devices: List[torch.device] = []
+        for t in outputs:
+            if t.device.type == "cuda":
+                # On the current stream of the tensor's card.
+                self._host.append(t.to("cpu", non_blocking=True))
+                if t.device not in devices:
+                    devices.append(t.device)
+            else:
+                self._host.append(t)
+        self._events: List[torch.cuda.Event] = []
+        for device in devices:
             # A blocking event: pump threads sleep in the wait instead of
             # spinning on the host cores the event loop needs.
-            self._event: Optional[torch.cuda.Event] = torch.cuda.Event(
-                blocking=True)
-            self._event.record(torch.cuda.current_stream(device))
-        else:
-            self._host = list(outputs)
-            self._event = None
+            event = torch.cuda.Event(blocking=True)
+            event.record(torch.cuda.current_stream(device))
+            self._events.append(event)
 
     def result(self) -> List[np.ndarray]:
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return [t.numpy() for t in self._host]
-
-
-def _upload(words: Sequence[int], device: torch.device) -> torch.Tensor:
-    """uint32 words on ``device``: from pinned memory without blocking on
-    the card (the caching host allocator keeps the pinned block until the
-    copy has run)."""
-    host = torch.from_numpy(np.asarray(words, dtype=np.uint32))
-    if device.type == "cpu":
-        return host
-    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _verify_candidates(candidates: List[int], jc: JobConstants, chain: int
@@ -218,10 +247,17 @@ class CudaHasher(Hasher):
     Each dispatch of ``batch_size`` nonces returns, per chain, the first
     ``max_hits`` hits and the uncapped count; at a target whose top limb
     is 0 the kernel runs in word7 mode and its candidates are re-verified
-    on the CPU against their chain's own midstate."""
+    on the CPU against their chain's own midstate. ``unroll`` and ``spec``
+    choose the kernels' compile form (``csrc.form_defines``); at vshare > 1
+    the hit-buffer scan has only spec forms."""
 
     name = "cuda"
     scan_releases_gil = True
+
+    #: Whether dispatches scan through the hit-buffer kernel, whose k-chain
+    #: forms all partially evaluate (the tile hasher's rescans are one
+    #: chain).
+    hitbuf_scan = True
 
     #: dispatches ``scan_stream`` holds in flight before collecting the
     #: oldest: the card computes dispatch k+1 while the host reads k.
@@ -238,6 +274,8 @@ class CudaHasher(Hasher):
         max_hits: int = 64,
         vshare: int = 1,
         device: Optional[str] = None,
+        unroll: int = 64,
+        spec: bool = True,
     ) -> None:
         if batch_size % inner_size:
             raise ValueError("batch_size must be a multiple of inner_size")
@@ -245,6 +283,11 @@ class CudaHasher(Hasher):
         if self._vshare > MAX_VSHARE:
             raise ValueError(f"vshare={vshare}: the kernels are built for at "
                              f"most {MAX_VSHARE} chains")
+        form_defines(unroll, spec)  # checks unroll
+        if self.hitbuf_scan and self._vshare > 1 and not spec:
+            raise ValueError(HITBUF_SPEC_ONLY)
+        self.unroll = unroll
+        self.spec = spec
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.inner_size = inner_size
@@ -292,7 +335,7 @@ class CudaHasher(Hasher):
         :meth:`set_version_mask` builds every chain from that one reading,
         and its entry is not cached unless the mask still holds."""
         mask = self.version_mask
-        key = (header76, target, mask)
+        key = self._consts_key(header76, target, mask)
         with self._consts_lock:
             entry = self._consts_cache.get(key)
             if entry is not None:
@@ -309,6 +352,9 @@ class CudaHasher(Hasher):
                     self._consts_cache.popitem(last=False)
         return entry
 
+    def _consts_key(self, header76: bytes, target: int, mask: int) -> tuple:
+        return (header76, target, mask)
+
     def _chain_versions(self, version: int, mask: int) -> Tuple[int, ...]:
         """The versions of the chains mined under ``mask``: the header's
         own, then ``vshare - 1`` siblings inside the mask — or the header's
@@ -322,19 +368,21 @@ class CudaHasher(Hasher):
         return (version, *(version ^ p for p in patterns))
 
     def _hitbuf(self, midstates: np.ndarray, jc: JobConstants, base: int,
-                limit: int, capacity: int, inner_size: int,
-                word7: bool) -> _Dispatch:
+                limit: int, capacity: int, inner_size: int, word7: bool,
+                device: Optional[torch.device] = None) -> _Dispatch:
         """Queue one hit-buffer scan of ``[base, base + limit)`` for the
-        chains of ``midstates`` (rows of ``jc.midstates``)."""
+        chains of ``midstates`` (rows of ``jc.midstates``), on ``device``
+        (the hasher's by default)."""
         k = len(midstates)
-        words = _upload([*midstates.ravel(), *jc.tail3, *jc.limbs,
-                         base & 0xFFFFFFFF, limit], self.device)
+        words = upload_words([*midstates.ravel(), *jc.tail3, *jc.limbs,
+                              base & 0xFFFFFFFF, limit],
+                             device or self.device)
         out = scan_batch_vshare(
             words[:8 * k].view(k, 8), words[8 * k:8 * k + 3],
             words[8 * k + 3:8 * k + 11], words[8 * k + 11],
             words[8 * k + 12], inner_size=inner_size,
             n_steps=capacity // inner_size, max_hits=self.max_hits,
-            word7=word7)
+            word7=word7, unroll=self.unroll, spec=self.spec)
         return _Dispatch(out)
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
@@ -512,9 +560,11 @@ class TileCudaHasher(CudaHasher):
     layout (``ops.sha256_tile``); the geometry is clamped as
     :func:`tile_geometry` says, and checked as the Pallas hasher checks it.
     In degraded mode (one chain) the same layout runs built for one chain,
-    its chain pass clamped to that chain."""
+    its chain pass clamped to that chain. ``unroll`` and ``spec`` choose
+    the compile form of the tile kernel and of the rescans."""
 
     name = "cuda-tile"
+    hitbuf_scan = False
 
     def __init__(
         self,
@@ -527,6 +577,8 @@ class TileCudaHasher(CudaHasher):
         variant: str = "baseline",
         cgroup: int = 0,
         device: Optional[str] = None,
+        unroll: int = 64,
+        spec: bool = True,
     ) -> None:
         inner_tiles, interleave = tile_geometry(batch_size, sublanes,
                                                 inner_tiles, interleave,
@@ -538,7 +590,8 @@ class TileCudaHasher(CudaHasher):
         # The rescan of one step: its hit buffer's capacity is the step.
         super().__init__(batch_size=batch_size,
                          inner_size=math.gcd(tile, 1 << 10),
-                         max_hits=max_hits, vshare=vshare, device=device)
+                         max_hits=max_hits, vshare=vshare, device=device,
+                         unroll=unroll, spec=spec)
         if self.device.type == "cuda":
             check_plane(variant, interleave)
         self.sublanes = sublanes
@@ -550,18 +603,29 @@ class TileCudaHasher(CudaHasher):
         self.tile = tile
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
-        words = np.concatenate([
-            jc.midstates.ravel(), jc.state3s.ravel(), jc.tail3, jc.limbs,
-            np.asarray([base & 0xFFFFFFFF, limit], dtype=np.uint32)])
+        words = jc.block(base, limit)
         return _Dispatch(scan_tile(
-            _upload(words, self.device), n_steps=self.batch_size // self.tile,
-            block=self.tile, word7=jc.word7, vshare=jc.chains,
-            variant=self.variant, cgroup=min(self.cgroup, jc.chains),
-            interleave=self.interleave, host_words=words))
+            upload_words(words, self.device),
+            n_steps=self.batch_size // self.tile, block=self.tile,
+            word7=jc.word7, vshare=jc.chains, variant=self.variant,
+            cgroup=min(self.cgroup, jc.chains), interleave=self.interleave,
+            host_words=words, unroll=self.unroll, spec=self.spec))
 
     def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
                  limit: int, found: _Found) -> None:
         counts, mins = out.result()
+        self._collect_slots(counts, mins, jc, base, limit, found,
+                            (self.device,))
+
+    def _collect_slots(self, counts: np.ndarray, mins: np.ndarray,
+                       jc: JobConstants, base: int, limit: int,
+                       found: _Found, mesh: Tuple[torch.device, ...]
+                       ) -> None:
+        """The hits of a dispatch from its (count, min) slots, slot
+        ``step·k + c`` for chain c of step ``step`` from ``base``. The
+        devices of ``mesh`` scanned equal runs of steps in order: a step's
+        rescan runs on the device that scanned it."""
+        steps_per_device = len(counts) // (jc.chains * len(mesh))
         for slot in np.nonzero(counts)[0]:
             step, chain = divmod(int(slot), jc.chains)
             if not jc.word7 and int(counts[slot]) == 1:
@@ -569,19 +633,193 @@ class TileCudaHasher(CudaHasher):
             else:
                 got, n = self._rescan_tile(
                     jc, chain, base + step * self.tile,
-                    min(self.tile, limit - step * self.tile))
+                    min(self.tile, limit - step * self.tile),
+                    mesh[step // steps_per_device])
             found.add(jc, chain, got, n)
 
     def _rescan_tile(self, jc: JobConstants, chain: int, tile_base: int,
-                     tile_limit: int) -> Tuple[List[int], int]:
+                     tile_limit: int, device: torch.device
+                     ) -> Tuple[List[int], int]:
         """Exact (hits, uncapped count) of one step's range for one chain,
-        through the one-chain hit-buffer kernel at the step's size."""
+        through the one-chain hit-buffer kernel at the step's size, on
+        ``device``."""
         bufs, counts = self._hitbuf(
             jc.midstates[chain:chain + 1], jc, tile_base, tile_limit,
-            self.tile, self.inner_size, word7=False).result()
+            self.tile, self.inner_size, word7=False, device=device).result()
         n = int(counts[0])
         return [int(x) for x in bufs[0, :min(n, self.max_hits)]], n
 
 
+class _Sharded:
+    """What the two sharded hashers share: the mesh, one sharded scan per
+    (chains, word7 mode) built on first use, and the dispatch that launches
+    it. :attr:`compile_count` counts the scan-kernel libraries those scans
+    load (the counterpart of the JAX mesh hashers' traced executables):
+    one per geometry, whatever the number of dispatches."""
+
+    mesh: Tuple[torch.device, ...]
+    batch_per_device: int
+
+    def _init_mesh(self, mesh: Tuple[torch.device, ...],
+                   batch_per_device: int) -> None:
+        self.mesh = mesh
+        self.n_devices = len(mesh)
+        self.batch_per_device = batch_per_device
+        #: the scheduler's grid: one dispatch covers every shard.
+        self.dispatch_size = self.batch_size = batch_per_device * len(mesh)
+        self._libraries: set = set()
+        self._scans: dict = {}
+        self._scans_lock = threading.Lock()
+
+    @property
+    def compile_count(self) -> int:
+        return len(self._libraries)
+
+    def _build_scan(self, chains: int, word7: bool) -> ShardedScan:
+        raise NotImplementedError
+
+    def _sharded(self, chains: int, word7: bool) -> ShardedScan:
+        with self._scans_lock:
+            scan = self._scans.get((chains, word7))
+            if scan is None:
+                scan = self._scans[chains, word7] = self._build_scan(chains,
+                                                                     word7)
+                self._libraries.add(scan.library)
+            return scan
+
+    def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
+        scan = self._sharded(jc.chains, jc.word7)
+        shards = scan(jc.block(base, limit))
+        return _Dispatch([t for outputs in shards for t in outputs],
+                         mesh=scan.mesh)
+
+
+class ShardedCudaHasher(_Sharded, CudaHasher):
+    """The hit-buffer scan sharded over several devices (``--backend
+    cuda-mesh``), the counterpart of ``ShardedTpuHasher``: each dispatch
+    hands every device a disjoint ``batch_per_device`` slice, each chain's
+    per-device hit buffers merge on the host (``merge_device_hits``), and
+    a word7 overflow is judged on the worst device's count, since each
+    device buffer holds at most ``max_hits`` candidates. ``devices`` may
+    name one device more than once (``parallel.mesh.make_mesh``)."""
+
+    name = "cuda-mesh"
+
+    def __init__(
+        self,
+        n_devices: Optional[int] = None,
+        batch_per_device: int = 1 << 22,
+        inner_size: int = 1 << 18,
+        max_hits: int = 64,
+        vshare: int = 1,
+        unroll: int = 64,
+        spec: bool = True,
+        devices: Optional[Sequence] = None,
+    ) -> None:
+        if batch_per_device % inner_size:
+            raise ValueError("batch_per_device must be a multiple of "
+                             "inner_size")
+        mesh = make_mesh(n_devices, devices)
+        super().__init__(batch_size=batch_per_device, inner_size=inner_size,
+                         max_hits=max_hits, vshare=vshare, device=mesh[0],
+                         unroll=unroll, spec=spec)
+        self._init_mesh(mesh, batch_per_device)
+
+    def _build_scan(self, chains: int, word7: bool) -> ShardedScan:
+        kw = dict(batch_per_device=self.batch_per_device,
+                  inner_size=self.inner_size, max_hits=self.max_hits,
+                  unroll=self.unroll, word7=word7)
+        if chains == 1:
+            return make_sharded_scan_fn(self.mesh, spec=self.spec, **kw)
+        return make_sharded_scan_fn_vshare(self.mesh, vshare=chains, **kw)
+
+    def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
+                 limit: int, found: _Found) -> None:
+        res = out.result()
+        n, k = len(res) // 3, jc.chains
+        bufs = np.stack(res[0::3]).reshape(n, k, -1)
+        counts = np.stack(res[1::3]).reshape(n, k)
+        for chain in range(k):
+            got, total = merge_device_hits(bufs[:, chain], counts[:, chain],
+                                           self.max_hits)
+            if jc.word7:
+                self._warn_overflow(int(counts[:, chain].max()))
+                got, total = _verify_candidates(got, jc, chain)
+            found.add(jc, chain, got, total)
+
+
+class ShardedTileCudaHasher(_Sharded, TileCudaHasher):
+    """The tile scan sharded over several devices (``--backend
+    cuda-tile-mesh``), the counterpart of ``ShardedPallasTpuHasher``: each
+    device sweeps a disjoint ``batch_per_device`` slice in the tile
+    hasher's layout, step geometry (clamped to one device's slice) and
+    form. The shards' (count, min) slots flatten to the global slot
+    ``d·n_steps·k + t·k + c``, i.e. step ``d·n_steps + t`` from the
+    dispatch's base, since the slices are contiguous; so the tile hasher's
+    collection works unchanged, and a step's rescan runs on the device
+    that owns it in the mesh the dispatch was launched on."""
+
+    name = "cuda-tile-mesh"
+
+    def __init__(
+        self,
+        n_devices: Optional[int] = None,
+        batch_per_device: int = 1 << 24,
+        sublanes: int = 8,
+        inner_tiles: int = 8,
+        interleave: int = 1,
+        max_hits: int = 64,
+        vshare: int = 1,
+        variant: str = "baseline",
+        cgroup: int = 0,
+        unroll: int = 64,
+        spec: bool = True,
+        devices: Optional[Sequence] = None,
+    ) -> None:
+        mesh = make_mesh(n_devices, devices)
+        super().__init__(batch_size=batch_per_device, sublanes=sublanes,
+                         inner_tiles=inner_tiles, interleave=interleave,
+                         max_hits=max_hits, vshare=vshare, variant=variant,
+                         cgroup=cgroup, device=mesh[0], unroll=unroll,
+                         spec=spec)
+        self._init_mesh(mesh, batch_per_device)
+
+    def _build_scan(self, chains: int, word7: bool) -> ShardedScan:
+        scan, _ = make_sharded_tile_scan_fn(
+            self.mesh, self.batch_per_device, self.sublanes, self.unroll,
+            word7=word7, inner_tiles=self.inner_tiles, spec=self.spec,
+            interleave=self.interleave, vshare=chains, variant=self.variant,
+            cgroup=min(self.cgroup, chains))
+        return scan
+
+    def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
+                 limit: int, found: _Found) -> None:
+        res = out.result()
+        self._collect_slots(np.concatenate(res[0::3]),
+                            np.concatenate(res[1::3]), jc, base, limit, found,
+                            out.mesh)
+
+
+def _make_fanout(**kwargs) -> Hasher:
+    """Registry entry for the per-device fan-out (``parallel/fanout.py``;
+    every card by default): ``kwargs`` go to ``make_cuda_fanout``."""
+    from ..parallel.fanout import make_cuda_fanout
+
+    return make_cuda_fanout(**kwargs)
+
+
+def _make_mesh_native(**kwargs) -> Hasher:
+    """Registry entry for the mesh-native streaming backend
+    (``parallel/meshring.py``; every card by default): ``kwargs`` go to
+    ``MeshCudaHasher``."""
+    from ..parallel.meshring import MeshCudaHasher
+
+    return MeshCudaHasher(**kwargs)
+
+
 register_hasher("cuda", CudaHasher)
 register_hasher("cuda-tile", TileCudaHasher)
+register_hasher("cuda-mesh", ShardedCudaHasher)
+register_hasher("cuda-tile-mesh", ShardedTileCudaHasher)
+register_hasher("cuda-fanout", _make_fanout)
+register_hasher("cuda-mesh-native", _make_mesh_native)

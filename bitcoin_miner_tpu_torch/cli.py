@@ -5,13 +5,20 @@ Modes:
   --bench                          offline sweep of the genesis header
 
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
-hit-buffer kernel) and ``cpu`` (the hashlib oracle). ``--device cpu``
-runs the CUDA backends' plain PyTorch versions instead of the kernels;
-without it they need a card. ``--vshare k`` hashes every nonce against k
-version-rolled sibling headers (overt AsicBoost) on the CUDA backends.
-``--variant``, ``--cgroup``, ``--interleave``, ``--sublanes`` and
-``--inner-tiles`` choose the tile kernel's layout and step on
-``cuda-tile``; the other backends refuse them. The miner writes no files.
+hit-buffer kernel), their sharded forms over several cards ``cuda-tile-mesh``
+and ``cuda-mesh``, ``cuda-mesh-native`` (the sharded scan behind one
+dispatch ring, ``--mesh-kernel cuda|cuda-tile``), ``cuda-fanout`` (whole
+requests to one hasher per card, ``--fanout-kernel cuda|cuda-tile``) and
+``cpu`` (the hashlib oracle). ``--mesh-devices N`` takes the first N
+cards for the multi-device backends (default: all). ``--device cpu``
+runs the CUDA backends' plain PyTorch versions instead of the kernels,
+on one device; without it they need a card. ``--vshare k`` hashes every
+nonce against k version-rolled sibling headers (overt AsicBoost) on the
+CUDA backends. ``--variant``, ``--cgroup``, ``--interleave``,
+``--sublanes`` and ``--inner-tiles`` choose the tile kernel's layout and
+step wherever the tile kernel runs; the other backends refuse them.
+``--unroll`` and ``--no-spec`` choose the kernels' compile form. The
+miner writes no files.
 """
 
 from __future__ import annotations
@@ -24,8 +31,13 @@ import time
 from typing import TYPE_CHECKING, Optional
 from urllib.parse import urlparse
 
-from .backends.base import Hasher, get_hasher
+from .backends.base import (
+    Hasher,
+    dispatch_granularity,
+    get_hasher,
+)
 from .ops.sha256_tile import VARIANTS
+from .parallel.meshring import MESH_KERNELS
 from .core.header import GENESIS_HEADER_HEX, GENESIS_NBITS, GENESIS_NONCE
 from .core.target import nbits_to_target
 from .miner.scheduler import (
@@ -43,6 +55,11 @@ logger = logging.getLogger("tpu_miner_torch")
 #: log2 of the nonces per device dispatch when ``--batch-bits`` is not given.
 DEFAULT_BATCH_BITS = 24
 
+#: ``--backend`` choices, the default first.
+BACKENDS = ("cuda-tile", "cuda", "cuda-tile-mesh", "cuda-mesh",
+            "cuda-mesh-native", "cuda-fanout", "cpu")
+
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -56,12 +73,32 @@ def build_parser() -> argparse.ArgumentParser:
                            "difficulty-1 target")
     p.add_argument("--user", default="tpu-miner", help="pool username")
     p.add_argument("--password", default="x", help="pool password")
-    p.add_argument("--backend", default="cuda-tile",
-                   choices=("cuda-tile", "cuda", "cpu"),
+    p.add_argument("--backend", default="cuda-tile", choices=BACKENDS,
                    help="hasher backend (default: %(default)s)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the cuda backends run: the card, or their "
-                        "plain PyTorch versions on the CPU")
+                        "plain PyTorch versions on the CPU (one device)")
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="multi-device backends (cuda-mesh, cuda-tile-mesh, "
+                        "cuda-mesh-native, cuda-fanout): the first N cards "
+                        "(default: every card)")
+    p.add_argument("--mesh-kernel", default=None, choices=MESH_KERNELS,
+                   help="cuda-mesh-native: the per-shard kernel, the "
+                        "hit-buffer scan (cuda) or the tile scan "
+                        "(cuda-tile, which takes the layout options); "
+                        "default cuda")
+    p.add_argument("--fanout-kernel", default=None, choices=MESH_KERNELS,
+                   help="cuda-fanout: the per-card hasher's kernel, as "
+                        "--mesh-kernel; default cuda")
+    p.add_argument("--unroll", type=int, default=None,
+                   help="cuda backends: SHA-256 rounds per iteration of "
+                        "the kernels' round loops (64, the default, "
+                        "unrolls them fully; below 64 they stay rolled)")
+    p.add_argument("--no-spec", action="store_true",
+                   help="cuda backends: build the kernels without the "
+                        "partial evaluation of the padding, length and IV "
+                        "words (applies at --unroll 64); with --vshare > 1 "
+                        "the hit-buffer kernel refuses it")
     p.add_argument("--vshare", type=int, default=1,
                    help="cuda backends: k version-rolled midstate chains "
                         "sharing one chunk-2 schedule per nonce (overt "
@@ -71,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "degrades the miner to chain 0 and it says so. "
                         "Default %(default)s")
     p.add_argument("--variant", default=None, choices=VARIANTS,
-                   help="cuda-tile: layout of the tile kernel, the same "
+                   help="tile kernel: layout of the tile kernel, the same "
                         "hashes on another schedule: baseline (job words "
                         "read from the card where used), regchain (job "
                         "words as launch parameters), wsplit (regchain in "
@@ -82,25 +119,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "in flight) or vroll-db (vroll over two staged "
                         "groups of nonces). Default baseline")
     p.add_argument("--cgroup", type=int, default=None,
-                   help="cuda-tile: chains per pass over the rounds, 1 <= g "
+                   help="tile kernel: chains per pass over the rounds, 1 <= g "
                         "<= --vshare; default from --variant (1 for "
                         "wsplit/wstage/vroll/vroll-db, k otherwise)")
     p.add_argument("--interleave", type=int, default=None,
-                   help="cuda-tile: nonces in flight per thread (ILP for "
+                   help="tile kernel: nonces in flight per thread (ILP for "
                         "the serial round chain); clamped down to a "
                         "divisor of the effective --inner-tiles (logged "
                         "when it changes), default 1")
     p.add_argument("--sublanes", type=int, default=None,
-                   help="cuda-tile: 128-nonce rows per tile, default 8")
+                   help="tile kernel: 128-nonce rows per tile, default 8")
     p.add_argument("--inner-tiles", type=int, default=None,
-                   help="cuda-tile: tiles per step (a step of sublanes x "
+                   help="tile kernel: tiles per step (a step of sublanes x "
                         "128 x inner-tiles nonces is one (count, min) slot "
                         "per chain), clamped down to fit the batch, "
                         "default 8")
     p.add_argument("--batch-bits", type=int, default=None,
-                   help="log2 of nonces per dispatch, fixed; default: the "
-                        "adaptive scheduler sizes requests online over a "
-                        f"2^{DEFAULT_BATCH_BITS}-nonce dispatch grid")
+                   help="log2 of nonces per device dispatch (a sharded "
+                        "dispatch covers that many on every device), fixed; "
+                        "default: the adaptive scheduler sizes requests "
+                        "online over a dispatch grid of "
+                        f"2^{DEFAULT_BATCH_BITS} nonces per device")
     p.add_argument("--workers", type=int, default=8,
                    help="dispatcher workers (nonce-range split ways)")
     p.add_argument("--stream-depth", type=int, default=2,
@@ -119,29 +158,73 @@ def build_parser() -> argparse.ArgumentParser:
 TILE_OPTIONS = (("variant", "baseline"), ("cgroup", 0), ("interleave", 1),
                 ("sublanes", 8), ("inner_tiles", 8))
 
+#: The backends that run on several devices.
+MULTI_DEVICE_BACKENDS = ("cuda-mesh", "cuda-tile-mesh", "cuda-mesh-native",
+                         "cuda-fanout")
+
+#: The hit-buffer kernel's largest inner step (``CudaHasher``'s default).
+INNER_BITS = 18
+
+
+def _kernel_of(args: argparse.Namespace) -> str:
+    """The scan kernel the options run: ``cuda-tile`` (the tile kernel),
+    ``cuda`` (the hit-buffer kernel) or ``cpu``."""
+    if args.backend == "cuda-mesh-native":
+        return args.mesh_kernel or "cuda"
+    if args.backend == "cuda-fanout":
+        return args.fanout_kernel or "cuda"
+    return {"cuda-tile-mesh": "cuda-tile", "cuda-mesh": "cuda"}.get(
+        args.backend, args.backend)
+
+
+def _refuse(flag: str, val, where: str, backend: str) -> None:
+    raise SystemExit(f"--{flag.replace('_', '-')} {val} applies only to "
+                     f"{where}; --backend {backend} ignores it")
+
 
 def make_hasher(args: argparse.Namespace) -> Hasher:
-    # A run must not be labelled with a geometry that never ran: layout
-    # options that only the tile kernel has are refused elsewhere (an
-    # explicit interleave of 1 describes what runs, and passes).
-    if args.backend != "cuda-tile":
+    # A run must not be labelled with a geometry that never ran: options
+    # of a kernel or backend that does not run are refused (an explicit
+    # interleave of 1 describes what runs, and passes).
+    kernel = _kernel_of(args)
+    if kernel != "cuda-tile":
         for flag, default in TILE_OPTIONS:
             val = getattr(args, flag)
             if val is not None and (flag, val) != ("interleave", 1):
-                raise SystemExit(
-                    f"--{flag.replace('_', '-')} {val} applies only to "
-                    f"--backend cuda-tile; --backend {args.backend} "
-                    "ignores it")
+                _refuse(flag, val, "the tile kernel (--backend cuda-tile, "
+                        "cuda-tile-mesh, or --mesh-kernel/--fanout-kernel "
+                        "cuda-tile)", args.backend)
+    for flag, backend in (("mesh_kernel", "cuda-mesh-native"),
+                          ("fanout_kernel", "cuda-fanout")):
+        val = getattr(args, flag)
+        if val is not None and args.backend != backend:
+            _refuse(flag, val, f"--backend {backend}", args.backend)
+    if args.mesh_devices is not None and (
+            args.backend not in MULTI_DEVICE_BACKENDS):
+        _refuse("mesh_devices", args.mesh_devices,
+                "the multi-device backends", args.backend)
     if args.backend == "cpu":
-        if args.vshare != 1:
-            raise SystemExit(f"--vshare {args.vshare} applies only to the "
-                             "cuda backends; --backend cpu ignores it")
+        for flag, val, default in (("vshare", args.vshare, 1),
+                                   ("unroll", args.unroll, None),
+                                   ("no_spec", args.no_spec, False)):
+            if val != default:
+                _refuse(flag, "" if val is True else val, "the cuda backends",
+                        "cpu")
         return get_hasher("cpu")
+    unroll = 64 if args.unroll is None else args.unroll
+    spec = not args.no_spec
+    if unroll < 1:
+        raise SystemExit("--unroll must be >= 1")
+    if kernel == "cuda" and args.vshare > 1 and not spec:
+        raise SystemExit(
+            f"--vshare > 1 on the hit-buffer kernel (--backend "
+            f"{args.backend}) requires the spec kernel form (drop --no-spec)")
     bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
-    kwargs = {}
-    if args.backend == "cuda-tile":
-        kwargs = {flag: default if getattr(args, flag) is None
-                  else getattr(args, flag) for flag, default in TILE_OPTIONS}
+    kwargs = dict(vshare=args.vshare, unroll=unroll, spec=spec)
+    if kernel == "cuda-tile":
+        kwargs.update({flag: default if getattr(args, flag) is None
+                       else getattr(args, flag)
+                       for flag, default in TILE_OPTIONS})
         if min(kwargs["sublanes"], kwargs["inner_tiles"],
                kwargs["interleave"], args.vshare) < 1:
             raise SystemExit("--sublanes, --inner-tiles, --interleave and "
@@ -149,8 +232,23 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
         if not 0 <= kwargs["cgroup"] <= args.vshare:
             raise SystemExit(
                 f"--cgroup must be between 1 and --vshare ({args.vshare})")
-    return get_hasher(args.backend, batch_size=1 << bits, device=args.device,
-                      vshare=args.vshare, **kwargs)
+    else:
+        kwargs["inner_size"] = 1 << min(bits, INNER_BITS)
+    if args.backend not in MULTI_DEVICE_BACKENDS:
+        return get_hasher(args.backend, batch_size=1 << bits,
+                          device=args.device, **kwargs)
+    if args.device == "cpu":
+        # One shard on the CPU: the command line never names a device
+        # twice.
+        if args.mesh_devices not in (None, 1):
+            raise SystemExit("--device cpu runs one device; --mesh-devices "
+                             f"{args.mesh_devices} needs as many cards")
+        kwargs["devices"] = ["cpu"]
+    else:
+        kwargs["n_devices"] = args.mesh_devices
+    if args.backend in ("cuda-mesh-native", "cuda-fanout"):
+        kwargs["kernel"] = kernel
+    return get_hasher(args.backend, batch_per_device=1 << bits, **kwargs)
 
 
 def make_scheduler(args: argparse.Namespace, hasher: Hasher
@@ -243,7 +341,7 @@ def make_miner(args: argparse.Namespace) -> "StratumMiner":
     return StratumMiner(
         host, port, args.user, args.password, hasher=hasher,
         n_workers=args.workers,
-        batch_size=getattr(hasher, "batch_size", 1 << DEFAULT_BATCH_BITS),
+        batch_size=dispatch_granularity(hasher, 1 << DEFAULT_BATCH_BITS),
         stream_depth=args.stream_depth,
         scheduler=make_scheduler(args, hasher),
     )

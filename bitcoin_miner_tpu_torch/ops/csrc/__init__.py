@@ -2,10 +2,11 @@
 
 Each library is one ``.cu`` file built with ``nvcc`` for ``sm_90a`` under a
 set of defines: the number K of version-rolled chains (``-DVSHARE=K``,
-1 ≤ K ≤ 8) and, for the tile kernel's layouts, ``-DVARIANT``,
-``-DCGROUP`` and ``-DINTERLEAVE``. The baseline libraries (``scan_tile``,
-``scan_tile_k2``, …, ``scan_hitbuf``, …) are known up front
-(:data:`SOURCES`); a layout's library is registered by
+1 ≤ K ≤ 8), for the tile kernel's layouts ``-DVARIANT``, ``-DCGROUP`` and
+``-DINTERLEAVE``, and for a compile form ``-DUNROLL`` or ``-DSPEC``
+(:func:`form_defines`). The baseline libraries (``scan_tile``,
+``scan_tile_k2``, …, ``scan_hitbuf``, …, ``shard_min``) are known up front
+(:data:`SOURCES`); a layout's or a form's library is registered by
 :func:`register` when it is first asked for. Each builds into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
 root of the checkout, on first use; the library name carries a digest of
@@ -51,13 +52,36 @@ def kernel_name(kernel: str, vshare: int) -> str:
 #: library name → (source file, defines). Each library is built by one nvcc
 #: process with -D<name>=<value> for each define.
 SOURCES: Dict[str, Tuple[str, Tuple[Tuple[str, int], ...]]] = {
-    kernel_name(kernel, k): (source, (("VSHARE", k),))
-    for kernel, source in (("scan_tile", "scan_tile.cu"),
-                           ("scan_hitbuf", "scan_hitbuf.cu"))
-    for k in range(1, MAX_VSHARE + 1)
+    **{kernel_name(kernel, k): (source, (("VSHARE", k),))
+       for kernel, source in (("scan_tile", "scan_tile.cu"),
+                              ("scan_hitbuf", "scan_hitbuf.cu"))
+       for k in range(1, MAX_VSHARE + 1)},
+    "shard_min": ("shard_min.cu", ()),
 }
 #: The libraries :func:`build` builds when given no names.
 BASELINE = tuple(SOURCES)
+
+
+def form_defines(unroll: int, spec: bool) -> Dict[str, int]:
+    """The defines of a compile form of the scan kernels, the counterpart
+    of the JAX kernels' ``unroll`` and ``spec``: none for the default
+    (rounds fully unrolled, padding and IV words folded), ``UNROLL`` for a
+    rolled round loop (``unroll`` < 64; as in the JAX kernels, spec then
+    does not apply), ``SPEC=0`` for the unrolled form without folding."""
+    if not isinstance(unroll, int) or unroll < 1:
+        raise ValueError(f"unroll must be an int >= 1, got {unroll!r}")
+    if unroll < 64:
+        return {"UNROLL": unroll}
+    return {} if spec else {"SPEC": 0}
+
+
+def form_suffix(unroll: int, spec: bool) -> str:
+    """The library-name suffix of a compile form: ``""``, ``"_u8"``, …,
+    ``"_nospec"``."""
+    defines = form_defines(unroll, spec)
+    if "UNROLL" in defines:
+        return f"_u{defines['UNROLL']}"
+    return "_nospec" if defines else ""
 
 
 def register(name: str, source: str, **defines: int) -> str:
@@ -89,6 +113,10 @@ ENTRY_POINTS = {
                                _I, _I, _P],
         # blk_hits, blk_counts, n_blocks, max_hits, hits, count, stream
         "hitbuf_compact_launch": [_P, _P, _I, _I, _P, _P, _P],
+    },
+    "shard_min.cu": {
+        # x, n, out, stream
+        "shard_min_launch": [_P, _ULL, _P, _P],
     },
 }
 

@@ -3,7 +3,9 @@
 //
 // Replaces the XLA scans bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch
 // (K=1) and ::_scan_batch_vshare (K>1), exact and word7 modes. Built once
-// per K with -DVSHARE=K (1 <= K <= 8). Inputs: midstates[K][8] (row 0 the
+// per K with -DVSHARE=K (1 <= K <= 8), and per compile form with -DUNROLL=U
+// or -DSPEC=0 (sha256d.cuh; at K > 1 only rolled forms: the reference's
+// k-chain scan has no unfolded form). Inputs: midstates[K][8] (row 0 the
 // caller's own header), tail3(3), limbs(8), nonce_base and limit, each a
 // uint32 device buffer. Outputs per chain c: hits[c][max_hits] — the FIRST
 // max_hits hit nonces in ascending offset order, unused slots 0xFFFFFFFF —

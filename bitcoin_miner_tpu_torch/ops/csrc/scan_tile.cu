@@ -11,6 +11,8 @@
 //   -DVARIANT=v       index into sha256_tile.VARIANTS (default 0, baseline)
 //   -DCGROUP=G        chains per pass over the rounds (default K)
 //   -DINTERLEAVE=I    nonces in flight per thread (default 1)
+//   -DUNROLL=U, -DSPEC=0  a compile form (sha256d.cuh): rolled round loops,
+//                     or no partial evaluation of the padding and IV words
 // Inputs: the job block of 16K+13 words, midstate x K | round3_state x K |
 // tail3 | limbs | nonce_base | limit (29 words at K=1), on the card for
 // the baseline, as launch parameters (copied from host memory) for the

@@ -15,12 +15,39 @@
 // are held against. Rounds are unrolled at compile time, so the 16-word
 // schedule window and the round constants are register and constant-bank
 // operands, and every rotate is one funnel shift.
+//
+// Compile forms, the counterparts of the JAX kernels' `unroll` and `spec`
+// (bitcoin_miner_tpu/ops/sha256_pallas.py:210-224, :247, :296-333):
+//   -DUNROLL=U  U < 64: the round loops stay rolled, unrolled U times (the
+//               lax.scan round body). The 16-word schedule window rotates
+//               through registers (advance) rather than being indexed as
+//               w[i & 15], which would push it into local memory, and each
+//               round reads K[i] from constant memory at an index that is
+//               the same in every lane of a warp.
+//   -DSPEC=0    no partial evaluation: the padding, length and IV words are
+//               read at run time from constant memory (kRunWords) instead
+//               of being literals, so nothing that depends on them folds.
+// As in the JAX kernels, spec applies only to the unrolled form: a rolled
+// form reads those words at run time too. Every form computes the same
+// function.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef UNROLL
+#define UNROLL 64
+#endif
+#ifndef SPEC
+#define SPEC 1
+#endif
+
 namespace sha256d {
+
+constexpr int kUnroll = UNROLL;
+constexpr bool kRolled = UNROLL < 64;
+constexpr bool kSpec = SPEC && !kRolled;
+static_assert(UNROLL >= 1, "UNROLL >= 1");
 
 __constant__ uint32_t kK[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu,
@@ -48,6 +75,35 @@ __device__ __forceinline__ constexpr uint32_t iv(int i) {
          : i == 5 ? 0x9B05688Cu
          : i == 6 ? 0x1F83D9ABu
                   : 0x5BE0CD19u;
+}
+
+// The words a spec form folds, for the forms that read them at run time:
+// [0, 16) chunk 2's message words by index (4..15 used: the padding and the
+// 640-bit length), [16, 32) the digest's message words by index (8..15
+// used: the padding and 256), [32, 40) the IV.
+__constant__ uint32_t kRunWords[40] = {
+    0u, 0u, 0u, 0u, 0x80000000u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 640u,
+    0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u, 0x80000000u, 0u, 0u, 0u, 0u, 0u, 0u, 256u,
+    0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au, 0x510E527Fu,
+    0x9B05688Cu, 0x1F83D9ABu, 0x5BE0CD19u,
+};
+
+// Chunk 2's message word i (4 <= i < 16) of an 80-byte header.
+__device__ __forceinline__ uint32_t chunk2_word(int i) {
+  if constexpr (kSpec) return i == 4 ? 0x80000000u : i == 15 ? 640u : 0u;
+  return kRunWords[i & 15];
+}
+
+// The digest's message word i (8 <= i < 16) of a 32-byte message.
+__device__ __forceinline__ uint32_t digest_word(int i) {
+  if constexpr (kSpec) return i == 8 ? 0x80000000u : i == 15 ? 256u : 0u;
+  return kRunWords[16 + (i & 15)];
+}
+
+// IV word i, a literal in the spec form.
+__device__ __forceinline__ uint32_t iv_word(int i) {
+  if constexpr (kSpec) return iv(i);
+  return kRunWords[32 + (i & 7)];
 }
 
 // Word offsets of the per-job constants of K chains, the head of the tile
@@ -119,6 +175,30 @@ __device__ __forceinline__ void rounds(uint32_t (&s)[8], uint32_t (&w)[16]) {
   }
 }
 
+// Rolled forms: `w` holds message words w[i..i+15]; shift it to
+// w[i+1..i+16], expanding w[i+16] when `expand` (i + 16 < 64).
+__device__ __forceinline__ void advance(uint32_t (&w)[16], bool expand) {
+  const uint32_t next =
+      expand ? w[0] + small_sigma0(w[1]) + w[9] + small_sigma1(w[14]) : 0u;
+#pragma unroll
+  for (int j = 0; j < 15; ++j) w[j] = w[j + 1];
+  w[15] = next;
+}
+
+// rounds<START, END> in the rolled form, from a window holding w[0..15]:
+// the window is first advanced to w[START..], then each round reads w[0].
+template <int START, int END>
+__device__ __forceinline__ void rounds_rolled(uint32_t (&s)[8],
+                                              uint32_t (&w)[16]) {
+#pragma unroll
+  for (int i = 0; i < START; ++i) advance(w, true);
+#pragma unroll(kUnroll)
+  for (int i = START; i < END; ++i) {
+    sha_round(s, i, w[0]);
+    advance(w, i + 16 < 64);
+  }
+}
+
 // Registers after rounds 0-2 of chunk 2 from a midstate and the header
 // tail: the round-3 state that the tile kernel's job block carries
 // precomputed, and that scan_hitbuf.cu derives once per block.
@@ -159,25 +239,41 @@ __device__ __forceinline__ void window(const Job& job, uint32_t nonce,
   w[1] = job[L::kTail + 1];
   w[2] = job[L::kTail + 2];
   w[3] = bswap32(nonce);
-  w[4] = 0x80000000u;
 #pragma unroll
-  for (int i = 5; i < 15; ++i) w[i] = 0u;
-  w[15] = 640u;  // 80 bytes
+  for (int i = 4; i < 16; ++i) w[i] = chunk2_word(i);
 }
 
 // Rounds [START, END) of the chunk-2 compressions of I nonces, nonce v on
 // its own window w[v] and on G register states s[v][0..G): each schedule
-// word is expanded once per nonce and fed to all G states.
+// word is expanded once per nonce and fed to all G states. In a rolled
+// form each window rotates as in rounds_rolled.
 template <int G, int I, int START, int END>
 __device__ __forceinline__ void rounds_shared(uint32_t (&s)[I][G][8],
                                               uint32_t (&w)[I][16]) {
+  if constexpr (kRolled) {
 #pragma unroll
-  for (int i = START; i < END; ++i) {
+    for (int i = 0; i < START; ++i) {
 #pragma unroll
-    for (int v = 0; v < I; ++v) {
-      if (i >= 16) w[v][i & 15] = schedule(w[v], i);
+      for (int v = 0; v < I; ++v) advance(w[v], true);
+    }
+#pragma unroll(kUnroll)
+    for (int i = START; i < END; ++i) {
 #pragma unroll
-      for (int g = 0; g < G; ++g) sha_round(s[v][g], i, w[v][i & 15]);
+      for (int v = 0; v < I; ++v) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) sha_round(s[v][g], i, w[v][0]);
+        advance(w[v], i + 16 < 64);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = START; i < END; ++i) {
+#pragma unroll
+      for (int v = 0; v < I; ++v) {
+        if (i >= 16) w[v][i & 15] = schedule(w[v], i);
+#pragma unroll
+        for (int g = 0; g < G; ++g) sha_round(s[v][g], i, w[v][i & 15]);
+      }
     }
   }
 }
@@ -194,23 +290,32 @@ __device__ __forceinline__ bool second_meets(const Job& job, int c,
   uint32_t w2[16];
 #pragma unroll
   for (int i = 0; i < 8; ++i) w2[i] = s[i] + job[L::kMid + 8 * c + i];
-  w2[8] = 0x80000000u;
 #pragma unroll
-  for (int i = 9; i < 15; ++i) w2[i] = 0u;
-  w2[15] = 256u;  // 32 bytes
+  for (int i = 8; i < 16; ++i) w2[i] = digest_word(i);
   uint32_t t[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) t[i] = iv(i);
+  for (int i = 0; i < 8; ++i) t[i] = iv_word(i);
   if (WORD7) {
-    rounds<0, 60>(t, w2);
-    const uint32_t t1 = t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) +
-                        kK[60] + schedule(w2, 60);
-    return bswap32(iv(7) + t[3] + t1) <= job[L::kLimbs];
+    uint32_t w60;
+    if constexpr (kRolled) {
+      rounds_rolled<0, 60>(t, w2);
+      w60 = w2[0];
+    } else {
+      rounds<0, 60>(t, w2);
+      w60 = schedule(w2, 60);
+    }
+    const uint32_t t1 =
+        t[7] + big_sigma1(t[4]) + ch(t[4], t[5], t[6]) + kK[60] + w60;
+    return bswap32(iv_word(7) + t[3] + t1) <= job[L::kLimbs];
   }
-  rounds<0, 64>(t, w2);
+  if constexpr (kRolled) {
+    rounds_rolled<0, 64>(t, w2);
+  } else {
+    rounds<0, 64>(t, w2);
+  }
   uint32_t h2[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) h2[i] = t[i] + iv(i);
+  for (int i = 0; i < 8; ++i) h2[i] = t[i] + iv_word(i);
   return meets_target(h2, job, L::kLimbs);
 }
 
@@ -304,13 +409,15 @@ __device__ __forceinline__ void staged_pass(const Job& job, uint32_t nonce,
     for (int i = 0; i < 8; ++i) s[g][i] = job[L::kState3 + 8 * (C0 + g) + i];
   }
   const uint32_t w3 = bswap32(nonce);
+#if UNROLL >= 64
 #pragma unroll
+#else
+#pragma unroll(kUnroll)
+#endif
   for (int i = 3; i < 64; ++i) {
-    const uint32_t wi = i >= 16  ? col[(i - 16) * T]
+    const uint32_t wi = i >= 16 ? col[(i - 16) * T]
                         : i == 3 ? w3
-                        : i == 4 ? 0x80000000u
-                        : i == 15 ? 640u
-                                  : 0u;
+                                 : chunk2_word(i);
 #pragma unroll
     for (int g = 0; g < N; ++g) sha_round(s[g], i, wi);
   }

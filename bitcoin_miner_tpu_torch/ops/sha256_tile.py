@@ -121,20 +121,28 @@ def check_plane(variant: str, interleave: int) -> None:
 
 
 def tile_library(vshare: int, variant: str = "baseline", cgroup: int = 0,
-                 interleave: int = 1) -> str:
+                 interleave: int = 1, unroll: int = 64,
+                 spec: bool = True) -> str:
     """The name of the library (and launch counter) of a layout at k =
-    ``vshare`` chains, registered with its defines: ``scan_tile``,
-    ``scan_tile_k2``, … for the baseline's one pass and one nonce in
-    flight, else e.g. ``scan_tile_vroll_k2_g1_i1``."""
+    ``vshare`` chains in a compile form (``csrc.form_defines``), registered
+    with its defines: ``scan_tile``, ``scan_tile_k2``, … for the baseline's
+    one pass and one nonce in flight, else e.g.
+    ``scan_tile_vroll_k2_g1_i1``; a form other than the default adds
+    ``_u8``, … or ``_nospec``."""
     base = csrc.kernel_name("scan_tile", vshare)  # checks 1 <= k <= 8
     g = _cgroup_size(cgroup, variant, vshare)
+    form = csrc.form_defines(unroll, spec)
+    suffix = csrc.form_suffix(unroll, spec)
     if variant == "baseline" and g == vshare and interleave == 1:
-        return base
+        if not form:
+            return base
+        return csrc.register(base + suffix, "scan_tile.cu", VSHARE=vshare,
+                             **form)
     name = (f"scan_tile_{variant.replace('-', '_')}_k{vshare}_g{g}"
-            f"_i{interleave}")
+            f"_i{interleave}{suffix}")
     return csrc.register(name, "scan_tile.cu", VSHARE=vshare,
                          VARIANT=VARIANTS.index(variant), CGROUP=g,
-                         INTERLEAVE=interleave)
+                         INTERLEAVE=interleave, **form)
 
 
 def job_words(header76: bytes, target: int,
@@ -220,12 +228,16 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
               word7: bool = False, vshare: int = 1,
               variant: str = "baseline", cgroup: int = 0,
               interleave: int = 1,
-              host_words: Optional[np.ndarray] = None
+              host_words: Optional[np.ndarray] = None,
+              unroll: int = 64, spec: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tile scan (:func:`scan_tile_plain`'s contract) on the job
     block's device, in the layout ``variant`` with chain passes of
     ``cgroup`` (0: the variant's default) and ``interleave`` nonces in
-    flight per thread. ``block`` is a multiple of 128 (128-nonce rows);
+    flight per thread, in the compile form ``unroll``/``spec``
+    (``make_pallas_scan_fn``'s: rolled round loops below 64, spec only at
+    64; every form computes the same function). ``block`` is a multiple of
+    128 (128-nonce rows);
     the layout is checked as ``make_pallas_scan_fn`` checks it, with
     ``block / 128`` rows as its tiles. A CPU block takes the plain version;
     a CUDA block (uint32, 16k+13 words for ``vshare`` = k chains, 1 ≤ k ≤
@@ -237,17 +249,18 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
 
     Replaces the Pallas kernel ``bitcoin_miner_tpu/ops/sha256_pallas.py::
     _scan_tile_kernel``. Bound: 32-bit integer operations
-    (``sha256_torch.bound_ms`` with ``vshare=k`` over the nonces below
-    ``limit``); the outputs are 8k bytes per step. Design in
-    ``csrc/scan_tile.cu``."""
+    (``sha256_torch.bound_ms`` with ``vshare=k`` and the form's ``spec``
+    over the nonces below ``limit``); the outputs are 8k bytes per step.
+    Design in ``csrc/scan_tile.cu``."""
     if block <= 0 or block % LANES:
         raise ValueError(f"block must be a positive multiple of {LANES}")
     check_layout(vshare, variant, cgroup, interleave, block // LANES)
+    csrc.form_defines(unroll, spec)  # checks unroll
     device = job_block.device
     if device.type == "cpu":
         return scan_tile_plain(job_block, n_steps=n_steps, block=block,
                                word7=word7, vshare=vshare)
-    name = tile_library(vshare, variant, cgroup, interleave)
+    name = tile_library(vshare, variant, cgroup, interleave, unroll, spec)
     n_words = job_block_words(vshare)
     csrc.check_tensor(job_block, device, torch.uint32, (n_words,))
     if not 0 < n_steps * block <= 1 << 32:

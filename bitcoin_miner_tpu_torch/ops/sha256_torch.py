@@ -353,7 +353,8 @@ class OpTally:
         return regs, w
 
 
-def ops_per_nonce(word7: bool, vshare: int = 1, passes: int = 1) -> OpCount:
+def ops_per_nonce(word7: bool, vshare: int = 1, passes: int = 1,
+                  spec: bool = True) -> OpCount:
     """The operations each nonce needs after the round 0-2 precompute
     (:class:`OpTally`'s rule), for the path of :func:`_meets` over
     ``vshare`` chains: the nonce's byte swap once, the chunk-2 schedule
@@ -362,27 +363,35 @@ def ops_per_nonce(word7: bool, vshare: int = 1, passes: int = 1) -> OpCount:
     chunk-2 rounds, feedforward, second compression and compare once per
     chain. The target compare adds, per digest limb read, a byte swap and
     two compare-and-combine operations: one limb in word7 mode, eight
-    otherwise."""
+    otherwise. With ``spec`` False (a form without partial evaluation)
+    nothing folds: the job words, padding, length and IV count as words
+    of the nonce, so every operation on them is counted per nonce."""
     if not 1 <= passes <= vshare:
         raise ValueError(f"passes must be in [1, vshare={vshare}]")
+    job = UNIFORM if spec else VARYING
+
+    def words(consts: Sequence[int]) -> List:
+        return list(consts) if spec else [VARYING] * len(consts)
+
     tally = OpTally()
     nonce = tally.fn(1, _bswap32, VARYING)
-    w1 = [UNIFORM] * 3 + [nonce] + _CHUNK2_PAD
+    w1 = [job] * 3 + [nonce] + words(_CHUNK2_PAD)
+    iv = words(SHA256_IV)
     chains = []
     for size in [vshare - passes + 1] + [1] * (passes - 1):
-        regs, _ = tally.rounds_shared([(UNIFORM,) * 8] * size, w1, 3, 64)
+        regs, _ = tally.rounds_shared([(job,) * 8] * size, w1, 3, 64)
         chains += regs
     compare = 0
     for regs in chains:
-        w2 = [tally.add(UNIFORM, r) for r in regs] + _W2_TAIL  # feedforward
+        w2 = [tally.add(job, r) for r in regs] + words(_W2_TAIL)  # feedforward
         if word7:
-            regs, w = tally.rounds(SHA256_IV, w2, 0, 60)
-            tally.add(SHA256_IV[7], regs[3],
+            regs, w = tally.rounds(iv, w2, 0, 60)
+            tally.add(iv[7], regs[3],
                       tally.t1(regs, 60, tally.schedule_word(w, 60)))
             compare += 3
         else:
-            regs, _ = tally.rounds(SHA256_IV, w2, 0, 64)
-            for s, r in zip(SHA256_IV, regs):
+            regs, _ = tally.rounds(iv, w2, 0, 64)
+            for s, r in zip(iv, regs):
                 tally.add(s, r)
             compare += 8 * 3
     return OpCount(tally.logic + compare, tally.adds)
@@ -396,15 +405,16 @@ DISPATCH_LANES_PER_SM = 128
 
 
 def bound_ms(nonces: int, word7: bool, sms: int, sm_clock_hz: float,
-             vshare: int = 1, passes: int = 1) -> float:
+             vshare: int = 1, passes: int = 1, spec: bool = True) -> float:
     """The least time a card with ``sms`` SMs at ``sm_clock_hz`` could take
     to hash ``nonces`` nonces over ``vshare`` chains (``nonces × vshare``
     hashes), expanding the schedule once per pass over the chains
-    (``passes``; 1 is the least work): per nonce and SM, the logic
+    (``passes``; 1 is the least work), with the operations of the form
+    ``spec`` (:func:`ops_per_nonce`): per nonce and SM, the logic
     operations need ``logic / 64`` clocks on the integer pipe and all
     operations ``total / 128`` clocks of instruction dispatch, whichever is
     larger."""
-    ops = ops_per_nonce(word7, vshare, passes)
+    ops = ops_per_nonce(word7, vshare, passes, spec)
     clocks = max(ops.logic / INT_LANES_PER_SM,
                  ops.total / DISPATCH_LANES_PER_SM)
     return nonces * clocks / (sms * sm_clock_hz) * 1e3
@@ -425,6 +435,16 @@ def _device_of(x) -> torch.device:
 def _u32(values: torch.Tensor, device: torch.device) -> torch.Tensor:
     # int64 → uint32 on the CPU, where this torch supports the conversion.
     return values.cpu().to(torch.uint32).to(device)
+
+
+def upload_words(words: Sequence[int], device: torch.device) -> torch.Tensor:
+    """uint32 words on ``device``: from pinned memory without blocking on
+    the card (the caching host allocator keeps the pinned block until the
+    copy has run), on the device's current stream."""
+    host = torch.from_numpy(np.asarray(words, dtype=np.uint32))
+    if device.type == "cpu":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
@@ -481,14 +501,41 @@ def scan_batch_plain(midstate, tail3, target_limbs, nonce_base, limit, *,
     return bufs[0], counts[0]
 
 
-#: Launches of ``csrc/scan_hitbuf.cu::scan_hitbuf_kernel`` (made by
-#: :func:`scan_batch_vshare` and :func:`scan_batch`) and of its compaction
-#: ``hitbuf_compact_kernel`` (made by :func:`hitbuf_compact`), by number of
-#: chains; the one-chain counters also stand alone.
+#: Launches of ``csrc/scan_hitbuf.cu::scan_hitbuf_kernel`` in its default
+#: form (made by :func:`scan_batch_vshare` and :func:`scan_batch`) and of
+#: its compaction ``hitbuf_compact_kernel`` (made by
+#: :func:`hitbuf_compact`), by number of chains; the one-chain counters also
+#: stand alone. Another compile form counts under its library's name
+#: (:func:`hitbuf_library`).
 SCAN_HITBUF_K = csrc.launch_counters("scan_hitbuf")
 HITBUF_COMPACT_K = csrc.launch_counters("hitbuf_compact")
 SCAN_HITBUF = SCAN_HITBUF_K[1]
 HITBUF_COMPACT = HITBUF_COMPACT_K[1]
+
+#: ``ShardedTpuHasher``'s refusal, for the same reason: the reference's
+#: k-chain scan always partially evaluates its shared window.
+HITBUF_SPEC_ONLY = ("vshare > 1 on the hit-buffer kernel requires the "
+                    "partial-evaluating (spec) kernel form")
+
+
+def _check_hitbuf_form(vshare: int, unroll: int, spec: bool) -> None:
+    csrc.form_defines(unroll, spec)  # checks unroll
+    if vshare > 1 and not spec:
+        raise ValueError(HITBUF_SPEC_ONLY)
+
+
+def hitbuf_library(vshare: int, unroll: int = 64, spec: bool = True) -> str:
+    """The library (and launch counter) of the hit-buffer scan of
+    ``vshare`` = k chains in a compile form: ``scan_hitbuf``,
+    ``scan_hitbuf_k2``, …, with ``_u8``, … or ``_nospec`` for another form
+    (``csrc.form_defines``). At k > 1 only spec forms exist."""
+    base = csrc.kernel_name("scan_hitbuf", vshare)  # checks 1 <= k <= 8
+    _check_hitbuf_form(vshare, unroll, spec)
+    form = csrc.form_defines(unroll, spec)
+    if not form:
+        return base
+    return csrc.register(base + csrc.form_suffix(unroll, spec),
+                         "scan_hitbuf.cu", VSHARE=vshare, **form)
 
 _THREADS = 256  # threads per block of scan_hitbuf_kernel
 _WAVE_BLOCKS = 528  # four blocks of 256 threads on each of 132 SMs
@@ -505,13 +552,15 @@ def hitbuf_geometry(capacity: int) -> Tuple[int, int]:
 
 def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
                       inner_size: int, n_steps: int, max_hits: int,
-                      word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                      word7: bool = False, unroll: int = 64,
+                      spec: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k-chain hit-buffer scan (:func:`scan_batch_vshare_plain`'s
     contract) on the tensors' device. CPU tensors take the plain version;
     CUDA tensors (uint32: midstates (k, 8) with 1 ≤ k ≤ 8, tail3 (3,),
     limbs (8,), 0-d base and limit) launch ``scan_hitbuf_kernel`` built
-    for k chains, then :func:`hitbuf_compact`, on the current stream,
-    without synchronising.
+    for k chains in the compile form ``unroll``/``spec``
+    (:func:`hitbuf_library`; every form computes the same function), then
+    :func:`hitbuf_compact`, on the current stream, without synchronising.
 
     Replaces the XLA scans ``bitcoin_miner_tpu/ops/sha256_jax.py::
     _scan_batch_vshare`` (and ``_scan_batch`` at k=1; no Pallas source).
@@ -520,6 +569,7 @@ def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
     hundred bytes per chain. Design in ``csrc/scan_hitbuf.cu``."""
     device = _device_of(midstates)
     if device.type == "cpu":
+        _check_hitbuf_form(len(_rows(midstates)), unroll, spec)
         return scan_batch_vshare_plain(
             midstates, tail3, target_limbs, nonce_base, limit,
             inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
@@ -528,7 +578,7 @@ def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
     args = (midstates, tail3, target_limbs, nonce_base, limit)
     for t, shape in zip(args, ((k, 8), (3,), (8,), (), ())):
         csrc.check_tensor(t, device, torch.uint32, shape)
-    name = csrc.kernel_name("scan_hitbuf", k)  # checks 1 <= k <= 8
+    name = hitbuf_library(k, unroll, spec)
     if not 0 < max_hits <= 1 << 16:
         raise ValueError(f"max_hits must be in [1, 65536], got {max_hits}")
     capacity = n_steps * inner_size
@@ -545,20 +595,23 @@ def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
             *(t.data_ptr() for t in args), blk_hits.data_ptr(),
             blk_counts.data_ptr(), capacity, max_hits, iters, n_blocks,
             int(word7), stream), name)
-        SCAN_HITBUF_K[k].add()
+        csrc.launch_counter(name).add()
     return hitbuf_compact(blk_hits, blk_counts, max_hits)
 
 
 def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
                inner_size: int, n_steps: int, max_hits: int,
-               word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+               word7: bool = False, unroll: int = 64,
+               spec: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one-chain hit-buffer scan (:func:`scan_batch_plain`'s contract)
     on the tensors' device: CPU tensors take the plain version, CUDA
-    tensors (midstate (8,)) :func:`scan_batch_vshare`'s kernels at k=1.
+    tensors (midstate (8,)) :func:`scan_batch_vshare`'s kernels at k=1, in
+    the compile form ``unroll``/``spec``.
 
     Replaces the XLA scan ``bitcoin_miner_tpu/ops/sha256_jax.py::
     _scan_batch``."""
     if _device_of(midstate).type == "cpu":
+        _check_hitbuf_form(1, unroll, spec)
         return scan_batch_plain(
             midstate, tail3, target_limbs, nonce_base, limit,
             inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
@@ -567,7 +620,7 @@ def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
     bufs, counts = scan_batch_vshare(
         midstate.view(1, 8), tail3, target_limbs, nonce_base, limit,
         inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
-        word7=word7)
+        word7=word7, unroll=unroll, spec=spec)
     return bufs[0], counts[0]
 
 

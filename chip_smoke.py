@@ -42,11 +42,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and at ``--vshare 2``, each finding and verifying 2083236893 and, at
    K=2, the sibling hit the baseline finds; mines the ``--vshare 2
    --variant vroll`` session and its degraded twin as in 6;
-8. times each kernel with CUDA events beside its plain version and its
-   bound: the tile scan in every layout and K it drives.
+8. holds ``shard_min`` against its plain version, and each compile form
+   (``--unroll`` 8, 16, 32 and ``--no-spec``) of the tile kernel at K = 1,
+   2 and of the hit-buffer kernel at K = 1 against the plain scans of 2;
+   sweeps 2^28 genesis nonces through ``cli.bench`` in each form;
+9. shards: over every card when there are two or more, else over the one
+   card named four times (printed first). A 4-shard ``ShardedScan`` (tile
+   at K = 1, 2; hit buffer) against one device's scan of the same 2^26
+   range, whole and ending inside shard 1; the genesis sweep of all 2^32
+   nonces through ``cuda-tile-mesh`` at 2^24 nonces per shard, K = 1 and
+   ``--vshare 2`` (the solve and the sibling hit), and through
+   ``cuda-fanout``; a Stratum session on ``cuda-mesh-native --mesh-kernel
+   cuda-tile --workers 4``; the mesh-native degradation ladder
+   (quarantine → fan-out → rebuild → restore) with parity at each rung;
+10. times each kernel with CUDA events beside its plain version and its
+   bound: the tile scan in every layout, form and K it drives, and
+   ``shard_min``.
 
-Phases 3 to 7 are the main path: the launch counts are set to 0 just
-before each and read just after, and each kernel must have launched.
+With ``--mesh-only`` it builds the baseline libraries and runs the
+single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
+(on a machine with several cards, where the shards are the cards).
+
+Phases 3 to 7 and 9's sweeps, session and ladder are the main path: the
+launch counts are set to 0 just before each and read just after, and each
+kernel must have launched.
 Every phase prints a JSON line; the kernel table and the card follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
@@ -67,12 +86,17 @@ import traceback
 
 GENESIS_NONCE = 2083236893
 DISPATCH = 1 << 24
+#: 2^24-nonce scans queued ahead of a timed run of launches (~2.4 ms each).
+BLOCKER_SCANS = 8
 SESSION_WINDOW_S = 5.0  # the Stratum sessions' measured window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SWEEP_MHS_PR2 = 6823.0  # one-chain genesis sweep, H100 80GB HBM3 at 700 W
 VERSION_MASK = 0x1FFFE000  # the full BIP 310 mask the vshare pool grants
 SIBLING_HIT = (0x00002001, 2209238384)  # the genesis sibling at --vshare 2
 SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock: 32 banks x 4 B
+#: The compile forms driven: (unroll, spec); below 64 spec does not apply.
+FORMS = ((8, True), (16, True), (32, True), (64, False))
+SHARDS_ON_ONE_CARD = 4
 
 
 def emit(obj: dict) -> None:
@@ -95,8 +119,8 @@ def kernel_of(mangled: str) -> tuple:
     """(kernel, mode) of a mangled kernel name: the ``..._kernel`` function
     and word7/exact from its ``bool WORD7`` template argument."""
     kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
-                       r"|scan_hitbuf_kernel|hitbuf_compact_kernel)",
-                       mangled).group(1)
+                       r"|scan_hitbuf_kernel|hitbuf_compact_kernel"
+                       r"|shard_min_kernel)", mangled).group(1)
     mode = re.search(r"Lb([01])E", mangled)
     return kernel, (("word7" if mode.group(1) == "1" else "exact")
                     if mode else None)
@@ -211,6 +235,13 @@ class Smoke:
         self.seen: set = set()  # kernels launched in any phase
         self.kernels: dict = {}
         self.plain: dict = {}  # (k, case) -> the plain tile scan's outputs
+        self.plain_hitbuf: dict = {}  # case -> the plain hit-buffer scan's
+        self.sweep_mhs: dict = {}  # phase -> its sweep rate
+        n = torch.cuda.device_count()
+        #: the shards of the multi-device phases: every card, or one card
+        #: named SHARDS_ON_ONE_CARD times.
+        self.shards = tuple(torch.device("cuda", i) for i in range(n)) if (
+            n >= 2) else (self.dev,) * SHARDS_ON_ONE_CARD
 
     # -------------------------------------------------------------- helpers
     def phase(self, name, fn) -> None:
@@ -277,20 +308,27 @@ class Smoke:
         return err
 
     def time_ms(self, fn, reps: int) -> float:
-        """Mean device time of ``fn``'s launches with CUDA events. A 2^24
-        tile scan queued first keeps the card busy while the host queues
-        the timed launches, so small kernels run back to back."""
+        """Mean device time of ``fn``'s launches run back to back, with
+        CUDA events. 2^24 tile scans queued first (~20 ms of work) keep the
+        card busy while the host queues the timed launches; unless they
+        are still running when the last launch is queued, the events would
+        time the host's enqueue rate, and the run fails."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         blocker = self.job(bytes(76), 0, 0, DISPATCH)
-        self.pkg.scan_tile(blocker, n_steps=DISPATCH // 8192, block=8192)
+        for _ in range(BLOCKER_SCANS):
+            self.pkg.scan_tile(blocker, n_steps=DISPATCH // 8192, block=8192)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
             fn()
         end.record()
+        if start.query():
+            raise AssertionError(
+                f"the card finished the blocking scans before the host had "
+                f"queued {reps} timed launches: no device time")
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
@@ -304,7 +342,7 @@ class Smoke:
         return (time.perf_counter() - t0) * 1e3
 
 
-def run(torch, pkg) -> int:
+def run(torch, pkg, mesh_only: bool = False) -> int:
     s = Smoke(torch, pkg)
     name_power = nvidia_smi("name,power.limit")
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
@@ -315,9 +353,17 @@ def run(torch, pkg) -> int:
     ptxas_of: dict = {}  # (library, mode) -> its ptxas row
     occupancy_of: dict = {}  # library -> mode -> launch shape
 
-    def bound(nonces, word7, k=1, passes=1):
+    def bound(nonces, word7, k=1, passes=1, spec=True):
         return pkg.bound_ms(nonces, word7, sms, sm_clock_mhz * 1e6, vshare=k,
-                            passes=passes)
+                            passes=passes, spec=spec)
+
+    def form_spec(unroll, spec):
+        """Whether a form partially evaluates: only unrolled (64) ones."""
+        return spec and unroll >= 64
+
+    form_tiles = {(k, u, sp): tile.tile_library(k, unroll=u, spec=sp)
+                  for k in (1, 2) for u, sp in FORMS}
+    form_hitbufs = {(u, sp): pkg.hitbuf_library(1, u, sp) for u, sp in FORMS}
     genesis76 = bytes.fromhex(pkg.GENESIS_HEADER_HEX)[:76]
     genesis_version = int.from_bytes(genesis76[:4], "little")
     diff1 = pkg.nbits_to_target(0x1D00FFFF)
@@ -328,7 +374,13 @@ def run(torch, pkg) -> int:
 
     def device_and_build():
         t0 = time.perf_counter()
-        names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts)]
+        if mesh_only:
+            logs = pkg.csrc.build(list(pkg.csrc.BASELINE))
+            return {"card": name_power, "cards": torch.cuda.device_count(),
+                    "build_seconds": round(time.perf_counter() - t0, 3),
+                    "libraries": len(logs), "ptxas": ptxas_table(logs)}
+        names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts),
+                 *form_tiles.values(), *form_hitbufs.values()]
         logs = pkg.csrc.build(names)
         build_seconds = time.perf_counter() - t0
         rows = ptxas_table(logs)
@@ -378,6 +430,17 @@ def run(torch, pkg) -> int:
         ("easy_cut_top_word7", header, easy, top_base, cut, True),
     ]
 
+    hitbuf_cases = [
+        ("genesis_word7", genesis76, diff1, GENESIS_NONCE - (1 << 23),
+         DISPATCH, True, DISPATCH, 1 << 18),
+        ("easy_overflow_cut_top", header, easy, top_base, cut, False,
+         DISPATCH, 1 << 18),
+        ("easy_overflow_word7", header, easy, 12345, DISPATCH, True,
+         DISPATCH, 1 << 18),
+        ("rescan_genesis_tile", genesis76, diff1,
+         GENESIS_NONCE - 4000, 8192, False, 8192, 1024),
+    ]
+
     def kernels_vs_plain():
         checks = []
         for label, h, t, base, limit, word7 in tile_cases:
@@ -393,22 +456,12 @@ def run(torch, pkg) -> int:
             if label == "genesis_word7":
                 step = (GENESIS_NONCE - base) // 8192
                 assert int(got[1][step]) == GENESIS_NONCE, "genesis missing"
-        hitbuf_cases = [
-            ("genesis_word7", genesis76, diff1, GENESIS_NONCE - (1 << 23),
-             DISPATCH, True, DISPATCH, 1 << 18),
-            ("easy_overflow_cut_top", header, easy, top_base, cut, False,
-             DISPATCH, 1 << 18),
-            ("easy_overflow_word7", header, easy, 12345, DISPATCH, True,
-             DISPATCH, 1 << 18),
-            ("rescan_genesis_tile", genesis76, diff1,
-             GENESIS_NONCE - 4000, 8192, False, 8192, 1024),
-        ]
         for label, h, t, base, limit, word7, cap, inner in hitbuf_cases:
             parts = s.hitbuf_parts(s.job(h, t, base, limit))
             kw = dict(inner_size=inner, n_steps=cap // inner, max_hits=64,
                       word7=word7)
             got = pkg.scan_batch(*parts, **kw)
-            want = pkg.scan_batch_plain(*parts, **kw)
+            want = s.plain_hitbuf[label] = pkg.scan_batch_plain(*parts, **kw)
             torch.cuda.synchronize()
             s.compare("scan_hitbuf", got, want)
             s.compare("hitbuf_compact", got, want)
@@ -523,6 +576,7 @@ def run(torch, pkg) -> int:
             else:
                 assert n == 0, f"{name} launched in the one-chain sweep"
         assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
+        s.sweep_mhs[1] = out["mhs"]
         return {"mhs": out["mhs"], "requests": out["dispatches"],
                 "sweep_seconds": out["seconds"], "hits": out["nonces"],
                 "mhs_vs_pr2": out["mhs"] / SWEEP_MHS_PR2,
@@ -548,6 +602,7 @@ def run(torch, pkg) -> int:
             assert ok and version & ~VERSION_MASK == genesis_version & ~VERSION_MASK
             siblings.append({"version": f"{version:#010x}",
                              "nonce": nonce, "verified": ok})
+        s.sweep_mhs[2] = out["mhs"]
         return {"mhs": out["mhs"], "hashes": out["hashes"],
                 "requests": out["dispatches"],
                 "sweep_seconds": out["seconds"], "hits": out["nonces"],
@@ -663,6 +718,286 @@ def run(torch, pkg) -> int:
             out[label] = {**result, "launches": launched(counts)}
         return out
 
+    def verify_sibling(version_hits) -> list:
+        """The sweep's sibling hits, each verified on the CPU; the genesis
+        sibling at --vshare 2 must be among them."""
+        siblings = [tuple(v) for v in version_hits]
+        assert SIBLING_HIT in siblings, siblings
+        for version, nonce in siblings:
+            header80 = (version.to_bytes(4, "little") + genesis76[4:]
+                        + nonce.to_bytes(4, "little"))
+            assert int.from_bytes(pkg.sha256d(header80), "little") <= diff1
+        return siblings
+
+    def shard_min_vs_plain():
+        """shard_min at the shard bodies' shapes (n_steps·k tile slots at
+        K = 1, 2; k·max_hits buffer words) and at edges."""
+        checks = []
+        gen = torch.Generator().manual_seed(5)
+        for n in (0, 1, 31, 64, 2048, 4096, 1025, (1 << 20) + 3):
+            words = torch.randint(0, 1 << 32, (n,), dtype=torch.int64,
+                                  generator=gen)
+            if n > 3:
+                words[n // 3] = GENESIS_NONCE % 1000
+            x = words.to(torch.uint32)
+            got = pkg.shard_min(x.to(s.dev))
+            want = pkg.shard_min_plain(x)
+            torch.cuda.synchronize()
+            s.compare("shard_min", [got], [want])
+            checks.append({"n": n, "min": int(want.to(torch.int64))})
+        # A hitless shard's mins are all 0xFFFFFFFF.
+        full = torch.full((2048,), 0xFFFFFFFF, dtype=torch.int64)
+        got = pkg.shard_min(full.to(torch.uint32).to(s.dev))
+        assert int(got.cpu().to(torch.int64)) == 0xFFFFFFFF
+        return {"checks": checks, "tolerance": "exact (integers)"}
+
+    def forms_vs_plain():
+        """Each compile form against the plain scans of kernels_vs_plain,
+        on the same cases: the tile kernel at K = 1, 2, the hit buffer at
+        K = 1."""
+        checks = []
+        for (k, unroll, spec), name in form_tiles.items():
+            for label, h, t, base, limit, word7 in tile_cases:
+                got = pkg.scan_tile(s.job(h, t, base, limit, k),
+                                    n_steps=DISPATCH // 8192, block=8192,
+                                    word7=word7, vshare=k, unroll=unroll,
+                                    spec=spec)
+                torch.cuda.synchronize()
+                s.compare(name, got, s.plain[k, label])
+                checks.append((name, label))
+        for (unroll, spec), name in form_hitbufs.items():
+            for label, h, t, base, limit, word7, cap, inner in hitbuf_cases:
+                parts = s.hitbuf_parts(s.job(h, t, base, limit))
+                got = pkg.scan_batch(*parts, inner_size=inner,
+                                     n_steps=cap // inner, max_hits=64,
+                                     word7=word7, unroll=unroll, spec=spec)
+                torch.cuda.synchronize()
+                s.compare(name, got, s.plain_hitbuf[label])
+                checks.append((name, label))
+        return {"checks": len(checks),
+                "libraries": sorted({name for name, _ in checks}),
+                "tolerance": "exact (integers)"}
+
+    def genesis_sweep_forms():
+        """2^28 genesis nonces through ``cli.bench`` in each form: the tile
+        kernel at K = 1 and --vshare 2 (its rescans in the same form), the
+        hit-buffer kernel (``--backend cuda``) at K = 1."""
+        runs = []
+        n = 1 << 28
+        for (k, unroll, spec), name in [*form_tiles.items(),
+                                        *(((1, u, sp), lib) for (u, sp), lib
+                                          in form_hitbufs.items())]:
+            hitbuf = name in form_hitbufs.values()
+            argv = ["--bench", "--bench-nonces", str(n), "--unroll",
+                    str(unroll), "--vshare", str(k),
+                    *([] if spec else ["--no-spec"]),
+                    *(["--backend", "cuda"] if hitbuf else [])]
+            s.reset_counts()
+            out = pkg.cli.bench(pkg.cli.build_parser().parse_args(argv))
+            counts = s.read_counts()
+            assert out["verified"] and out["hashes"] == k * n, (name, out)
+            kernels = {c: v for c, v in counts.items() if v and c.startswith(
+                ("scan_tile", "scan_hitbuf"))}
+            if hitbuf:
+                assert kernels == {name: n // DISPATCH}, (name, counts)
+            else:
+                assert kernels.pop(name) == n // DISPATCH, (name, counts)
+                # The rescans run the one-chain hit buffer in the same form.
+                assert set(kernels) <= {form_hitbufs[unroll, spec]}, counts
+            if k == 2:
+                verify_sibling(out["version_hits"])
+            runs.append({"library": name, "argv": argv[3:], "mhs": out["mhs"],
+                         "hashes": out["hashes"],
+                         "sweep_seconds": out["seconds"],
+                         "launches": launched(counts)})
+        return {"runs": runs}
+
+    def mesh_vs_single():
+        """A ShardedScan over the shards against one device's scan of the
+        same range, 2^24 nonces per shard: whole, and ending inside shard
+        1 (the shards after it launch with limit 0)."""
+        n = len(s.shards)
+        checks = []
+        for label, limit in (("whole", n * DISPATCH),
+                             ("ends_in_shard_1", DISPATCH + 54321)):
+            for k in (1, 2):
+                words = s.job(header, easy, 12345, limit, k, host=True)
+                scan, step = pkg.mesh.make_sharded_tile_scan_fn(
+                    s.shards, DISPATCH, vshare=k)
+                shards = scan(words)
+                one = pkg.scan_tile(torch.from_numpy(words).to(s.dev),
+                                    n_steps=n * DISPATCH // step, block=step,
+                                    vshare=k)
+                torch.cuda.synchronize()
+                flat = [torch.cat([o[i].cpu() for o in shards])
+                        for i in (0, 1)]
+                s.compare("mesh_tile", flat, one)
+                first = pkg.mesh.first_hit(shards)
+                assert first == int(one[1].cpu().to(torch.int64).min()), label
+                checks.append({"scan": f"tile k{k}", "case": label,
+                               "first_hit": first,
+                               "hits": int(one[0].sum())})
+            words = s.job(header, easy, 12345, limit, host=True)
+            inner = 1 << 18
+            shards = pkg.mesh.make_sharded_scan_fn(
+                s.shards, DISPATCH, inner, 64)(words)
+            one = pkg.scan_batch(
+                *s.hitbuf_parts(torch.from_numpy(words).to(s.dev)),
+                inner_size=inner, n_steps=n * DISPATCH // inner, max_hits=64)
+            torch.cuda.synchronize()
+            bufs = torch.stack([o[0].cpu().to(torch.int64) for o in shards])
+            counts = torch.stack([o[1].cpu().to(torch.int64) for o in shards])
+            hits, total = pkg.mesh.merge_device_hits(bufs.numpy(),
+                                                     counts.numpy(), 64)
+            one_buf = one[0].cpu().to(torch.int64)
+            assert total == int(one[1]) > 64, (label, total, int(one[1]))
+            assert hits == one_buf[:64].tolist(), label
+            first = pkg.mesh.first_hit(shards)
+            assert first == int(one_buf.min()), label
+            checks.append({"scan": "hitbuf", "case": label, "count": total,
+                           "first_hit": first})
+        return {"shards": [str(d) for d in s.shards], "checks": checks,
+                "tolerance": "exact (integers)"}
+
+    def mesh_sweep(make, k):
+        """The genesis sweep of all 2^32 nonces through ``make()``'s hasher
+        as ``--bench`` drives it (``cli.run_bench`` with the hasher's
+        adaptive scheduler)."""
+        hasher = make()
+        s.reset_counts()
+        out = pkg.cli.run_bench(hasher, 1 << 32,
+                                scheduler=pkg.scheduler_for(hasher))
+        counts = s.read_counts()
+        assert out["verified"], f"genesis nonce not found: {out['nonces']}"
+        assert out["hashes"] == k << 32 and out["nonce_start"] == 0, out
+        return hasher, out, counts
+
+    def genesis_sweep_mesh():
+        runs = []
+        for k in (1, 2):
+            hasher, out, counts = mesh_sweep(
+                lambda: pkg.ShardedTileCudaHasher(batch_per_device=DISPATCH,
+                                                  vshare=k,
+                                                  devices=s.shards), k)
+            name = tile.tile_library(k)
+            # One launch per shard and dispatch, whatever the shard count.
+            assert counts[name] == (1 << 32) // DISPATCH, counts
+            assert counts["shard_min"] == (1 << 32) // DISPATCH, counts
+            siblings = verify_sibling(out["version_hits"]) if k == 2 else []
+            runs.append({"vshare": k, "mhs": out["mhs"],
+                         "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[k],
+                         "hashes": out["hashes"],
+                         "requests": out["dispatches"],
+                         "dispatch_size": hasher.dispatch_size,
+                         "sweep_seconds": out["seconds"],
+                         "hits": out["nonces"], "sibling_hits": siblings,
+                         "launches": launched(counts)})
+        return {"shards": len(s.shards), "runs": runs}
+
+    def genesis_sweep_fanout():
+        hasher, out, counts = mesh_sweep(
+            lambda: pkg.make_cuda_fanout(batch_per_device=DISPATCH,
+                                         kernel="cuda-tile",
+                                         devices=s.shards), 1)
+        assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
+        assert not counts["shard_min"], counts
+        return {"children": hasher.n_children,
+                "stream_depth": hasher.stream_depth, "mhs": out["mhs"],
+                "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[1],
+                "requests": out["dispatches"],
+                "sweep_seconds": out["seconds"], "hits": out["nonces"],
+                "launches": launched(counts)}
+
+    def stratum_session_mesh_native():
+        """Over several cards the command line builds the mesh
+        (``--mesh-devices N``); over one card named several times, which
+        the command line never builds, the smoke test hands the session a
+        mesh over its shards."""
+        s.reset_counts()
+        backend = ["--backend", "cuda-mesh-native", "--mesh-kernel",
+                   "cuda-tile"]
+        hasher = None
+        if len(set(s.shards)) > 1:
+            backend += ["--mesh-devices", str(len(s.shards))]
+        else:
+            hasher = pkg.MeshCudaHasher(kernel="cuda-tile",
+                                        batch_per_device=DISPATCH,
+                                        devices=s.shards)
+        result = asyncio.run(asyncio.wait_for(stratum(
+            pkg, backend=backend, hasher=hasher), 300))
+        assert result["topology"] == f"1x{len(s.shards)}", result
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
+        assert counts["scan_tile"] == counts["shard_min"], counts
+        return {**result, "launches": launched(counts)}
+
+    def mesh_native_ladder():
+        """quarantine → per-device fan-out → rebuild → restore, each rung
+        against one device's TileCudaHasher on the same ranges: the genesis
+        solve in word7 mode and an easy target with thousands of hits."""
+        single = pkg.TileCudaHasher(device="cuda")
+        cases = [(genesis76, GENESIS_NONCE - (1 << 26), 1 << 27, diff1),
+                 (header, 777, DISPATCH + 4321, easy)]
+        want = [single.scan(*c) for c in cases]
+        assert GENESIS_NONCE in want[0].nonces
+        assert want[1].total_hits > 64
+        h = pkg.MeshCudaHasher(kernel="cuda-tile", batch_per_device=DISPATCH,
+                               devices=s.shards)
+        rungs = []
+        s.reset_counts()
+
+        def rung(name):
+            for case, w in zip(cases, want):
+                got = h.scan(*case)
+                assert (got.nonces, got.total_hits, got.hashes_done) == (
+                    w.nonces, w.total_hits, w.hashes_done), (name, case[1:3])
+            rungs.append({"rung": name, "topology": h.topology,
+                          "labels": list(h.shard_labels),
+                          "dispatch_size": h.dispatch_size})
+
+        rung("mesh")
+        h.quarantine_device("1")
+        assert h.degraded
+        rung("quarantined")
+        h.rebuild()
+        assert not h.degraded and h.topology == f"1x{len(s.shards) - 1}"
+        rung("rebuilt")
+        h.restore_device("1")
+        assert h.topology == f"1x{len(s.shards)}"
+        rung("restored")
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
+        return {"rungs": rungs, "libraries": h.compile_count,
+                "launches": launched(counts)}
+
+    def mesh_phases():
+        emit({"shards": [str(d) for d in s.shards],
+              "over": ("every card" if len(set(s.shards)) > 1 else
+                       f"one card named {len(s.shards)} times")})
+        s.phase("mesh_vs_single", mesh_vs_single)
+        s.phase("genesis_sweep_mesh", genesis_sweep_mesh)
+        s.phase("genesis_sweep_fanout", genesis_sweep_fanout)
+        s.phase("stratum_session_mesh_native", stratum_session_mesh_native)
+        s.phase("mesh_native_ladder", mesh_native_ladder)
+
+    def run_mesh_phases() -> int:
+        """--mesh-only: the single-device sweeps they are held against,
+        after a warm-up sweep (the process's first launches), then the
+        multi-device phases; no kernel table."""
+        s.phase("warm_up", lambda: {"mhs": pkg.cli.run_bench(
+            pkg.TileCudaHasher(device="cuda"), 1 << 28)["mhs"]})
+        s.phase("genesis_sweep", genesis_sweep)
+        s.phase("genesis_sweep_vshare", genesis_sweep_vshare)
+        mesh_phases()
+        if s.failed:
+            emit({"failed_phases": s.failed})
+            return 1
+        print(name_power, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     def timings():
         rows = {}
         tile_kw = dict(n_steps=DISPATCH // 8192, block=8192)
@@ -725,6 +1060,35 @@ def run(torch, pkg) -> int:
             tile_row(k)
         for layout in layouts:
             tile_row(*layout)
+        # The compile forms: the baseline layout's rows, held against the
+        # function's bound (every form computes the same hashes); the
+        # operations the form itself does (without partial evaluation the
+        # job words count per nonce) stand beside it.
+        for (k, unroll, spec), name in form_tiles.items():
+            job, _ = jobs[k]
+            kw = dict(vshare=k, unroll=unroll, spec=spec, **tile_kw)
+            ms = s.time_ms(lambda: pkg.scan_tile(job, word7=True, **kw), 20)
+            ms_exact = s.time_ms(lambda: pkg.scan_tile(job, **kw), 20)
+            sp = form_spec(unroll, spec)
+            rows[name] = {
+                "ms": ms, "ms_exact": ms_exact, "plain_ms": plain[k],
+                "bound_ms": bound(DISPATCH, True, k),
+                "bound_ms_exact": bound(DISPATCH, False, k),
+                "hashes_per_s": DISPATCH * k / ms * 1e3,
+                "ms_vs_default_form": ms / rows[tile.tile_library(k)]["ms"],
+                "vshare": k, "unroll": unroll, "spec": sp,
+                "ops_per_nonce": pkg.ops_per_nonce(True, k).total,
+                "ops_per_nonce_form": pkg.ops_per_nonce(True, k,
+                                                        spec=sp).total,
+                "form_bound_ms": bound(DISPATCH, True, k, spec=sp),
+                "nonces": DISPATCH, "mode": "word7 (genesis sweep)",
+                **{f"registers_{m}": ptxas_of.get((name, m), {}).get(
+                    "registers") for m in ("word7", "exact")},
+                **{f"spill_bytes_{m}": ptxas_of.get((name, m), {}).get(
+                    "spill_stores") for m in ("word7", "exact")},
+                "blocks_per_sm_word7":
+                    occupancy_of[name]["word7"]["blocks_per_sm"],
+            }
         tile_parts = s.hitbuf_parts(s.job(genesis76, diff1,
                                           GENESIS_NONCE - 4000, 8192))
         small = dict(inner_size=1024, n_steps=8, max_hits=64)
@@ -742,6 +1106,47 @@ def run(torch, pkg) -> int:
                 lambda: pkg.scan_batch_plain(*big_parts, word7=True, **big)),
             "bound_ms_2p24_word7": bound(DISPATCH, True),
         }
+        for (unroll, spec), name in form_hitbufs.items():
+            ms = s.time_ms(lambda: pkg.scan_batch(
+                *big_parts, word7=True, unroll=unroll, spec=spec, **big), 20)
+            sp = form_spec(unroll, spec)
+            rows[name] = {
+                "ms": ms,
+                "plain_ms": rows["scan_hitbuf"]["plain_ms_2p24_word7"],
+                "bound_ms": bound(DISPATCH, True),
+                "ms_vs_default_form": ms / rows["scan_hitbuf"]["ms_2p24_word7"],
+                "unroll": unroll, "spec": sp,
+                "ops_per_nonce": pkg.ops_per_nonce(True, 1).total,
+                "ops_per_nonce_form": pkg.ops_per_nonce(True, 1,
+                                                        spec=sp).total,
+                "form_bound_ms": bound(DISPATCH, True, spec=sp),
+                "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
+                **{f"registers_{m}": ptxas_of.get((name, m), {}).get(
+                    "registers") for m in ("word7", "exact")},
+            }
+        # shard_min over one K=1 shard's 2048 tile slots, as the sharded
+        # sweep launches it.
+        mins = torch.randint(0, 1 << 32, (DISPATCH // 8192,),
+                             dtype=torch.int64).to(torch.uint32).to(s.dev)
+        rows["shard_min"] = {
+            "ms": s.time_ms(lambda: pkg.shard_min(mins), 200),
+            "plain_ms": s.plain_ms(lambda: pkg.shard_min_plain(mins)),
+            "bound_ms": (mins.numel() * 4 + 4) / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "words": mins.numel(),
+        }
+        # torch.amin computes the same reduction where this torch supports
+        # it on uint32 tensors.
+        try:
+            same = int(torch.amin(mins).cpu().to(torch.int64)) == int(
+                pkg.shard_min(mins).cpu().to(torch.int64))
+        except (RuntimeError, NotImplementedError) as e:
+            rows["shard_min"]["library_ms"] = None
+            rows["shard_min"]["library_call"] = f"torch.amin: {e}"[:200]
+        else:
+            assert same, "torch.amin disagrees with shard_min"
+            rows["shard_min"]["library_ms"] = s.time_ms(
+                lambda: torch.amin(mins), 200)
+            rows["shard_min"]["library_call"] = "torch.amin"
         # The K-chain hit-buffer scan at the cuda backend's 2^24 dispatch.
         for k in (2, 4):
             parts = s.hitbuf_parts(jobs[k][0], k)
@@ -791,6 +1196,8 @@ def run(torch, pkg) -> int:
     s.phase("device_and_build", device_and_build)
     if s.failed:
         return 1
+    if mesh_only:
+        return run_mesh_phases()
     s.phase("kernels_vs_plain", kernels_vs_plain)
     s.phase("variants_vs_plain", variants_vs_plain)
     s.phase("genesis_sweep", genesis_sweep)
@@ -802,6 +1209,10 @@ def run(torch, pkg) -> int:
     s.phase("stratum_session_degraded", stratum_session_degraded)
     s.phase("genesis_sweep_variants", genesis_sweep_variants)
     s.phase("stratum_session_variant", stratum_session_variant)
+    s.phase("shard_min_vs_plain", shard_min_vs_plain)
+    s.phase("forms_vs_plain", forms_vs_plain)
+    s.phase("genesis_sweep_forms", genesis_sweep_forms)
+    mesh_phases()
     timing = {}
 
     def timing_phase():
@@ -821,6 +1232,11 @@ def run(torch, pkg) -> int:
         if name.startswith("scan_tile"):
             return ("bitcoin_miner_tpu_torch/ops/csrc/scan_tile.cu",
                     "bitcoin_miner_tpu/ops/sha256_pallas.py:115")
+        if name == "shard_min":
+            # jnp.min in make_sharded_pallas_scan_fn's body (and :164, :220
+            # in the two XLA bodies).
+            return ("bitcoin_miner_tpu_torch/ops/csrc/shard_min.cu",
+                    "bitcoin_miner_tpu/parallel/mesh.py:291")
         one = tile_chains(name) == 1
         if name.startswith("scan_hitbuf"):
             return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
@@ -831,7 +1247,8 @@ def run(torch, pkg) -> int:
     main_path = ["scan_tile", "scan_hitbuf", "hitbuf_compact", "scan_tile_k2",
                  "scan_hitbuf_k2", "hitbuf_compact_k2",
                  *(tile.tile_library(k, v) for v in tile.VARIANTS[1:]
-                   for k in (1, 2))]
+                   for k in (1, 2)),
+                 "shard_min", *form_tiles.values(), *form_hitbufs.values()]
     unlaunched = [name for name in main_path if not s.launches.get(name)]
     if unlaunched:
         emit({"failed_phases": [], "never_launched_on_main_path": unlaunched})
@@ -848,9 +1265,10 @@ def run(torch, pkg) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row.get("bound_by", "operations"),
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
             **{k: v for k, v in row.items()
-               if k not in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")},
         })
     emit({"kernels": table})
     print(name_power, flush=True)
@@ -862,7 +1280,8 @@ def run(torch, pkg) -> int:
 
 async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
                   window_s: float = SESSION_WINDOW_S,
-                  variant: str = None) -> dict:
+                  variant: str = None, backend: tuple = (),
+                  hasher=None) -> dict:
     """A Stratum session as ``python -m bitcoin_miner_tpu_torch --pool URL
     --workers 4 [--vshare k]`` builds it (the tile kernel on the card
     behind its ring, the adaptive scheduler), against the package's
@@ -873,7 +1292,10 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
     the hasher's ``batch_size`` nonces × K chains, so the dispatches still
     in flight at either end (at most 4 workers × a ring of 2, ~20 ms of
     work) are the error, not whole finished requests of up to 2^30
-    nonces."""
+    nonces. ``backend`` adds command-line options. Without ``hasher``,
+    ``cli.make_miner`` builds the session; with one (a mesh over a device
+    list the command line cannot name), the session is built as
+    ``make_miner`` builds it, on that hasher."""
     pool = pkg.MockStratumPool(difficulty=1 / 256, version_mask=pool_mask)
     await pool.start()
     await pool.announce_job(pkg.PoolJob(
@@ -887,8 +1309,17 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
     args = pkg.cli.build_parser().parse_args(
         ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
          "--workers", "4", "--vshare", str(vshare),
-         *(["--variant", variant] if variant else [])])
-    miner = pkg.cli.make_miner(args)
+         *(["--variant", variant] if variant else []), *backend])
+    if hasher is None:
+        miner = pkg.cli.make_miner(args)
+    else:
+        miner = pkg.StratumMiner(
+            "127.0.0.1", pool.port, args.user, args.password, hasher=hasher,
+            n_workers=args.workers,
+            batch_size=pkg.dispatch_granularity(
+                hasher, 1 << pkg.cli.DEFAULT_BATCH_BITS),
+            stream_depth=args.stream_depth,
+            scheduler=pkg.cli.make_scheduler(args, hasher))
     dispatcher = miner.dispatcher
     hasher = dispatcher.hasher
     assert isinstance(hasher, pkg.TileCudaHasher), hasher
@@ -909,7 +1340,9 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
         tiles = [c for c in pkg.csrc.counters()
                  if c.name.startswith("scan_tile")]
         hashes = sum(c.value * tile_chains(c.name) for c in tiles)
-        return (time.perf_counter(), hashes * hasher.batch_size,
+        # One launch scans one device's share of a dispatch.
+        per_launch = getattr(hasher, "batch_per_device", hasher.batch_size)
+        return (time.perf_counter(), hashes * per_launch,
                 stats.hashes, stats.shares_accepted,
                 sum(c.value for c in tiles))
 
@@ -951,6 +1384,8 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
             "vshare": vshare, "pool_mask": f"{pool_mask:#010x}",
             "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
             "workers": dispatcher.n_workers,
+            "backend": hasher.name,
+            "topology": getattr(hasher, "topology", None),
             "stream_depth": dispatcher.stream_depth,
             "warmup_seconds": a[0] - t0, "window_seconds": window,
             "window_launches": b[4] - a[4],
@@ -965,6 +1400,7 @@ class _Package:
     def __init__(self) -> None:
         from bitcoin_miner_tpu_torch.backends.cuda import (
             CudaHasher,
+            ShardedTileCudaHasher,
             TileCudaHasher,
             sibling_version_patterns,
         )
@@ -975,7 +1411,17 @@ class _Package:
             difficulty_to_target,
             nbits_to_target,
         )
+        from bitcoin_miner_tpu_torch.backends.base import dispatch_granularity
+        from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
+        from bitcoin_miner_tpu_torch.miner.scheduler import scheduler_for
         from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
+        from bitcoin_miner_tpu_torch.ops.shard_min import (
+            shard_min,
+            shard_min_plain,
+        )
+        from bitcoin_miner_tpu_torch.parallel import mesh
+        from bitcoin_miner_tpu_torch.parallel.fanout import make_cuda_fanout
+        from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
         from bitcoin_miner_tpu_torch.testing.mock_pool import (
             MockStratumPool,
             PoolJob,
@@ -1003,6 +1449,15 @@ class _Package:
         self.bound_ms = sha256_torch.bound_ms
         self.ops_per_nonce = sha256_torch.ops_per_nonce
         self.sha256_tile = sha256_tile
+        self.hitbuf_library = sha256_torch.hitbuf_library
+        self.shard_min, self.shard_min_plain = shard_min, shard_min_plain
+        self.mesh = mesh
+        self.scheduler_for = scheduler_for
+        self.StratumMiner = StratumMiner
+        self.dispatch_granularity = dispatch_granularity
+        self.ShardedTileCudaHasher = ShardedTileCudaHasher
+        self.MeshCudaHasher = MeshCudaHasher
+        self.make_cuda_fanout = make_cuda_fanout
 
 
 def main() -> int:
@@ -1021,7 +1476,7 @@ def main() -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
-    return run(torch, pkg)
+    return run(torch, pkg, mesh_only="--mesh-only" in sys.argv[1:])
 
 
 if __name__ == "__main__":

@@ -11,12 +11,15 @@ import torch
 from bitcoin_miner_tpu_torch.backends.cuda import (
     DEFAULT_VERSION_MASK,
     CudaHasher,
+    ShardedTileCudaHasher,
     TileCudaHasher,
     sibling_version_patterns,
 )
 from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONCE
 from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
 from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
+from bitcoin_miner_tpu_torch.ops.shard_min import SHARD_MIN, shard_min, shard_min_plain
+from bitcoin_miner_tpu_torch.parallel import mesh
 from bitcoin_miner_tpu_torch.ops.sha256_tile import (
     VARIANTS,
     job_block_from_header,
@@ -27,6 +30,7 @@ from bitcoin_miner_tpu_torch.ops.sha256_tile import (
 from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     hitbuf_compact,
     hitbuf_compact_plain,
+    hitbuf_library,
     scan_batch,
     scan_batch_plain,
     scan_batch_vshare,
@@ -48,6 +52,10 @@ LAYOUTS = ([(k, v, 0, 1) for v in VARIANTS[1:] for k in (1, 2, 4, 8)]
            + [(4, v, 2, 1) for v in ("baseline", "wsplit", "wstage", "vroll")]
            + [(2, v, 0, 2) for v in ("regchain", "wstage", "vroll",
                                      "vroll-db")])
+# The compile forms held against the plain scans: (unroll, spec); the tile
+# kernel's at K = 1 and 2, the hit buffer's at K = 1 (at K > 1 it has only
+# spec forms).
+FORMS = [(8, True), (16, True), (32, True), (64, False)]
 # Steps smaller than a block of threads: (layout, nonces per step).
 SMALL_STEPS = [((1, "baseline", 0, 1), 128), ((1, "wstage", 0, 1), 128),
                ((2, "vroll-db", 0, 1), 256), ((1, "regchain", 0, 2), 256)]
@@ -60,7 +68,10 @@ def cuda():
     # Every library of this module, built at once (one nvcc each).
     csrc.build([*csrc.BASELINE,
                 *(tile_library(*l) for l in LAYOUTS),
-                *(tile_library(*l) for l, _ in SMALL_STEPS)])
+                *(tile_library(*l) for l, _ in SMALL_STEPS),
+                *(tile_library(k, unroll=u, spec=sp) for k in (1, 2)
+                  for u, sp in FORMS),
+                *(hitbuf_library(1, u, sp) for u, sp in FORMS)])
     return torch.device("cuda", 0)
 
 
@@ -253,3 +264,78 @@ def test_layout_hasher_on_card_matches_plain_hasher(cuda, variant):
     assert card.scan(bytes(76), 5, 1 << 20, EASY) == plain.scan(
         bytes(76), 5, 1 << 20, EASY)
     assert counter.value == before + 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 1023, 1025, 4096, (1 << 20) + 3])
+def test_shard_min_matches_plain(cuda, n):
+    words = torch.randint(0, 1 << 32, (n,), dtype=torch.int64,
+                          generator=torch.Generator().manual_seed(n))
+    if n > 3:
+        words[n // 3] = 7
+    x = words.to(torch.uint32)
+    before = SHARD_MIN.value
+    got = shard_min(x.to(cuda))
+    assert SHARD_MIN.value == before + 1
+    assert got.device == cuda and got.shape == ()
+    assert _equal([got], [shard_min_plain(x)])
+
+
+@pytest.mark.parametrize("form", FORMS, ids=lambda f: f"u{f[0]}-spec{f[1]}")
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_form_matches_plain(cuda, case, word7, k, form):
+    unroll, spec = form
+    job = _k_job(case, k, cuda)
+    kw = dict(n_steps=N // 8192, block=8192, word7=word7, vshare=k)
+    counter = csrc.launch_counter(tile_library(k, unroll=unroll, spec=spec))
+    before = counter.value
+    got = scan_tile(job, unroll=unroll, spec=spec, **kw)
+    assert counter.value == before + 1
+    assert _equal(got, scan_tile_plain(job, **kw))
+
+
+@pytest.mark.parametrize("form", FORMS, ids=lambda f: f"u{f[0]}-spec{f[1]}")
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_batch_form_matches_plain(cuda, case, word7, form):
+    unroll, spec = form
+    job = _k_job(case, 1, cuda)
+    parts = (job[0:8], job[16:19], job[19:27], job[27], job[28])
+    kw = dict(inner_size=1 << 16, n_steps=N >> 16, max_hits=32, word7=word7)
+    counter = csrc.launch_counter(hitbuf_library(1, unroll, spec))
+    before = counter.value
+    got = scan_batch(*parts, unroll=unroll, spec=spec, **kw)
+    assert counter.value == before + 1
+    assert _equal(got, scan_batch_plain(*parts, **kw))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_sharded_scan_on_one_card_matches_one_scan(cuda, k):
+    """Two shards on one card against one scan of the same range, a
+    partial dispatch that ends inside shard 1."""
+    bpd = N // 2
+    job = _k_job(("easy", bytes(range(76)), EASY, 12345, bpd + 999), k, cuda,
+                 host=True)
+    scan, tile = mesh.make_sharded_tile_scan_fn((cuda, cuda), bpd, vshare=k)
+    before = SHARD_MIN.value
+    shards = scan(job)
+    assert SHARD_MIN.value == before + 2
+    one = scan_tile(torch.from_numpy(job).to(cuda), n_steps=N // tile,
+                    block=tile, vshare=k)
+    flat = [torch.cat([s[i].cpu().to(torch.int64) for s in shards])
+            for i in (0, 1)]
+    assert _equal(flat, one)
+    assert mesh.first_hit(shards) == int(one[1].cpu().to(torch.int64).min())
+
+
+def test_sharded_hasher_on_one_card_matches_plain_hasher(cuda):
+    card = ShardedTileCudaHasher(batch_per_device=1 << 19, vshare=2,
+                                 devices=[cuda, cuda])
+    plain = ShardedTileCudaHasher(batch_per_device=1 << 19, vshare=2,
+                                  devices=["cpu", "cpu"])
+    got = card.scan(GENESIS76, GENESIS_NONCE - 3_000_000, 1 << 22, DIFF1)
+    assert got.nonces == [GENESIS_NONCE] and got.hashes_done == 1 << 23
+    easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
+    assert easy.version_hits and card.compile_count == 1
