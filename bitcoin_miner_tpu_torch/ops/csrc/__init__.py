@@ -7,7 +7,8 @@ set of defines: the number K of version-rolled chains (``-DVSHARE=K``,
 (:func:`form_defines`). The baseline libraries (``scan_tile``,
 ``scan_tile_k2``, …, ``scan_hitbuf``, …, ``shard_min``) are known up front
 (:data:`SOURCES`); a layout's or a form's library is registered by
-:func:`register` when it is first asked for. Each builds into its own
+:func:`register` when it is first asked for, and the integer throughput
+probe's (``int_probe``) when its module is imported. Each builds into its own
 shared library with a plain C interface, under ``build/kernels/`` at the
 root of the checkout, on first use; the library name carries a digest of
 the sources and flags, defines included, so an edited source is rebuilt.
@@ -117,6 +118,11 @@ ENTRY_POINTS = {
     "shard_min.cu": {
         # x, n, out, stream
         "shard_min_launch": [_P, _ULL, _P, _P],
+    },
+    "int_probe.cu": {
+        # seed, groups, steps, out, stream; one entry point per ILP
+        f"int_probe_ilp{ilp}_launch": [_P, _I, _I, _P, _P]
+        for ilp in (1, 2, 4, 8, 16)
     },
 }
 

@@ -55,17 +55,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``cuda-fanout``; a Stratum session on ``cuda-mesh-native --mesh-kernel
    cuda-tile --workers 4``; the mesh-native degradation ladder
    (quarantine → fan-out → rebuild → restore) with parity at each rung;
-10. times each kernel with CUDA events beside its plain version and its
+10. holds the int32 throughput probe (``ops/int_probe.py``) at ILP 1, 2,
+   4, 8, 16 against its plain version at the reference's size (4096 steps
+   of 4096 groups; every step's tile exact), then runs it as ``python -m
+   bitcoin_miner_tpu_torch.probes.int_probe`` does (``probes.int_probe.
+   main``): CUDA-event times, the SM clock sampled meanwhile, the SASS of
+   its group loop per pipe and the measured lanes per SM and clock;
+11. times each kernel with CUDA events beside its plain version and its
    bound: the tile scan in every layout, form and K it drives, and
-   ``shard_min``.
+   ``shard_min``; beside the scan kernels' operation bound, their SASS per
+   nonce per pipe (the nonce loop of ``scan_tile``, ``scan_tile_k2`` and
+   ``scan_hitbuf``, against ``ops_per_nonce``) and the bound of those
+   instructions at the same peak rates (``sass_bound_ms``).
 
 With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
 
-Phases 3 to 7 and 9's sweeps, session and ladder are the main path: the
-launch counts are set to 0 just before each and read just after, and each
-kernel must have launched.
+Phases 3 to 7, 9's sweeps, session and ladder, and 10's probe run are the
+main path: the launch counts are set to 0 just before each and read just
+after, and each kernel must have launched.
 Every phase prints a JSON line; the kernel table and the card follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
@@ -75,9 +84,10 @@ prints no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import ctypes
+import io
 import json
-import os
 import re
 import subprocess
 import sys
@@ -86,7 +96,8 @@ import traceback
 
 GENESIS_NONCE = 2083236893
 DISPATCH = 1 << 24
-#: 2^24-nonce scans queued ahead of a timed run of launches (~2.4 ms each).
+#: 2^24-nonce scans queued ahead of every 20 timed launches (~2.4 ms each,
+#: so ~1 ms of card work per launch the host has to queue meanwhile).
 BLOCKER_SCANS = 8
 SESSION_WINDOW_S = 5.0  # the Stratum sessions' measured window
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -97,6 +108,7 @@ SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock: 32 banks x 4 B
 #: The compile forms driven: (unroll, spec); below 64 spec does not apply.
 FORMS = ((8, True), (16, True), (32, True), (64, False))
 SHARDS_ON_ONE_CARD = 4
+PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
 
 
 def emit(obj: dict) -> None:
@@ -117,7 +129,11 @@ def tile_chains(name: str) -> int:
 
 def kernel_of(mangled: str) -> tuple:
     """(kernel, mode) of a mangled kernel name: the ``..._kernel`` function
-    and word7/exact from its ``bool WORD7`` template argument."""
+    and word7/exact from its ``bool WORD7`` template argument, or the int32
+    probe's ILP from its ``int ILP`` one."""
+    probe = re.search(r"int_probe_kernelILi(\d+)E", mangled)
+    if probe:
+        return "int_probe_kernel", f"ilp{probe.group(1)}"
     kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
                        r"|scan_hitbuf_kernel|hitbuf_compact_kernel"
                        r"|shard_min_kernel)", mangled).group(1)
@@ -158,11 +174,11 @@ def ptxas_table(logs: dict) -> list:
 SASS_OPS = ("STS", "LDS", "LDG", "STL", "LDL", "LDC", "ULDC")
 
 
-def sass_counts(cuobjdump: str, libraries: dict) -> dict:
-    """Per library (name → path) and kernel (``kernel/mode``), how many of
-    its SASS instructions are each of :data:`SASS_OPS`, from ``cuobjdump
-    -sass``, one process per library, all at once."""
-    procs = {name: subprocess.Popen([cuobjdump, "-sass", str(path)],
+def sass_listings(sass, libraries: dict) -> dict:
+    """Per library (name → path), the ``cuobjdump -sass`` listing's kernels
+    (``sass.functions``, ``sass`` being ``probes.sass``) by ``kernel/mode``;
+    one process per library, all at once."""
+    procs = {name: subprocess.Popen([sass.cuobjdump(), "-sass", str(path)],
                                     stdout=subprocess.PIPE, text=True)
              for name, path in libraries.items()}
     out = {}
@@ -170,25 +186,21 @@ def sass_counts(cuobjdump: str, libraries: dict) -> dict:
         text, _ = proc.communicate(timeout=300)
         if proc.returncode:
             raise RuntimeError(f"cuobjdump failed on {name}")
-        out[name] = _count_ops(text)
+        out[name] = {"/".join(map(str, kernel_of(fn))): insns
+                     for fn, insns in sass.functions(text).items()}
     return out
 
 
-def _count_ops(sass: str) -> dict:
-    counts: dict = {}
-    ops = None
-    for line in sass.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            kernel, mode = kernel_of(fn.group(1))
-            ops = counts.setdefault(f"{kernel}/{mode}",
-                                    dict.fromkeys(SASS_OPS, 0))
-            continue
-        insn = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
-                        r"([A-Z][A-Z0-9]*)", line)
-        if ops is not None and insn and insn.group(1) in ops:
-            ops[insn.group(1)] += 1
-    return counts
+def count_ops(kernels: dict) -> dict:
+    """Per kernel (``kernel/mode`` → its SASS), how many of its
+    instructions are each of :data:`SASS_OPS`."""
+    out = {}
+    for kernel, insns in kernels.items():
+        ops = out[kernel] = dict.fromkeys(SASS_OPS, 0)
+        for insn in insns:
+            if insn.base in ops:
+                ops[insn.base] += 1
+    return out
 
 
 def tile_layouts(tile) -> list:
@@ -309,15 +321,16 @@ class Smoke:
 
     def time_ms(self, fn, reps: int) -> float:
         """Mean device time of ``fn``'s launches run back to back, with
-        CUDA events. 2^24 tile scans queued first (~20 ms of work) keep the
-        card busy while the host queues the timed launches; unless they
-        are still running when the last launch is queued, the events would
-        time the host's enqueue rate, and the run fails."""
+        CUDA events. 2^24 tile scans queued first (:data:`BLOCKER_SCANS`
+        for every 20 launches) keep the card busy while the host queues the
+        timed launches; unless they are still running when the last launch
+        is queued, the events would time the host's enqueue rate, and the
+        run fails."""
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         blocker = self.job(bytes(76), 0, 0, DISPATCH)
-        for _ in range(BLOCKER_SCANS):
+        for _ in range(BLOCKER_SCANS * max(1, reps // 20)):
             self.pkg.scan_tile(blocker, n_steps=DISPATCH // 8192, block=8192)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -352,10 +365,24 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     layouts = tile_layouts(tile)
     ptxas_of: dict = {}  # (library, mode) -> its ptxas row
     occupancy_of: dict = {}  # library -> mode -> launch shape
+    #: library -> mode -> SASS instructions per pipe in the nonce loop (one
+    #: nonce an iteration), beside ops_per_nonce
+    sass_per_nonce: dict = {}
+    probe_lines: dict = {}  # ILP -> probes.int_probe's JSON line
+    probe_plain_ms: dict = {}  # ILP -> the plain version's time
 
     def bound(nonces, word7, k=1, passes=1, spec=True):
         return pkg.bound_ms(nonces, word7, sms, sm_clock_mhz * 1e6, vshare=k,
                             passes=passes, spec=spec)
+
+    def sass_bound(iterations, counts):
+        """The least time of ``iterations`` runs of a loop body of
+        ``counts`` SASS instructions per pipe (one per lane) at the card's
+        peak rates (``pipe_bound_ms``): the ALU instructions on the integer
+        pipe, all of them through dispatch."""
+        return pkg.pipe_bound_ms(iterations * counts["alu"],
+                                 iterations * counts["all"], sms,
+                                 sm_clock_mhz * 1e6)
 
     def form_spec(unroll, spec):
         """Whether a form partially evaluates: only unrolled (64) ones."""
@@ -380,7 +407,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                     "build_seconds": round(time.perf_counter() - t0, 3),
                     "libraries": len(logs), "ptxas": ptxas_table(logs)}
         names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts),
-                 *form_tiles.values(), *form_hitbufs.values()]
+                 *form_tiles.values(), *form_hitbufs.values(),
+                 pkg.int_probe.LIBRARY]
         logs = pkg.csrc.build(names)
         build_seconds = time.perf_counter() - t0
         rows = ptxas_table(logs)
@@ -388,14 +416,27 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         for name in names:
             if name.startswith("scan_tile"):
                 occupancy_of[name] = tile_occupancy(pkg.csrc, name)
-        # SASS of the staged libraries, and of the K=2 baseline and regchain
-        # (job words loaded from the card against kernel parameters).
-        cuobjdump = os.path.join(os.path.dirname(pkg.csrc.nvcc()), "cuobjdump")
-        sass = sass_counts(cuobjdump, {
+        # SASS of the staged libraries, of the K=2 baseline and regchain
+        # (job words loaded from the card against kernel parameters), and
+        # of the main path's scan libraries per pipe.
+        listings = sass_listings(pkg.sass, {
             name: pkg.csrc.library_path(name)
-            for name in ("scan_tile_k2", tile.tile_library(2, "regchain"),
+            for name in ("scan_tile", "scan_tile_k2", "scan_hitbuf",
+                         tile.tile_library(2, "regchain"),
                          *(tile.tile_library(*l) for l in layouts
                            if l[1] in tile.STAGED_VARIANTS))})
+        sass = {name: count_ops(kernels) for name, kernels in listings.items()
+                if name not in ("scan_tile", "scan_hitbuf")}
+        for name in ("scan_tile", "scan_tile_k2", "scan_hitbuf"):
+            k = tile_chains(name)
+            kernel = "scan_hitbuf_kernel" if "hitbuf" in name else (
+                "scan_tile_kernel")
+            sass_per_nonce[name] = {
+                mode: {**pkg.sass.pipe_counts(pkg.sass.loop_body(
+                    listings[name][f"{kernel}/{mode}"])),
+                       "ops_per_nonce": pkg.ops_per_nonce(
+                           mode == "word7", k)._asdict()}
+                for mode in ("word7", "exact")}
         # Each staged library must read its plane back from shared memory:
         # 48 loads per slot and chain pass, not words forwarded in registers.
         staged = {}
@@ -419,6 +460,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "cuda": torch.version.cuda,
                 "build_seconds": round(build_seconds, 3),
                 "libraries": len(logs), "ptxas": rows, "sass": sass,
+                "sass_per_nonce": sass_per_nonce,
                 "occupancy": occupancy_of, "staged": staged}
 
     tile_cases = [
@@ -812,6 +854,45 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                          "launches": launched(counts)})
         return {"runs": runs}
 
+    def int_probe_vs_plain():
+        """Every step's tile of the probe at the reference's size, each ILP,
+        against one tile of the plain version (every step computes the same
+        function of the seed), on the same seed on the card."""
+        probe = pkg.int_probe
+        seed = pkg.probe_cli.seed_tile(s.dev)
+        checks = []
+        for ilp in probe.ILPS:
+            name = f"int_probe_ilp{ilp}"
+            tiles = probe.probe_tiles(seed, PROBE_GROUPS, ilp, PROBE_STEPS)
+            want = probe.probe_plain(seed, PROBE_GROUPS, ilp)
+            torch.cuda.synchronize()
+            s.compare(name, [tiles], [want.expand_as(tiles)])
+            probe_plain_ms[ilp] = s.plain_ms(
+                lambda: probe.probe_plain(seed, PROBE_GROUPS, ilp))
+            checks.append({"kernel": name, "steps": PROBE_STEPS,
+                           "groups": PROBE_GROUPS, "max_abs_err": 0,
+                           "plain_ms": probe_plain_ms[ilp]})
+        return {"checks": checks, "tolerance": "exact (integers)"}
+
+    def int_probe_run():
+        """``python -m bitcoin_miner_tpu_torch.probes.int_probe`` with its
+        defaults: one JSON line per ILP, exit code 0."""
+        out = io.StringIO()
+        s.reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = pkg.probe_cli.main([])
+        counts = s.read_counts()
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        assert rc == 0, lines
+        assert [line["ilp"] for line in lines] == list(pkg.int_probe.ILPS)
+        for line in lines:
+            assert (line["steps"], line["groups"]) == (PROBE_STEPS,
+                                                       PROBE_GROUPS), line
+            probe_lines[line["ilp"]] = line
+        assert launched(counts).keys() == {
+            f"int_probe_ilp{ilp}" for ilp in pkg.int_probe.ILPS}, counts
+        return {"lines": lines, "launches": launched(counts)}
+
     def mesh_vs_single():
         """A ShardedScan over the shards against one device's scan of the
         same range, 2^24 nonces per shard: whole, and ending inside shard
@@ -1187,6 +1268,40 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 / HBM_BYTES_PER_S * 1e3,
                 "bound_by": "bytes", "blocks": n_blocks, "chains": k,
             }
+        # The scan kernels' SASS per nonce, and the bound of those
+        # instructions at the card's peak rates, as bound_ms.
+        for name, modes in sass_per_nonce.items():
+            row = rows[name]
+            for mode, counts in modes.items():
+                row[f"sass_per_nonce_{mode}"] = counts
+            if name == "scan_hitbuf":
+                row["sass_bound_ms"] = sass_bound(8192, modes["exact"])
+                row["sass_bound_ms_2p24_word7"] = sass_bound(
+                    DISPATCH, modes["word7"])
+            else:
+                row["sass_bound_ms"] = sass_bound(DISPATCH, modes["word7"])
+                row["sass_bound_ms_exact"] = sass_bound(DISPATCH,
+                                                        modes["exact"])
+        # The int32 probe, from the lines of its main-path run.
+        for ilp, line in probe_lines.items():
+            loop = line["sass"]["loop"]
+            lanes = line["steps"] * pkg.int_probe.SUBLANES * pkg.int_probe.LANES
+            rows[f"int_probe_ilp{ilp}"] = {
+                "ms": line["seconds"] * 1e3, "plain_ms": probe_plain_ms[ilp],
+                "bound_ms": line["bound_ms"], "bound_by": "operations",
+                "sass_bound_ms": sass_bound(
+                    lanes * (line["groups"] // pkg.int_probe.UNROLL), loop),
+                "ilp": ilp, "steps": line["steps"], "groups": line["groups"],
+                "tops_int32": line["tops_int32"], "binds": line["binds"],
+                "ms_windows": [w * 1e3 for w in line["seconds_windows"]],
+                "sm_clock_mhz": line["sm_clock_mhz"],
+                "lanes_per_sm_clock": line["lanes_per_sm_clock"],
+                "registers": line["registers"],
+                "sass_per_chain_group": line["sass"]["per_chain_group"],
+                "sass_loop": loop,
+                "loop_overhead_per_iteration":
+                    line["loop_overhead"]["all"]["per_iteration"],
+            }
         for row in rows.values():
             for key, v in list(row.items()):
                 if isinstance(v, float):
@@ -1212,6 +1327,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("shard_min_vs_plain", shard_min_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
+    s.phase("int_probe_vs_plain", int_probe_vs_plain)
+    s.phase("int_probe", int_probe_run)
     mesh_phases()
     timing = {}
 
@@ -1232,6 +1349,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         if name.startswith("scan_tile"):
             return ("bitcoin_miner_tpu_torch/ops/csrc/scan_tile.cu",
                     "bitcoin_miner_tpu/ops/sha256_pallas.py:115")
+        if name.startswith("int_probe"):
+            return ("bitcoin_miner_tpu_torch/ops/csrc/int_probe.cu",
+                    "benchmarks/vpu_probe.py:35")
         if name == "shard_min":
             # jnp.min in make_sharded_pallas_scan_fn's body (and :164, :220
             # in the two XLA bodies).
@@ -1248,7 +1368,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                  "scan_hitbuf_k2", "hitbuf_compact_k2",
                  *(tile.tile_library(k, v) for v in tile.VARIANTS[1:]
                    for k in (1, 2)),
-                 "shard_min", *form_tiles.values(), *form_hitbufs.values()]
+                 "shard_min", *form_tiles.values(), *form_hitbufs.values(),
+                 *(f"int_probe_ilp{ilp}" for ilp in pkg.int_probe.ILPS)]
     unlaunched = [name for name in main_path if not s.launches.get(name)]
     if unlaunched:
         emit({"failed_phases": [], "never_launched_on_main_path": unlaunched})
@@ -1414,7 +1535,12 @@ class _Package:
         from bitcoin_miner_tpu_torch.backends.base import dispatch_granularity
         from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
         from bitcoin_miner_tpu_torch.miner.scheduler import scheduler_for
-        from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
+        from bitcoin_miner_tpu_torch.ops import (
+            csrc,
+            int_probe,
+            sha256_tile,
+            sha256_torch,
+        )
         from bitcoin_miner_tpu_torch.ops.shard_min import (
             shard_min,
             shard_min_plain,
@@ -1422,6 +1548,8 @@ class _Package:
         from bitcoin_miner_tpu_torch.parallel import mesh
         from bitcoin_miner_tpu_torch.parallel.fanout import make_cuda_fanout
         from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
+        from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
+        from bitcoin_miner_tpu_torch.probes import sass
         from bitcoin_miner_tpu_torch.testing.mock_pool import (
             MockStratumPool,
             PoolJob,
@@ -1458,6 +1586,8 @@ class _Package:
         self.ShardedTileCudaHasher = ShardedTileCudaHasher
         self.MeshCudaHasher = MeshCudaHasher
         self.make_cuda_fanout = make_cuda_fanout
+        self.int_probe, self.probe_cli, self.sass = int_probe, probe_cli, sass
+        self.pipe_bound_ms = sha256_torch.pipe_bound_ms
 
 
 def main() -> int:

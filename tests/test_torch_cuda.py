@@ -19,6 +19,7 @@ from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONC
 from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
 from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
 from bitcoin_miner_tpu_torch.ops.shard_min import SHARD_MIN, shard_min, shard_min_plain
+from bitcoin_miner_tpu_torch.ops import int_probe
 from bitcoin_miner_tpu_torch.parallel import mesh
 from bitcoin_miner_tpu_torch.ops.sha256_tile import (
     VARIANTS,
@@ -71,7 +72,8 @@ def cuda():
                 *(tile_library(*l) for l, _ in SMALL_STEPS),
                 *(tile_library(k, unroll=u, spec=sp) for k in (1, 2)
                   for u, sp in FORMS),
-                *(hitbuf_library(1, u, sp) for u, sp in FORMS)])
+                *(hitbuf_library(1, u, sp) for u, sp in FORMS),
+                int_probe.LIBRARY])
     return torch.device("cuda", 0)
 
 
@@ -339,3 +341,20 @@ def test_sharded_hasher_on_one_card_matches_plain_hasher(cuda):
     easy = card.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
     assert easy == plain.scan(bytes(76), 5, (1 << 20) + 4096, EASY)
     assert easy.version_hits and card.compile_count == 1
+
+
+@pytest.mark.parametrize("groups, steps", [(0, 1), (13, 3), (512, 64)])
+@pytest.mark.parametrize("ilp", int_probe.ILPS)
+def test_int_probe_matches_plain(cuda, ilp, groups, steps):
+    """Every step's tile of the int32 probe equals the plain tile, with a
+    group count that leaves the unrolled loop a remainder (13) or none."""
+    seed = torch.randint(0, 1 << 32, (8, 128), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(ilp))
+    seed = seed.to(torch.uint32)
+    counter = int_probe.LAUNCHES[ilp]
+    before = counter.value
+    tiles = int_probe.probe_tiles(seed.to(cuda), groups, ilp, steps)
+    assert counter.value == before + 1
+    assert tiles.device == cuda and tuple(tiles.shape) == (steps, 8, 128)
+    want = int_probe.probe_plain(seed, groups, ilp)
+    assert _equal(list(tiles.cpu()), [want] * steps)
