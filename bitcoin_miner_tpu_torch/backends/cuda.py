@@ -41,12 +41,11 @@ waits on its own event, and the per-job constants cache has a lock.
 from __future__ import annotations
 
 import logging
-import math
 import struct
 import threading
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +62,7 @@ from ..ops.sha256_tile import (
 from ..ops.sha256_torch import (
     HITBUF_SPEC_ONLY,
     compress,
+    rescan_steps,
     scan_batch_vshare,
     upload_words,
 )
@@ -194,11 +194,15 @@ class _Dispatch:
     behind one event per card they lie on (a sharded dispatch spans
     several). Outputs on the CPU are already there. ``mesh`` is the tuple
     of devices a sharded dispatch was launched on, in shard order: the
-    hasher's mesh may be rebuilt before the dispatch is collected."""
+    hasher's mesh may be rebuilt before the dispatch is collected. ``job``
+    is the job block its kernels read, kept on its device for the
+    dispatch's rescans (None where each shard had its own)."""
 
     def __init__(self, outputs: Sequence[torch.Tensor],
-                 mesh: Tuple[torch.device, ...] = ()) -> None:
+                 mesh: Tuple[torch.device, ...] = (),
+                 job: Optional[torch.Tensor] = None) -> None:
         self.mesh = mesh
+        self.job = job
         self._host = []
         devices: List[torch.device] = []
         for t in outputs:
@@ -209,16 +213,19 @@ class _Dispatch:
                     devices.append(t.device)
             else:
                 self._host.append(t)
-        self._events: List[torch.cuda.Event] = []
+        self._events: Dict[torch.device, torch.cuda.Event] = {}
         for device in devices:
             # A blocking event: pump threads sleep in the wait instead of
             # spinning on the host cores the event loop needs.
-            event = torch.cuda.Event(blocking=True)
+            event = self._events[device] = torch.cuda.Event(blocking=True)
             event.record(torch.cuda.current_stream(device))
-            self._events.append(event)
+
+    def event(self, device: torch.device) -> Optional[torch.cuda.Event]:
+        """The event behind the dispatch's work on ``device``, if any."""
+        return self._events.get(device)
 
     def result(self) -> List[np.ndarray]:
-        for event in self._events:
+        for event in self._events.values():
             event.synchronize()
         return [t.numpy() for t in self._host]
 
@@ -256,7 +263,7 @@ class CudaHasher(Hasher):
 
     #: Whether dispatches scan through the hit-buffer kernel, whose k-chain
     #: forms all partially evaluate (the tile hasher's rescans are one
-    #: chain).
+    #: chain each, in any form).
     hitbuf_scan = True
 
     #: dispatches ``scan_stream`` holds in flight before collecting the
@@ -367,27 +374,19 @@ class CudaHasher(Hasher):
             return (version,)
         return (version, *(version ^ p for p in patterns))
 
-    def _hitbuf(self, midstates: np.ndarray, jc: JobConstants, base: int,
-                limit: int, capacity: int, inner_size: int, word7: bool,
-                device: Optional[torch.device] = None) -> _Dispatch:
-        """Queue one hit-buffer scan of ``[base, base + limit)`` for the
-        chains of ``midstates`` (rows of ``jc.midstates``), on ``device``
-        (the hasher's by default)."""
-        k = len(midstates)
-        words = upload_words([*midstates.ravel(), *jc.tail3, *jc.limbs,
-                              base & 0xFFFFFFFF, limit],
-                             device or self.device)
-        out = scan_batch_vshare(
+    def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
+        """Queue the hit-buffer scan of ``[base, base + limit)`` for every
+        chain of ``jc``."""
+        k = jc.chains
+        words = upload_words([*jc.midstates.ravel(), *jc.tail3, *jc.limbs,
+                              base & 0xFFFFFFFF, limit], self.device)
+        return _Dispatch(scan_batch_vshare(
             words[:8 * k].view(k, 8), words[8 * k:8 * k + 3],
             words[8 * k + 3:8 * k + 11], words[8 * k + 11],
-            words[8 * k + 12], inner_size=inner_size,
-            n_steps=capacity // inner_size, max_hits=self.max_hits,
-            word7=word7, unroll=self.unroll, spec=self.spec)
-        return _Dispatch(out)
-
-    def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
-        return self._hitbuf(jc.midstates, jc, base, limit, self.batch_size,
-                            self.inner_size, jc.word7)
+            words[8 * k + 12], inner_size=self.inner_size,
+            n_steps=self.batch_size // self.inner_size,
+            max_hits=self.max_hits, word7=jc.word7, unroll=self.unroll,
+            spec=self.spec))
 
     def _warn_overflow(self, n: int) -> None:
         if n > self.max_hits:
@@ -552,9 +551,13 @@ class TileCudaHasher(CudaHasher):
     ``sublanes``×128×``inner_tiles`` nonces (the Pallas kernel's grid step,
     so the outputs compare with it slot by slot) and per chain. At real
     share difficulties a step almost never holds two hits, so the mins are
-    the hits; a step reporting more than one hit, or a word7 candidate, is
-    re-enumerated exactly by the one-chain hit-buffer kernel over that step
-    alone, against its chain's own midstate.
+    the hits; every step reporting more than one hit, or a word7
+    candidate, is re-enumerated exactly, each against its chain's own
+    midstate, by one ``rescan_steps`` launch per card and dispatch. It runs
+    on a high-priority side stream of the card that waits on the
+    dispatch's own event, so it does not queue behind the dispatches the
+    ring keeps in flight, and its blocks take SMs as the running tile
+    kernel's retire. A failed launch raises: there is no other rescan.
 
     ``variant``, ``cgroup`` and ``interleave`` choose the tile kernel's
     layout (``ops.sha256_tile``); the geometry is clamped as
@@ -587,9 +590,8 @@ class TileCudaHasher(CudaHasher):
         tile = sublanes * LANES * inner_tiles
         if batch_size % tile:
             raise ValueError(f"batch_size must be a multiple of {tile}")
-        # The rescan of one step: its hit buffer's capacity is the step.
-        super().__init__(batch_size=batch_size,
-                         inner_size=math.gcd(tile, 1 << 10),
+        # No hit-buffer scan: a dispatch is whole steps.
+        super().__init__(batch_size=batch_size, inner_size=tile,
                          max_hits=max_hits, vshare=vshare, device=device,
                          unroll=unroll, spec=spec)
         if self.device.type == "cuda":
@@ -601,53 +603,104 @@ class TileCudaHasher(CudaHasher):
         self.cgroup = cgroup
         #: nonces per step: the re-enumeration granularity.
         self.tile = tile
+        #: the rescans' high-priority stream on each card.
+        self._side_streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._side_lock = threading.Lock()
+        if self.device.type == "cuda":
+            # Made here, not in the first scan: a process's first priority
+            # stream on a card sets up the pool of such streams.
+            self._side_stream(self.device)
 
     def _scan_fn(self, jc: JobConstants, base: int, limit: int) -> _Dispatch:
         words = jc.block(base, limit)
+        job = upload_words(words, self.device)
         return _Dispatch(scan_tile(
-            upload_words(words, self.device),
-            n_steps=self.batch_size // self.tile, block=self.tile,
+            job, n_steps=self.batch_size // self.tile, block=self.tile,
             word7=jc.word7, vshare=jc.chains, variant=self.variant,
             cgroup=min(self.cgroup, jc.chains), interleave=self.interleave,
-            host_words=words, unroll=self.unroll, spec=self.spec))
+            host_words=words, unroll=self.unroll, spec=self.spec), job=job)
 
     def _collect(self, out: _Dispatch, jc: JobConstants, base: int,
                  limit: int, found: _Found) -> None:
         counts, mins = out.result()
-        self._collect_slots(counts, mins, jc, base, limit, found,
-                            (self.device,))
+        self._collect_slots(counts, mins, jc, base, limit, found, out)
 
     def _collect_slots(self, counts: np.ndarray, mins: np.ndarray,
                        jc: JobConstants, base: int, limit: int,
-                       found: _Found, mesh: Tuple[torch.device, ...]
-                       ) -> None:
-        """The hits of a dispatch from its (count, min) slots, slot
-        ``step·k + c`` for chain c of step ``step`` from ``base``. The
-        devices of ``mesh`` scanned equal runs of steps in order: a step's
-        rescan runs on the device that scanned it."""
-        steps_per_device = len(counts) // (jc.chains * len(mesh))
-        for slot in np.nonzero(counts)[0]:
-            step, chain = divmod(int(slot), jc.chains)
-            if not jc.word7 and int(counts[slot]) == 1:
-                got, n = [int(mins[slot])], 1  # a single hit IS the min
-            else:
-                got, n = self._rescan_tile(
-                    jc, chain, base + step * self.tile,
-                    min(self.tile, limit - step * self.tile),
-                    mesh[step // steps_per_device])
-            found.add(jc, chain, got, n)
+                       found: _Found, out: _Dispatch) -> None:
+        """The hits of dispatch ``out`` from its (count, min) slots, slot
+        ``step·k + c`` for chain c of step ``step`` from ``base``. A slot
+        holding one hit in exact mode holds it as its min; every other slot
+        with a hit is rescanned, through one :meth:`_rescan` per card of
+        the dispatch's launch mesh, whose devices scanned equal runs of
+        steps in order: a step's rescan runs on the card that scanned it.
+        Each chain's hits are added in slot order."""
+        k = jc.chains
+        mesh = out.mesh or (self.device,)
+        steps_per_device = len(counts) // (k * len(mesh))
+        hit = np.nonzero(counts)[0]
+        if not len(hit):
+            return
+        chosen = hit if jc.word7 else hit[counts[hit] > 1]
+        by_device: Dict[torch.device, List[int]] = {}
+        for slot in chosen.tolist():
+            device = mesh[slot // k // steps_per_device]
+            by_device.setdefault(device, []).append(slot)
+        rescans = [(slots, self._rescan(jc, base, limit, out, device, slots))
+                   for device, slots in by_device.items()]
+        # Row r: hit slot r's hits (its min alone, until a rescan's row
+        # replaces it) and their uncapped count.
+        rows = np.zeros((len(hit), self.max_hits), dtype=np.int64)
+        rows[:, 0] = mins[hit]
+        totals = np.ones(len(hit), dtype=np.int64)
+        for slots, rescan in rescans:
+            at = np.searchsorted(hit, slots)
+            rows[at], totals[at] = rescan.result()
+        stored = np.arange(self.max_hits) < np.minimum(
+            totals, self.max_hits)[:, None]
+        chains = hit % k
+        for chain in range(k):
+            mine = chains == chain
+            if mine.any():
+                found.add(jc, chain, rows[mine][stored[mine]].tolist(),
+                          int(totals[mine].sum()))
 
-    def _rescan_tile(self, jc: JobConstants, chain: int, tile_base: int,
-                     tile_limit: int, device: torch.device
-                     ) -> Tuple[List[int], int]:
-        """Exact (hits, uncapped count) of one step's range for one chain,
-        through the one-chain hit-buffer kernel at the step's size, on
-        ``device``."""
-        bufs, counts = self._hitbuf(
-            jc.midstates[chain:chain + 1], jc, tile_base, tile_limit,
-            self.tile, self.inner_size, word7=False, device=device).result()
-        n = int(counts[0])
-        return [int(x) for x in bufs[0, :min(n, self.max_hits)]], n
+    def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
+        with self._side_lock:
+            stream = self._side_streams.get(device)
+            if stream is None:
+                stream = self._side_streams[device] = torch.cuda.Stream(
+                    device, priority=-1)
+            return stream
+
+    def _rescan(self, jc: JobConstants, base: int, limit: int,
+                out: _Dispatch, device: torch.device, slots: List[int]
+                ) -> _Dispatch:
+        """Queue the exact rescan of dispatch ``out``'s ``slots`` on
+        ``device``: one ``rescan_steps`` call over the dispatch's job block
+        (the dispatch's own where it lies on ``device``, else uploaded
+        there once). On a card it runs on the hasher's side stream, behind
+        the dispatch's own event."""
+        kw = dict(k=jc.chains, tile=self.tile, max_hits=self.max_hits,
+                  unroll=self.unroll, spec=self.spec)
+        slot_words = torch.from_numpy(np.asarray(slots, dtype=np.int32))
+        job = out.job
+        if device.type == "cpu":
+            if job is None:
+                job = upload_words(jc.block(base, limit), device)
+            return _Dispatch(rescan_steps(job, slot_words, **kw))
+        stream = self._side_stream(device)
+        with torch.cuda.stream(stream):
+            event = out.event(device)
+            if event is not None:
+                stream.wait_event(event)
+            if job is None or job.device != device:
+                job = upload_words(jc.block(base, limit), device)
+            # Kept from the allocator until the side stream is past it.
+            job.record_stream(stream)
+            return _Dispatch(rescan_steps(
+                job, slot_words.pin_memory().to(device, non_blocking=True),
+                **kw))
 
 
 class _Sharded:
@@ -756,8 +809,9 @@ class ShardedTileCudaHasher(_Sharded, TileCudaHasher):
     form. The shards' (count, min) slots flatten to the global slot
     ``d·n_steps·k + t·k + c``, i.e. step ``d·n_steps + t`` from the
     dispatch's base, since the slices are contiguous; so the tile hasher's
-    collection works unchanged, and a step's rescan runs on the device
-    that owns it in the mesh the dispatch was launched on."""
+    collection works unchanged: the rescans of the steps a card owns in
+    the mesh the dispatch was launched on run on that card, in one
+    launch over the dispatch's job block, uploaded there."""
 
     name = "cuda-tile-mesh"
 
@@ -797,7 +851,7 @@ class ShardedTileCudaHasher(_Sharded, TileCudaHasher):
         res = out.result()
         self._collect_slots(np.concatenate(res[0::3]),
                             np.concatenate(res[1::3]), jc, base, limit, found,
-                            out.mesh)
+                            out)
 
 
 def _make_fanout(**kwargs) -> Hasher:

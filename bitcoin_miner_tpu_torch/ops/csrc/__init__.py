@@ -114,6 +114,10 @@ ENTRY_POINTS = {
                                _I, _I, _P],
         # blk_hits, blk_counts, n_blocks, max_hits, hits, count, stream
         "hitbuf_compact_launch": [_P, _P, _I, _I, _P, _P, _P],
+        # job block, k, slots, n_slots, tile, max_hits, iters, blocks per
+        # slot, blk_hits, blk_counts, tickets, hits, count, stream
+        "rescan_steps_launch": [_P, _I, _P, _I, _U, _I, _I, _I, _P, _P, _P,
+                                _P, _P, _P],
     },
     "shard_min.cu": {
         # x, n, out, stream

@@ -32,6 +32,42 @@
 // Bound: 32-bit integer operations, as scan_tile_kernel (about 2.5k per
 // nonce at K=1, about 1.2k more per further chain); the compaction moves
 // K*n_blocks counts plus the hits it copies.
+//
+// rescan_steps_kernel: the tile hasher's exact re-enumeration of a
+// dispatch's candidate steps, all of them in one launch. It replaces, on
+// that path, one scan_hitbuf_kernel + hitbuf_compact_kernel pair per step:
+// the reference's _tile_rescan (bitcoin_miner_tpu/backends/tpu.py,
+// make_scan_fn over one step, i.e. sha256_jax.py::_scan_batch and its
+// ordered append) called once per candidate step. It is compiled into every
+// build of this file and launched from the one-chain libraries in each
+// compile form (scan_hitbuf, scan_hitbuf_u8, ..., scan_hitbuf_nospec).
+// Inputs: the dispatch's job block of k chains (16k+13 words: midstates,
+// round-3 states, tail3, limbs, nonce_base, limit; the tile kernel's) and S
+// int32 slots step*k + c. Outputs per slot s, exact mode, over chain c's
+// offsets [step*tile, step*tile + min(tile, limit - step*tile)) from
+// nonce_base (modulo 2^32): hits[s][max_hits], the first max_hits hit
+// nonces in ascending offset order (unused 0xFFFFFFFF), and count[s], the
+// uncapped count.
+//
+// Bound: 32-bit integer operations, ops_per_nonce at k=1 in exact mode
+// (about 2.6k) over the S*tile nonces; the outputs are S*(max_hits+1)
+// words. The design keeps every SM busy at large S and makes S=1 one short
+// launch:
+// - block x is block b = x % bps of slot s = x / bps; each owns 128*iters
+//   consecutive offsets of its step and walks them one nonce per thread per
+//   iteration (ops/sha256_torch.py::rescan_geometry: S=1 at 8192 nonces
+//   spreads over 64 blocks, one nonce a thread; large S takes the 32
+//   nonces a thread of scan_hitbuf's 2^24 form, over many waves of blocks);
+// - a block loads its chain's row (midstate, round-3 state from the job
+//   block, tail, limbs) into shared memory once, and ranks its hits in
+//   offset order as scan_hitbuf_kernel does;
+// - with one block a slot it writes the slot's outputs itself; with
+//   several, each writes its block slot to scratch (a few KB a slot: it
+//   stays in L2), fences, and draws a ticket on the slot's counter. The
+//   block that draws the last merges the slot's block slots in block order
+//   (hitbuf_compact_kernel's exclusive scan, over one slot) and sets the
+//   counter back to 0 for the next launch on the stream: no second launch
+//   and no memset.
 #include "sha256d.cuh"
 
 #ifndef VSHARE
@@ -185,6 +221,154 @@ __global__ void __launch_bounds__(kCompactThreads)
   if (threadIdx.x == 0) count[chain] = static_cast<int32_t>(carry);
 }
 
+constexpr int kRescanThreads = 128;
+constexpr int kRescanWarps = kRescanThreads / 32;
+
+// Exclusive-scan merge of slot s's n_blocks block slots (counts blk_counts,
+// hits blk_hits, max_hits words each) into its row of the outputs, by the
+// block that drew the slot's last ticket. Other blocks wrote the scratch:
+// it is read past L1 (__ldcg).
+__device__ __forceinline__ void merge_block_slots(
+    const uint32_t* __restrict__ blk_hits, const int32_t* __restrict__ blk_counts,
+    int n_blocks, int max_hits, uint32_t* __restrict__ hits,
+    int32_t* __restrict__ count) {
+  __shared__ uint32_t warp_sums[kRescanWarps];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t cap = static_cast<uint32_t>(max_hits);
+  uint32_t carry = 0;  // hits of all block slots before this chunk
+  for (int c0 = 0; c0 < n_blocks; c0 += kRescanThreads) {
+    const int b = c0 + threadIdx.x;
+    const uint32_t v =
+        b < n_blocks ? static_cast<uint32_t>(__ldcg(blk_counts + b)) : 0u;
+    uint32_t x = v;  // inclusive scan within the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of the warp totals
+      uint32_t t = lane < kRescanWarps ? warp_sums[lane] : 0u;
+#pragma unroll
+      for (int d = 1; d < kRescanWarps; d <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, d);
+        if (lane >= d) t += y;
+      }
+      if (lane < kRescanWarps) warp_sums[lane] = t;
+    }
+    __syncthreads();
+    const uint32_t rank = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0u);
+    if (v > 0 && rank < cap) {
+      const uint32_t take = min(min(v, cap), cap - rank);
+      for (uint32_t i = 0; i < take; ++i) {
+        hits[rank + i] =
+            __ldcg(blk_hits + static_cast<size_t>(b) * max_hits + i);
+      }
+    }
+    carry += warp_sums[kRescanWarps - 1];
+    __syncthreads();  // warp_sums is rewritten by the next chunk
+  }
+  const uint32_t filled = min(carry, cap);
+  for (int i = threadIdx.x; i < max_hits; i += kRescanThreads) {
+    if (static_cast<uint32_t>(i) >= filled) hits[i] = 0xFFFFFFFFu;
+  }
+  if (threadIdx.x == 0) *count = static_cast<int32_t>(carry);
+}
+
+// Grid: bps * S blocks of kRescanThreads. With bps == 1 the scratch and
+// ticket pointers are unused (null).
+__global__ void __launch_bounds__(kRescanThreads)
+    rescan_steps_kernel(const uint32_t* __restrict__ block, int k,
+                        const int32_t* __restrict__ slots, unsigned tile,
+                        int max_hits, int iters, int bps,
+                        uint32_t* __restrict__ blk_hits,
+                        int32_t* __restrict__ blk_counts,
+                        unsigned* __restrict__ tickets,
+                        uint32_t* __restrict__ hits,
+                        int32_t* __restrict__ count) {
+  using L = sha256d::Layout<1>;
+  __shared__ uint32_t job[L::kWords];
+  __shared__ uint32_t warp_hits[kRescanWarps];
+  __shared__ bool last;
+  const unsigned ku = static_cast<unsigned>(k);
+  const unsigned s = blockIdx.x / bps;
+  const unsigned b = blockIdx.x % bps;
+  // The slot's load and the job's own words are in flight together.
+  const uint32_t slot = static_cast<uint32_t>(__ldg(slots + s));
+  const uint32_t base = __ldg(block + 16 * ku + 11);
+  const unsigned long long limit = __ldg(block + 16 * ku + 12);
+  const uint32_t step = slot / ku;
+  const uint32_t c = slot % ku;
+  if (threadIdx.x < 8) {
+    job[L::kMid + threadIdx.x] = __ldg(block + 8 * c + threadIdx.x);
+    job[L::kState3 + threadIdx.x] = __ldg(block + 8 * (ku + c) + threadIdx.x);
+    job[L::kLimbs + threadIdx.x] = __ldg(block + 16 * ku + 3 + threadIdx.x);
+  }
+  if (threadIdx.x < 3) {
+    job[L::kTail + threadIdx.x] = __ldg(block + 16 * ku + threadIdx.x);
+  }
+  __syncthreads();
+  const unsigned long long first = static_cast<unsigned long long>(step) * tile;
+  const unsigned long long left = limit > first ? limit - first : 0ull;
+  const unsigned long long n = left < tile ? left : tile;
+  const uint32_t step_base = base + static_cast<uint32_t>(first);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const unsigned long long start =
+      static_cast<unsigned long long>(b) * kRescanThreads * iters;
+  uint32_t* out = bps == 1 ? hits + static_cast<size_t>(s) * max_hits
+                           : blk_hits + static_cast<size_t>(blockIdx.x) * max_hits;
+  uint32_t stored = 0;  // hits of this block so far (same in every thread)
+  for (int it = 0; it < iters; ++it) {
+    const unsigned long long row =
+        start + static_cast<unsigned long long>(it) * kRescanThreads;
+    if (row >= n) break;  // uniform across the block
+    const unsigned long long off = row + threadIdx.x;
+    const uint32_t nonce = step_base + static_cast<uint32_t>(off);
+    bool hit[1] = {false};
+    if (off < n) sha256d::nonce_meets<1, false>(job, nonce, hit);
+    if (__syncthreads_or(hit[0])) {
+      const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, hit[0]);
+      if (lane == 0) warp_hits[warp] = __popc(ballot);
+      __syncthreads();
+      uint32_t rank = stored + __popc(ballot & ((1u << lane) - 1u));
+      uint32_t total = 0;
+#pragma unroll
+      for (int w = 0; w < kRescanWarps; ++w) {
+        if (w < warp) rank += warp_hits[w];
+        total += warp_hits[w];
+      }
+      if (hit[0] && rank < static_cast<uint32_t>(max_hits)) out[rank] = nonce;
+      stored += total;
+      __syncthreads();  // warp_hits is rewritten by the next hitting row
+    }
+  }
+  if (bps == 1) {
+    const uint32_t filled = min(stored, static_cast<uint32_t>(max_hits));
+    for (int i = threadIdx.x; i < max_hits; i += kRescanThreads) {
+      if (static_cast<uint32_t>(i) >= filled) out[i] = 0xFFFFFFFFu;
+    }
+    if (threadIdx.x == 0) count[s] = static_cast<int32_t>(stored);
+    return;
+  }
+  if (threadIdx.x == 0) blk_counts[blockIdx.x] = static_cast<int32_t>(stored);
+  __threadfence();  // this block's slot is visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + s, 1u) == static_cast<unsigned>(bps - 1);
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  merge_block_slots(blk_hits + static_cast<size_t>(s) * bps * max_hits,
+                    blk_counts + static_cast<size_t>(s) * bps, bps, max_hits,
+                    hits + static_cast<size_t>(s) * max_hits, count + s);
+  if (threadIdx.x == 0) tickets[s] = 0u;  // every block of s has drawn
+}
+
 }  // namespace
 
 extern "C" int scan_hitbuf_launch(const uint32_t* midstates,
@@ -214,5 +398,20 @@ extern "C" int hitbuf_compact_launch(const uint32_t* blk_hits,
                                      int32_t* count, cudaStream_t stream) {
   hitbuf_compact_kernel<<<kChains, kCompactThreads, 0, stream>>>(
       blk_hits, blk_counts, n_blocks, max_hits, hits, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rescan_steps_launch(const uint32_t* block, int k,
+                                   const int32_t* slots, int n_slots,
+                                   unsigned tile, int max_hits, int iters,
+                                   int bps, uint32_t* blk_hits,
+                                   int32_t* blk_counts, unsigned* tickets,
+                                   uint32_t* hits, int32_t* count,
+                                   cudaStream_t stream) {
+  const unsigned long long n_blocks =
+      static_cast<unsigned long long>(n_slots) * bps;
+  rescan_steps_kernel<<<static_cast<unsigned>(n_blocks), kRescanThreads, 0,
+                        stream>>>(block, k, slots, tile, max_hits, iters, bps,
+                                  blk_hits, blk_counts, tickets, hits, count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,11 +22,14 @@ of one and of k chains: the plain versions (:func:`scan_batch_plain`,
 :func:`scan_batch_vshare_plain`, the semantics of
 ``sha256_jax._scan_batch`` and ``_scan_batch_vshare``) for CPU tensors,
 the CUDA kernels of ``csrc/scan_hitbuf.cu`` for CUDA tensors.
+:func:`rescan_steps` re-enumerates many steps of a tile dispatch, each
+with one chain, in one launch: the tile hasher's rescans.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import threading
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -633,6 +636,165 @@ def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
         inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
         word7=word7, unroll=unroll, spec=spec)
     return bufs[0], counts[0]
+
+
+def _check_rescan(k: int, tile: int, max_hits: int) -> None:
+    if not 1 <= k <= csrc.MAX_VSHARE:
+        raise ValueError(f"k must be in [1, {csrc.MAX_VSHARE}], got {k}")
+    if not 0 < tile <= 1 << 31:
+        raise ValueError(f"tile must be in [1, 2^31], got {tile}")
+    if not 0 < max_hits <= 1 << 16:
+        raise ValueError(f"max_hits must be in [1, 65536], got {max_hits}")
+
+
+def rescan_steps_plain(job, slots, *, k: int, tile: int, max_hits: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-enumerate steps of a tile dispatch exactly, one chain each.
+
+    ``job`` is the dispatch's job block of k chains (16k+13 words:
+    midstates, round-3 states, tail3, limbs, nonce_base, limit); slot ``s``
+    of ``slots`` is ``step·k + c``. Returns ``(hits, count)``: per slot,
+    chain c's first ``max_hits`` hit nonces in ascending offset order over
+    ``[base + step·tile, base + step·tile + min(tile, limit − step·tile))``
+    modulo 2^32, as uint32 (S, max_hits) with unused slots 0xFFFFFFFF, and
+    the uncapped counts as int32 (S,): row s is :func:`scan_batch_plain`
+    of that range (exact mode), with chain c's midstate. Each chain's
+    slots are scanned together, whole steps at a time."""
+    _check_rescan(k, tile, max_hits)
+    device = _device_of(job)
+    words = _words(job, 16 * k + 13)
+    slot_list = list(_words(slots, None))
+    if any(s >= 1 << 31 for s in slot_list):
+        raise ValueError("slots must be non-negative int32")
+    tail = words[16 * k:16 * k + 3]
+    limbs = words[16 * k + 3:16 * k + 11]
+    base, limit = words[16 * k + 11], words[16 * k + 12]
+    hits = torch.full((len(slot_list), max_hits), MASK32, dtype=torch.int64,
+                      device=device)
+    counts = torch.zeros(len(slot_list), dtype=torch.int64, device=device)
+    per_pass = max(1, _chunk_size(device) // tile)  # steps per tensor pass
+    lanes = torch.arange(tile, dtype=torch.int64, device=device)
+    for c in range(k):
+        rows = [i for i, s in enumerate(slot_list) if s % k == c]
+        mid = words[8 * c:8 * c + 8]
+        s3 = words[8 * (k + c):8 * (k + c) + 8]
+        for at in range(0, len(rows), per_pass):
+            idx = torch.tensor(rows[at:at + per_pass], dtype=torch.int64,
+                               device=device)
+            steps = torch.tensor(
+                [slot_list[r] // k for r in rows[at:at + per_pass]],
+                dtype=torch.int64, device=device)
+            offs = steps[:, None] * tile + lanes  # (steps, tile)
+            nonces = (offs + base) & MASK32
+            (meets,) = _meets([mid], [s3], tail, limbs, nonces, word7=False)
+            meets = meets & (offs < limit)
+            counts[idx] = meets.sum(1)
+            rank = meets.cumsum(1) - 1
+            row, col = torch.nonzero(meets & (rank < max_hits), as_tuple=True)
+            hits[idx[row], rank[row, col]] = nonces[row, col]
+    return _u32(hits, device), counts.to(torch.int32)
+
+
+#: Launches of ``csrc/scan_hitbuf.cu::rescan_steps_kernel`` in its default
+#: form; another compile form counts under its own name
+#: (:func:`rescan_counter`).
+RESCAN_STEPS = csrc.launch_counter("rescan_steps")
+RESCAN_THREADS = 128  # threads per block of rescan_steps_kernel
+#: About eight blocks of 128 threads on each of the card's 132 SMs.
+_RESCAN_WAVE = 1056
+
+
+def rescan_counter(unroll: int = 64, spec: bool = True) -> str:
+    """The launch counter of the rescans in a compile form:
+    ``rescan_steps``, ``rescan_steps_u8``, …, ``rescan_steps_nospec``.
+    They launch from the one-chain hit-buffer library of that form
+    (:func:`hitbuf_library`)."""
+    return "rescan_steps" + csrc.form_suffix(unroll, spec)
+
+
+def rescan_geometry(n_slots: int, tile: int) -> Tuple[int, int]:
+    """(iters, blocks per slot) of ``rescan_steps_kernel`` for ``n_slots``
+    steps of ``tile`` nonces: each block walks 128·``iters`` consecutive
+    offsets of its step, one nonce per thread per iteration, with
+    ``iters`` up to 32 (the per-thread work of the hit-buffer scan at
+    2^24), fewer while the grid would not fill the card: one 8192-nonce
+    step spreads over 64 blocks, one nonce a thread."""
+    per_slot = -(-tile // RESCAN_THREADS)  # blocks a slot at one nonce each
+    iters = max(1, min(32, n_slots * per_slot // _RESCAN_WAVE))
+    return iters, -(-tile // (RESCAN_THREADS * iters))
+
+
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def _ticket_counters(device: torch.device, stream, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed per-slot ticket counters for the launches on
+    ``stream``: zeroed once, on that stream, when made; each launch sets
+    the counters it drew back to 0, and launches on one stream never
+    overlap, so no launch needs a memset."""
+    key = (device, stream.cuda_stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < n:
+            size = max(n, 2 * t.numel() if t is not None else 1024)
+            t = _tickets[key] = torch.zeros(size, dtype=torch.int32,
+                                            device=device)
+        return t
+
+
+def rescan_steps(job, slots, *, k: int, tile: int, max_hits: int,
+                 unroll: int = 64, spec: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rescan_steps_plain`'s contract on the tensors' device. CPU
+    tensors take the plain version; CUDA tensors (job uint32 (16k+13,),
+    slots int32 (S,)) launch ``rescan_steps_kernel`` once, from the
+    one-chain hit-buffer library in the compile form ``unroll``/``spec``
+    (every form computes the same function), on the current stream,
+    without synchronising. An empty slot list launches nothing.
+
+    Replaces the tile hasher's per-step ``scan_batch`` + ``hitbuf_compact``
+    pairs, i.e. the reference's ``_tile_rescan`` (``bitcoin_miner_tpu/
+    backends/tpu.py``: ``make_scan_fn`` over one step, ``sha256_jax.py::
+    _scan_batch`` and its ordered append) once per candidate step. Bound:
+    32-bit integer operations (:func:`bound_ms` in exact mode over the
+    slots' nonces). Design in ``csrc/scan_hitbuf.cu``."""
+    device = _device_of(job)
+    if device.type == "cpu":
+        _check_hitbuf_form(1, unroll, spec)
+        return rescan_steps_plain(job, slots, k=k, tile=tile,
+                                  max_hits=max_hits)
+    _check_rescan(k, tile, max_hits)
+    csrc.check_tensor(job, device, torch.uint32, (16 * k + 13,))
+    n_slots = slots.shape[0] if slots.dim() == 1 else -1
+    csrc.check_tensor(slots, device, torch.int32, (n_slots,))
+    library = hitbuf_library(1, unroll, spec)
+    name = rescan_counter(unroll, spec)
+    hits = torch.empty((n_slots, max_hits), dtype=torch.uint32, device=device)
+    count = torch.empty((n_slots,), dtype=torch.int32, device=device)
+    if n_slots == 0:
+        return hits, count
+    iters, bps = rescan_geometry(n_slots, tile)
+    if n_slots * bps >= 1 << 31:
+        raise ValueError(f"{n_slots} slots of {tile} nonces exceed one grid")
+    lib = csrc.load(library)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        scratch = [0, 0, 0]  # block slots, their counts, tickets
+        if bps > 1:
+            blk_hits = torch.empty(n_slots * bps * max_hits,
+                                   dtype=torch.uint32, device=device)
+            blk_counts = torch.empty(n_slots * bps, dtype=torch.int32,
+                                     device=device)
+            tickets = _ticket_counters(device, stream, n_slots)
+            scratch = [blk_hits.data_ptr(), blk_counts.data_ptr(),
+                       tickets.data_ptr()]
+        csrc.check(lib.rescan_steps_launch(
+            job.data_ptr(), k, slots.data_ptr(), n_slots, tile, max_hits,
+            iters, bps, *scratch, hits.data_ptr(), count.data_ptr(),
+            stream.cuda_stream), name)
+        csrc.launch_counter(name).add()
+    return hits, count
 
 
 def hitbuf_compact_plain(blk_hits: torch.Tensor, blk_counts: torch.Tensor,

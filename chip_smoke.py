@@ -12,11 +12,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. holds every kernel against its plain PyTorch version on the card at the
    main path's shapes (2^24-nonce dispatches, the genesis job, a limit
    that cuts a step, a base near 2^32, a hit-buffer overflow), the tile
-   scan at K = 1, 2, 3, 4, 8 and the hit-buffer scan at K = 1, 2, 4 —
-   exact equality, since every output is an integer; then the tile
-   kernel's layouts (regchain, wsplit, wstage, vroll, vroll-db at K = 1,
-   2, 4, 8; chain passes of 2 at K = 4; two nonces in flight at K = 2;
-   steps of 128 and 256 nonces) against the same plain version;
+   scan at K = 1, 2, 3, 4, 8, the hit-buffer scan at K = 1, 2, 4 and the
+   tile hasher's batched rescan ``rescan_steps`` at 1 slot (the genesis
+   step), the ~1200 candidate steps of an easy 2^24 dispatch (K = 1, 2)
+   and the 2048 of a regtest one — exact equality, since every output is
+   an integer; then the tile kernel's layouts (regchain, wsplit, wstage,
+   vroll, vroll-db at K = 1, 2, 4, 8; chain passes of 2 at K = 4; two
+   nonces in flight at K = 2; steps of 128 and 256 nonces) against the
+   same plain version;
 3. sweeps the genesis header's whole 2^32 nonce space at the difficulty-1
    target as ``--bench`` does with the command line's defaults
    (``TileCudaHasher`` in word7 mode, 2^24-nonce dispatches, the adaptive
@@ -31,7 +34,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (two chains per nonce through the K=2 tile kernel: 2^33 hashes) and
    must find and verify the solve on chain 0, and verifies any sibling
    hit on the CPU; runs the ``cuda`` backend the same way at ``--vshare
-   2`` over 2^26 nonces (the K=2 hit-buffer kernels);
+   2`` over 2^26 nonces (the K=2 hit-buffer kernels), and at K=1;
 6. mines a Stratum session as ``--pool URL --workers 4 --vshare 2``
    against a mock pool that grants the mask 0x1FFFE000: it needs ≥3
    accepted sibling shares (version bits other than the job's own) and ≥3
@@ -41,10 +44,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 7. sweeps the genesis nonce space with each layout (``--variant``) at K=1
    and at ``--vshare 2``, each finding and verifying 2083236893 and, at
    K=2, the sibling hit the baseline finds; mines the ``--vshare 2
-   --variant vroll`` session and its degraded twin as in 6;
+   --variant vroll`` session and its degraded twin as in 6; scans 2^26
+   nonces through ``TileCudaHasher`` at an easy target (~2^-12 per nonce)
+   and at regtest's (``easy_target_scan``): the rate, ``rescan_steps``
+   launches per dispatch, and the same hits as ``CudaHasher``'s;
 8. holds ``shard_min`` against its plain version, and each compile form
    (``--unroll`` 8, 16, 32 and ``--no-spec``) of the tile kernel at K = 1,
-   2 and of the hit-buffer kernel at K = 1 against the plain scans of 2;
+   2, of the hit-buffer kernel at K = 1 and of ``rescan_steps`` against
+   the plain versions of 2;
    sweeps 2^28 genesis nonces through ``cli.bench`` in each form;
 9. shards: over every card when there are two or more, else over the one
    card named four times (printed first). A 4-shard ``ShardedScan`` (tile
@@ -62,11 +69,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    main``): CUDA-event times, the SM clock sampled meanwhile, the SASS of
    its group loop per pipe and the measured lanes per SM and clock;
 11. times each kernel with CUDA events beside its plain version and its
-   bound: the tile scan in every layout, form and K it drives, and
-   ``shard_min``; beside the scan kernels' operation bound, their SASS per
-   nonce per pipe (the nonce loop of ``scan_tile``, ``scan_tile_k2`` and
-   ``scan_hitbuf``, against ``ops_per_nonce``) and the bound of those
-   instructions at the same peak rates (``sass_bound_ms``).
+   bound: the tile scan in every layout, form and K it drives,
+   ``rescan_steps`` at the sizes of 2, and ``shard_min``; beside the scan
+   kernels' operation bound, their SASS per nonce per pipe (the nonce loop
+   of ``scan_tile``, ``scan_tile_k2`` and ``scan_hitbuf``, against
+   ``ops_per_nonce``) and the bound of those instructions at the same peak
+   rates (``sass_bound_ms``).
 
 With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
@@ -74,7 +82,8 @@ single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 
 Phases 3 to 7, 9's sweeps, session and ladder, and 10's probe run are the
 main path: the launch counts are set to 0 just before each and read just
-after, and each kernel must have launched.
+after, and each kernel must have launched. No tile hasher launches the
+hit-buffer kernels there: its rescans are ``rescan_steps``.
 Every phase prints a JSON line; the kernel table and the card follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
@@ -120,6 +129,14 @@ def launched(counts: dict) -> dict:
     return {name: n for name, n in counts.items() if n}
 
 
+def no_hitbuf_pair(counts: dict) -> None:
+    """A tile hasher's phase launches no hit-buffer kernel: its rescans
+    are ``rescan_steps``."""
+    pair = {name: n for name, n in counts.items()
+            if n and name.startswith(("scan_hitbuf", "hitbuf_compact"))}
+    assert not pair, f"a tile hasher launched the hit-buffer pair: {pair}"
+
+
 def tile_chains(name: str) -> int:
     """K of a tile library's name (``scan_tile`` 1, ``scan_tile_k2`` and
     ``scan_tile_vroll_k2_g1_i1`` 2)."""
@@ -136,7 +153,8 @@ def kernel_of(mangled: str) -> tuple:
         return "int_probe_kernel", f"ilp{probe.group(1)}"
     kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
                        r"|scan_hitbuf_kernel|hitbuf_compact_kernel"
-                       r"|shard_min_kernel)", mangled).group(1)
+                       r"|rescan_steps_kernel|shard_min_kernel)",
+                       mangled).group(1)
     mode = re.search(r"Lb([01])E", mangled)
     return kernel, (("word7" if mode.group(1) == "1" else "exact")
                     if mode else None)
@@ -248,6 +266,8 @@ class Smoke:
         self.kernels: dict = {}
         self.plain: dict = {}  # (k, case) -> the plain tile scan's outputs
         self.plain_hitbuf: dict = {}  # case -> the plain hit-buffer scan's
+        #: case -> (job, slots, the plain rescan's outputs, its nonces)
+        self.rescans: dict = {}
         self.sweep_mhs: dict = {}  # phase -> its sweep rate
         n = torch.cuda.device_count()
         #: the shards of the multi-device phases: every card, or one card
@@ -364,6 +384,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     tile = pkg.sha256_tile
     layouts = tile_layouts(tile)
     ptxas_of: dict = {}  # (library, mode) -> its ptxas row
+    ptxas_of_rows: list = []  # every ptxas row
     occupancy_of: dict = {}  # library -> mode -> launch shape
     #: library -> mode -> SASS instructions per pipe in the nonce loop (one
     #: nonce an iteration), beside ops_per_nonce
@@ -395,6 +416,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     genesis_version = int.from_bytes(genesis76[:4], "little")
     diff1 = pkg.nbits_to_target(0x1D00FFFF)
     easy = pkg.difficulty_to_target(1 / (1 << 20))  # ~2^-12 per nonce
+    regtest = pkg.nbits_to_target(0x207FFFFF)  # about half of all hashes
     header = bytes(range(76))
     top_base = (1 << 32) - DISPATCH + 777  # the range wraps past 2^32
     cut = DISPATCH - 3 * 8192 - 1234  # cuts a step; 3 steps wholly past
@@ -412,7 +434,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         logs = pkg.csrc.build(names)
         build_seconds = time.perf_counter() - t0
         rows = ptxas_table(logs)
-        ptxas_of.update(((r["library"], r["mode"]), r) for r in rows)
+        ptxas_of.update(((r["library"], r["mode"]), r) for r in rows
+                        if r["kernel"] != "rescan_steps_kernel")
+        ptxas_of_rows.extend(rows)
         for name in names:
             if name.startswith("scan_tile"):
                 occupancy_of[name] = tile_occupancy(pkg.csrc, name)
@@ -483,6 +507,27 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
          GENESIS_NONCE - 4000, 8192, False, 8192, 1024),
     ]
 
+    def rescan_nonces(slots, k, limit, tile=8192):
+        """The nonces a rescan of ``slots`` hashes: each step's range
+        below ``limit``."""
+        steps = slots.cpu().to(torch.int64) // k
+        return int((limit - steps * tile).clamp(0, tile).sum())
+
+    def rescan_inputs():
+        """(label, k, job, slots, limit) of the batched rescan's cases: the
+        genesis step (word7's one candidate), the multi-hit steps of the
+        easy exact dispatch at K = 1, 2, and every step of a regtest
+        dispatch (each holds about 4096 hits)."""
+        base = GENESIS_NONCE - (1 << 23)
+        yield ("genesis_s1", 1, s.job(genesis76, diff1, base, DISPATCH),
+               [(GENESIS_NONCE - base) // 8192], DISPATCH)
+        for k in (1, 2):
+            counts = s.plain[k, "easy_cut_top_exact"][0].cpu()
+            yield (f"easy_k{k}", k, s.job(header, easy, top_base, cut, k),
+                   torch.nonzero(counts > 1).flatten().tolist(), cut)
+        yield ("regtest", 1, s.job(header, regtest, 12345, DISPATCH),
+               list(range(DISPATCH // 8192)), DISPATCH)
+
     def kernels_vs_plain():
         checks = []
         for label, h, t, base, limit, word7 in tile_cases:
@@ -548,6 +593,23 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                     assert GENESIS_NONCE in got[0][0].cpu().tolist(), label
                 checks.append({"kernel": f"scan_hitbuf_k{k}", "case": label,
                                "counts": counts})
+        # The tile hasher's batched rescan, on the job blocks above.
+        for label, k, job, slots, limit in rescan_inputs():
+            slots = torch.tensor(slots, dtype=torch.int32, device=s.dev)
+            kw = dict(k=k, tile=8192, max_hits=64)
+            got = pkg.rescan_steps(job, slots, **kw)
+            want = pkg.rescan_steps_plain(job, slots, **kw)
+            torch.cuda.synchronize()
+            s.compare("rescan_steps", got, want)
+            nonces = rescan_nonces(slots, k, limit)
+            s.rescans[label] = (job, slots, want, k, nonces)
+            checks.append({"kernel": "rescan_steps", "case": label, "k": k,
+                           "slots": len(slots), "nonces": nonces,
+                           "geometry": pkg.rescan_geometry(len(slots), 8192),
+                           "hits": int(want[1].sum()),
+                           "slots_over_max_hits": int((want[1] > 64).sum())})
+        assert 1000 < len(s.rescans["easy_k1"][1]) < 1400, "easy dispatch"
+        assert int(s.rescans["regtest"][2][1].min()) > 64, "regtest"
         return {"checks": checks, "tolerance": "exact (integers)"}
 
     def variants_vs_plain():
@@ -613,11 +675,13 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert out["verified"], f"genesis nonce not found: {out['nonces']}"
         assert out["hashes"] == 1 << 32 and out["nonce_start"] == 0
         for name, n in counts.items():
-            if name in ("scan_tile", "scan_hitbuf", "hitbuf_compact"):
+            if name in ("scan_tile", "rescan_steps"):
                 assert n > 0, f"{name} never launched in the genesis sweep"
             else:
                 assert n == 0, f"{name} launched in the one-chain sweep"
         assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
+        # At most one rescan launch per dispatch (one card).
+        assert counts["rescan_steps"] <= counts["scan_tile"], counts
         s.sweep_mhs[1] = out["mhs"]
         return {"mhs": out["mhs"], "requests": out["dispatches"],
                 "sweep_seconds": out["seconds"], "hits": out["nonces"],
@@ -636,6 +700,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert not any(n for name, n in counts.items() if name.startswith(
             ("scan_tile", "scan_hitbuf_k", "hitbuf_compact_k"))
             and name != "scan_tile_k2"), counts
+        no_hitbuf_pair(counts)
+        assert 0 < counts["rescan_steps"] <= counts["scan_tile_k2"], counts
         siblings = []
         for version, nonce in out["version_hits"]:
             header80 = (version.to_bytes(4, "little") + genesis76[4:]
@@ -667,10 +733,16 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
     def cuda_backend_window():
         hasher = pkg.CudaHasher(device="cuda")
+        s.reset_counts()
         out = pkg.cli.run_bench(hasher, 1 << 26, batch_size=DISPATCH)
+        counts = s.read_counts()
         assert out["verified"], out["nonces"]
+        assert counts["scan_hitbuf"] == (1 << 26) // DISPATCH, counts
+        assert counts["hitbuf_compact"] == counts["scan_hitbuf"], counts
+        assert not counts["rescan_steps"] and not counts["scan_tile"], counts
         return {"backend": "cuda", "mhs": out["mhs"],
-                "dispatches": out["dispatches"], "hits": out["nonces"]}
+                "dispatches": out["dispatches"], "hits": out["nonces"],
+                "launches": launched(counts)}
 
     def stratum_session():
         s.reset_counts()
@@ -679,6 +751,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert counts["scan_tile"] > 0, "scan_tile never launched"
         assert not any(n for name, n in counts.items() if "_k" in name), (
             f"a K>1 kernel launched in the one-chain session: {counts}")
+        no_hitbuf_pair(counts)
         return {**result, "launches": launched(counts)}
 
     def stratum_session_vshare():
@@ -688,6 +761,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         counts = s.read_counts()
         assert counts["scan_tile_k2"] > 0, "scan_tile_k2 never launched"
         assert counts["scan_tile"] == 0, counts
+        no_hitbuf_pair(counts)
         assert result["sibling_accepted"] >= 3, result
         assert result["chain0_accepted"] >= 3, result
         return {**result, "launches": launched(counts)}
@@ -700,6 +774,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert counts["scan_tile"] > 0, counts
         assert not any(n for name, n in counts.items() if "_k" in name), (
             f"a K>1 kernel launched in degraded mode: {counts}")
+        no_hitbuf_pair(counts)
         assert result["sibling_accepted"] == 0, result
         return {**result, "launches": launched(counts)}
 
@@ -721,7 +796,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 tiles = {n: c for n, c in counts.items()
                          if n.startswith("scan_tile") and c}
                 assert tiles == {name: (1 << 32) // DISPATCH}, counts
-                assert counts["scan_hitbuf"] > 0, counts  # the rescans
+                assert counts["rescan_steps"] > 0, counts  # the rescans
+                no_hitbuf_pair(counts)
                 siblings = [tuple(v) for v in out["version_hits"]]
                 if k == 2:
                     assert SIBLING_HIT in siblings, (name, siblings)
@@ -752,6 +828,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             tiles = {n for n, c in counts.items()
                      if n.startswith("scan_tile") and c}
             assert tiles == {tile.tile_library(k, "vroll")}, counts
+            no_hitbuf_pair(counts)
             if mask:
                 assert result["sibling_accepted"] >= 3, result
                 assert result["chain0_accepted"] >= 3, result
@@ -759,6 +836,39 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 assert result["sibling_accepted"] == 0, result
             out[label] = {**result, "launches": launched(counts)}
         return out
+
+    def easy_target_scan():
+        """``TileCudaHasher.scan`` over 2^26 nonces at the easy target and
+        at regtest's, where most or all 8192-nonce steps hold several hits:
+        three timed scans each after a warm-up one, ``rescan_steps``
+        launches per dispatch, and the same hits as ``CudaHasher`` (the
+        hit-buffer kernel at 2^24) over the same range."""
+        n = 1 << 26
+        dispatches = n // DISPATCH
+        hasher = pkg.TileCudaHasher(device="cuda")
+        runs = []
+        for label, target in (("easy", easy), ("regtest", regtest)):
+            hasher.scan(header, 0, n, target)  # warm-up
+            s.reset_counts()
+            seconds = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = hasher.scan(header, 1000, n, target)
+                seconds.append(time.perf_counter() - t0)
+            counts = s.read_counts()
+            want = pkg.CudaHasher(device="cuda").scan(header, 1000, n, target)
+            assert (got.nonces, got.total_hits, got.hashes_done) == (
+                want.nonces, want.total_hits, want.hashes_done), label
+            assert counts["scan_tile"] == 3 * dispatches, counts
+            assert 0 < counts["rescan_steps"] <= counts["scan_tile"], counts
+            no_hitbuf_pair(counts)
+            runs.append({"target": label, "nonces": n, "dispatches": dispatches,
+                         "mhs": [n / t / 1e6 for t in seconds],
+                         "seconds": seconds, "total_hits": got.total_hits,
+                         "rescan_launches_per_dispatch":
+                             counts["rescan_steps"] / counts["scan_tile"],
+                         "launches": launched(counts)})
+        return {"runs": runs}
 
     def verify_sibling(version_hits) -> list:
         """The sweep's sibling hits, each verified on the CPU; the genesis
@@ -816,6 +926,14 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 torch.cuda.synchronize()
                 s.compare(name, got, s.plain_hitbuf[label])
                 checks.append((name, label))
+            # The rescans launch from the same library, in the same form.
+            for label in ("genesis_s1", "easy_k1", "easy_k2"):
+                job, slots, want, k, _ = s.rescans[label]
+                got = pkg.rescan_steps(job, slots, k=k, tile=8192,
+                                       max_hits=64, unroll=unroll, spec=spec)
+                torch.cuda.synchronize()
+                s.compare(pkg.rescan_counter(unroll, spec), got, want)
+                checks.append((pkg.rescan_counter(unroll, spec), label))
         return {"checks": len(checks),
                 "libraries": sorted({name for name, _ in checks}),
                 "tolerance": "exact (integers)"}
@@ -839,13 +957,15 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             counts = s.read_counts()
             assert out["verified"] and out["hashes"] == k * n, (name, out)
             kernels = {c: v for c, v in counts.items() if v and c.startswith(
-                ("scan_tile", "scan_hitbuf"))}
+                ("scan_tile", "scan_hitbuf", "rescan_steps"))}
             if hitbuf:
                 assert kernels == {name: n // DISPATCH}, (name, counts)
             else:
                 assert kernels.pop(name) == n // DISPATCH, (name, counts)
-                # The rescans run the one-chain hit buffer in the same form.
-                assert set(kernels) <= {form_hitbufs[unroll, spec]}, counts
+                # The rescans, if any, run in the same form.
+                assert set(kernels) <= {pkg.rescan_counter(unroll, spec)}, (
+                    counts)
+                no_hitbuf_pair(counts)
             if k == 2:
                 verify_sibling(out["version_hits"])
             runs.append({"library": name, "argv": argv[3:], "mhs": out["mhs"],
@@ -964,6 +1084,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             # One launch per shard and dispatch, whatever the shard count.
             assert counts[name] == (1 << 32) // DISPATCH, counts
             assert counts["shard_min"] == (1 << 32) // DISPATCH, counts
+            no_hitbuf_pair(counts)
             siblings = verify_sibling(out["version_hits"]) if k == 2 else []
             runs.append({"vshare": k, "mhs": out["mhs"],
                          "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[k],
@@ -982,6 +1103,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                                          devices=s.shards), 1)
         assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
         assert not counts["shard_min"], counts
+        no_hitbuf_pair(counts)
         return {"children": hasher.n_children,
                 "stream_depth": hasher.stream_depth, "mhs": out["mhs"],
                 "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[1],
@@ -1010,6 +1132,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         counts = s.read_counts()
         assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
         assert counts["scan_tile"] == counts["shard_min"], counts
+        no_hitbuf_pair(counts)
         return {**result, "launches": launched(counts)}
 
     def mesh_native_ladder():
@@ -1048,6 +1171,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         rung("restored")
         counts = s.read_counts()
         assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
+        assert counts["rescan_steps"] > 0, counts  # the easy scans
+        no_hitbuf_pair(counts)
         return {"rungs": rungs, "libraries": h.compile_count,
                 "launches": launched(counts)}
 
@@ -1175,17 +1300,21 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         small = dict(inner_size=1024, n_steps=8, max_hits=64)
         big_parts = s.hitbuf_parts(g_job)
         big = dict(inner_size=1 << 18, n_steps=64, max_hits=64)
+        # The hit-buffer scan at the cuda backend's 2^24 dispatch (with its
+        # compaction), and at the one 8192-nonce step that the tile hasher
+        # rescanned with it before rescan_steps.
         rows["scan_hitbuf"] = {
-            "ms": s.time_ms(lambda: pkg.scan_batch(*tile_parts, **small), 200),
-            "plain_ms": s.plain_ms(lambda: pkg.scan_batch_plain(*tile_parts,
-                                                                **small)),
-            "bound_ms": bound(8192, False),
-            "nonces": 8192, "mode": "exact, one 8192-nonce step (rescan)",
-            "ms_2p24_word7": s.time_ms(
+            "ms": s.time_ms(
                 lambda: pkg.scan_batch(*big_parts, word7=True, **big), 20),
-            "plain_ms_2p24_word7": s.plain_ms(
+            "plain_ms": s.plain_ms(
                 lambda: pkg.scan_batch_plain(*big_parts, word7=True, **big)),
-            "bound_ms_2p24_word7": bound(DISPATCH, True),
+            "bound_ms": bound(DISPATCH, True),
+            "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
+            "ms_8192_exact": s.time_ms(
+                lambda: pkg.scan_batch(*tile_parts, **small), 200),
+            "plain_ms_8192_exact": s.plain_ms(
+                lambda: pkg.scan_batch_plain(*tile_parts, **small)),
+            "bound_ms_8192_exact": bound(8192, False),
         }
         for (unroll, spec), name in form_hitbufs.items():
             ms = s.time_ms(lambda: pkg.scan_batch(
@@ -1193,9 +1322,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             sp = form_spec(unroll, spec)
             rows[name] = {
                 "ms": ms,
-                "plain_ms": rows["scan_hitbuf"]["plain_ms_2p24_word7"],
+                "plain_ms": rows["scan_hitbuf"]["plain_ms"],
                 "bound_ms": bound(DISPATCH, True),
-                "ms_vs_default_form": ms / rows["scan_hitbuf"]["ms_2p24_word7"],
+                "ms_vs_default_form": ms / rows["scan_hitbuf"]["ms"],
                 "unroll": unroll, "spec": sp,
                 "ops_per_nonce": pkg.ops_per_nonce(True, 1).total,
                 "ops_per_nonce_form": pkg.ops_per_nonce(True, 1,
@@ -1205,6 +1334,47 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 **{f"registers_{m}": ptxas_of.get((name, m), {}).get(
                     "registers") for m in ("word7", "exact")},
             }
+        # The batched rescan: its headline at the ~1200 multi-hit steps of
+        # an easy 2^24 dispatch (the mesh ladder's and easy_target_scan's
+        # case), beside the genesis step alone (the per-step pair it
+        # replaced is scan_hitbuf's ms_8192_exact), the K=2 easy dispatch
+        # and a regtest dispatch; each bound over the nonces its steps hold.
+        rescan_ptxas = [r for r in ptxas_of_rows
+                        if r["kernel"] == "rescan_steps_kernel"
+                        and r["library"] == "scan_hitbuf"]
+        for label, reps in (("easy_k1", 20), ("genesis_s1", 200),
+                            ("easy_k2", 20), ("regtest", 20)):
+            job, slots, _, k, nonces = s.rescans[label]
+            kw = dict(k=k, tile=8192, max_hits=64)
+            ms = s.time_ms(lambda: pkg.rescan_steps(job, slots, **kw), reps)
+            part = {"ms": ms, "plain_ms": s.plain_ms(
+                        lambda: pkg.rescan_steps_plain(job, slots, **kw)),
+                    "bound_ms": bound(nonces, False), "slots": len(slots),
+                    "nonces": nonces, "k": k,
+                    "geometry": pkg.rescan_geometry(len(slots), 8192)}
+            if label == "easy_k1":
+                rows["rescan_steps"] = {
+                    **part, "bound_by": "operations",
+                    "mode": "exact, the multi-hit steps of an easy 2^24 "
+                            "dispatch",
+                    "registers": rescan_ptxas[0].get("registers"),
+                    "spill_bytes": rescan_ptxas[0].get("spill_stores")}
+            else:
+                rows["rescan_steps"].update(
+                    {f"{key}_{label}": v for key, v in part.items()})
+        for (unroll, spec), _ in form_hitbufs.items():
+            job, slots, _, k, nonces = s.rescans["easy_k1"]
+            ms = s.time_ms(lambda: pkg.rescan_steps(
+                job, slots, k=k, tile=8192, max_hits=64, unroll=unroll,
+                spec=spec), 20)
+            rows[pkg.rescan_counter(unroll, spec)] = {
+                "ms": ms, "plain_ms": rows["rescan_steps"]["plain_ms"],
+                "bound_ms": bound(nonces, False),
+                "ms_vs_default_form": ms / rows["rescan_steps"]["ms"],
+                "unroll": unroll, "spec": form_spec(unroll, spec),
+                "slots": len(slots), "nonces": nonces,
+                "mode": "exact, the multi-hit steps of an easy 2^24 "
+                        "dispatch"}
         # shard_min over one K=1 shard's 2048 tile slots, as the sharded
         # sweep launches it.
         mins = torch.randint(0, 1 << 32, (DISPATCH // 8192,),
@@ -1241,9 +1411,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "hashes_per_s": DISPATCH * k / ms * 1e3,
                 "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
             }
-        # The compaction alone: on the rescan's 32 block slots at K=1, on
-        # the K x 2048 block slots of a 2^24 dispatch at K = 2 and 4.
-        for k, capacity in ((1, 8192), (2, DISPATCH), (4, DISPATCH)):
+        # The compaction alone: on the K x 2048 block slots of a 2^24
+        # dispatch at K = 1, 2 and 4.
+        for k, capacity in ((1, DISPATCH), (2, DISPATCH), (4, DISPATCH)):
             _, n_blocks = pkg.hitbuf_geometry(capacity)
             shape = (n_blocks,) if k == 1 else (k, n_blocks)
             blk_counts = torch.zeros(shape, dtype=torch.int32, device=s.dev)
@@ -1275,9 +1445,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             for mode, counts in modes.items():
                 row[f"sass_per_nonce_{mode}"] = counts
             if name == "scan_hitbuf":
-                row["sass_bound_ms"] = sass_bound(8192, modes["exact"])
-                row["sass_bound_ms_2p24_word7"] = sass_bound(
-                    DISPATCH, modes["word7"])
+                row["sass_bound_ms"] = sass_bound(DISPATCH, modes["word7"])
+                row["sass_bound_ms_8192_exact"] = sass_bound(8192,
+                                                             modes["exact"])
             else:
                 row["sass_bound_ms"] = sass_bound(DISPATCH, modes["word7"])
                 row["sass_bound_ms_exact"] = sass_bound(DISPATCH,
@@ -1324,6 +1494,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("stratum_session_degraded", stratum_session_degraded)
     s.phase("genesis_sweep_variants", genesis_sweep_variants)
     s.phase("stratum_session_variant", stratum_session_variant)
+    s.phase("easy_target_scan", easy_target_scan)
     s.phase("shard_min_vs_plain", shard_min_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
@@ -1357,6 +1528,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             # in the two XLA bodies).
             return ("bitcoin_miner_tpu_torch/ops/csrc/shard_min.cu",
                     "bitcoin_miner_tpu/parallel/mesh.py:291")
+        if name.startswith("rescan_steps"):
+            # _rescan_tile: _scan_batch (sha256_jax.py:780) once per step.
+            return hitbuf_src, "bitcoin_miner_tpu/backends/tpu.py:1102"
         one = tile_chains(name) == 1
         if name.startswith("scan_hitbuf"):
             return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
@@ -1364,7 +1538,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
                             + ("826" if one else "896"))
 
-    main_path = ["scan_tile", "scan_hitbuf", "hitbuf_compact", "scan_tile_k2",
+    main_path = ["scan_tile", "rescan_steps", "scan_hitbuf", "hitbuf_compact",
+                 "scan_tile_k2",
                  "scan_hitbuf_k2", "hitbuf_compact_k2",
                  *(tile.tile_library(k, v) for v in tile.VARIANTS[1:]
                    for k in (1, 2)),
@@ -1578,6 +1753,10 @@ class _Package:
         self.ops_per_nonce = sha256_torch.ops_per_nonce
         self.sha256_tile = sha256_tile
         self.hitbuf_library = sha256_torch.hitbuf_library
+        self.rescan_steps = sha256_torch.rescan_steps
+        self.rescan_steps_plain = sha256_torch.rescan_steps_plain
+        self.rescan_counter = sha256_torch.rescan_counter
+        self.rescan_geometry = sha256_torch.rescan_geometry
         self.shard_min, self.shard_min_plain = shard_min, shard_min_plain
         self.mesh = mesh
         self.scheduler_for = scheduler_for

@@ -32,6 +32,9 @@ from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     hitbuf_compact,
     hitbuf_compact_plain,
     hitbuf_library,
+    rescan_counter,
+    rescan_steps,
+    rescan_steps_plain,
     scan_batch,
     scan_batch_plain,
     scan_batch_vshare,
@@ -358,3 +361,76 @@ def test_int_probe_matches_plain(cuda, ilp, groups, steps):
     assert tiles.device == cuda and tuple(tiles.shape) == (steps, 8, 128)
     want = int_probe.probe_plain(seed, groups, ilp)
     assert _equal(list(tiles.cpu()), [want] * steps)
+
+
+# The batched rescan: (S, tile) with tile 8192 (several blocks a slot,
+# merged by the last) and 3072 (one block a slot at S = 2048), over a
+# dispatch of 2048 steps whose range wraps past 2^32 and whose limit cuts
+# the last step; with several slots, one step lies wholly past the limit.
+# At the regtest target every other slot overflows max_hits.
+RESCAN_SIZES = [(1, 8192), (3, 8192), (2048, 8192), (1, 3072), (3, 3072),
+                (2048, 3072)]
+REGTEST = nbits_to_target(0x207FFFFF)
+
+
+def _rescan_case(cuda, k, n_slots, tile, target):
+    n_steps = 2048
+    limit = n_steps * tile - 1234
+    job = _k_job(("", bytes(range(76)), target, (1 << 32) - 12345, limit),
+                 k, cuda)
+    rng = torch.Generator().manual_seed(n_slots * tile + k)
+    slots = torch.randperm(n_steps * k, generator=rng)[:n_slots]
+    slots[-1] = n_steps * k - 1  # the cut step's last chain
+    if n_slots > 1:
+        slots[0] = n_steps * k  # a step past the limit: no hits
+    return job, slots.to(torch.int32).to(cuda)
+
+
+@pytest.mark.parametrize("target, max_hits", [(EASY, 4), (REGTEST, 64)],
+                         ids=["easy", "regtest"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n_slots, tile", RESCAN_SIZES,
+                         ids=[f"s{s}-t{t}" for s, t in RESCAN_SIZES])
+def test_rescan_steps_matches_plain(cuda, n_slots, tile, k, target, max_hits):
+    job, slots = _rescan_case(cuda, k, n_slots, tile, target)
+    kw = dict(k=k, tile=tile, max_hits=max_hits)
+    counter = csrc.launch_counter("rescan_steps")
+    before = counter.value
+    got = rescan_steps(job, slots, **kw)
+    assert counter.value == before + 1
+    want = rescan_steps_plain(job, slots, **kw)
+    assert _equal(got, want)
+    inside = want[1][1:] if n_slots > 1 else want[1]
+    if n_slots > 1:
+        assert int(want[1][0]) == 0
+    if target is REGTEST:
+        assert int(inside.min()) > max_hits
+    # Launched again on the same stream: the slots' tickets were reset.
+    assert _equal(rescan_steps(job, slots, **kw), want)
+
+
+@pytest.mark.parametrize("n_slots, tile", [(1, 8192), (2048, 8192),
+                                           (3, 3072)])
+def test_rescan_steps_rolled_form_matches_plain(cuda, n_slots, tile):
+    job, slots = _rescan_case(cuda, 1, n_slots, tile, REGTEST)
+    kw = dict(k=1, tile=tile, max_hits=64)
+    counter = csrc.launch_counter(rescan_counter(8, True))
+    before = counter.value
+    got = rescan_steps(job, slots, unroll=8, **kw)
+    assert counter.value == before + 1
+    assert _equal(got, rescan_steps_plain(job, slots, **kw))
+
+
+def test_rescan_steps_on_a_side_stream(cuda):
+    """On another stream than the job block was made on, as the tile
+    hasher launches it: the same result, and no launch for no slots."""
+    job, slots = _rescan_case(cuda, 2, 3, 8192, EASY)
+    side = torch.cuda.Stream(cuda, priority=-1)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = rescan_steps(job, slots, k=2, tile=8192, max_hits=8)
+        none = rescan_steps(job, slots[:0], k=2, tile=8192, max_hits=8)
+    side.synchronize()
+    assert none[0].shape == (0, 8)
+    assert _equal(got, rescan_steps_plain(job, slots, k=2, tile=8192,
+                                          max_hits=8))
