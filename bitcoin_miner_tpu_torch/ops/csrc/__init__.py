@@ -5,7 +5,7 @@ set of defines: the number K of version-rolled chains (``-DVSHARE=K``,
 1 ≤ K ≤ 8), for the tile kernel's layouts ``-DVARIANT``, ``-DCGROUP`` and
 ``-DINTERLEAVE``, and for a compile form ``-DUNROLL`` or ``-DSPEC``
 (:func:`form_defines`). The baseline libraries (``scan_tile``,
-``scan_tile_k2``, …, ``scan_hitbuf``, …, ``shard_min``) are known up front
+``scan_tile_k2``, …, ``scan_hitbuf``, …) are known up front
 (:data:`SOURCES`); a layout's or a form's library is registered by
 :func:`register` when it is first asked for, and the integer throughput
 probe's (``int_probe``) when its module is imported. Each builds into its own
@@ -57,7 +57,6 @@ SOURCES: Dict[str, Tuple[str, Tuple[Tuple[str, int], ...]]] = {
        for kernel, source in (("scan_tile", "scan_tile.cu"),
                               ("scan_hitbuf", "scan_hitbuf.cu"))
        for k in range(1, MAX_VSHARE + 1)},
-    "shard_min": ("shard_min.cu", ()),
 }
 #: The libraries :func:`build` builds when given no names.
 BASELINE = tuple(SOURCES)
@@ -101,27 +100,23 @@ _P, _I, _U, _ULL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 #: each returns cudaGetLastError() as an int.
 ENTRY_POINTS = {
     "scan_tile.cu": {
-        # job block (card), job words (host), counts, mins, n_steps, block,
-        # word7, stream
-        "scan_tile_launch": [_P, _P, _P, _P, _I, _U, _I, _P],
+        # job block (card), job words (host), counts, mins, lowest (or
+        # null), the stream's scratch (or null), n_steps, block, word7,
+        # stream
+        "scan_tile_launch": [_P, _P, _P, _P, _P, _P, _I, _U, _I, _P],
         # word7, threads*, shared bytes*, blocks per SM*
         "scan_tile_occupancy": [_I, _P, _P, _P],
     },
     "scan_hitbuf.cu": {
         # midstates, tail3, limbs, base, limit, blk_hits, blk_counts,
-        # capacity, max_hits, iters, n_blocks, word7, stream
-        "scan_hitbuf_launch": [_P, _P, _P, _P, _P, _P, _P, _ULL, _I, _I,
-                               _I, _I, _P],
-        # blk_hits, blk_counts, n_blocks, max_hits, hits, count, stream
-        "hitbuf_compact_launch": [_P, _P, _I, _I, _P, _P, _P],
+        # ticket, hits, count, lowest (or null), capacity, max_hits, iters,
+        # n_blocks, word7, stream
+        "scan_hitbuf_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _ULL, _I, _I, _I, _I, _P],
         # job block, k, slots, n_slots, tile, max_hits, iters, blocks per
         # slot, blk_hits, blk_counts, tickets, hits, count, stream
         "rescan_steps_launch": [_P, _I, _P, _I, _U, _I, _I, _I, _P, _P, _P,
                                 _P, _P, _P],
-    },
-    "shard_min.cu": {
-        # x, n, out, stream
-        "shard_min_launch": [_P, _ULL, _P, _P],
     },
     "int_probe.cu": {
         # seed, groups, steps, out, stream; one entry point per ILP

@@ -1,46 +1,56 @@
-// scan_hitbuf_kernel + hitbuf_compact_kernel: the hit-buffer scan of K
-// version-rolled chains.
+// scan_hitbuf_kernel: the hit-buffer scan of K version-rolled chains, in
+// one launch.
 //
 // Replaces the XLA scans bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch
-// (K=1) and ::_scan_batch_vshare (K>1), exact and word7 modes. Built once
-// per K with -DVSHARE=K (1 <= K <= 8), and per compile form with -DUNROLL=U
-// or -DSPEC=0 (sha256d.cuh; at K > 1 only rolled forms: the reference's
-// k-chain scan has no unfolded form). Inputs: midstates[K][8] (row 0 the
-// caller's own header), tail3(3), limbs(8), nonce_base and limit, each a
-// uint32 device buffer. Outputs per chain c: hits[c][max_hits] — the FIRST
-// max_hits hit nonces in ascending offset order, unused slots 0xFFFFFFFF —
-// and the uncapped hit count count[c], over the offsets below
-// min(limit, capacity). Nonces wrap modulo 2^32.
+// (K=1) and ::_scan_batch_vshare (K>1), exact and word7 modes, with their
+// ordered appends, and on request the jnp.min over the hit buffer of the
+// shard_map bodies of bitcoin_miner_tpu/parallel/mesh.py (:164, :220).
+// Built once per K with -DVSHARE=K (1 <= K <= 8), and per compile form
+// with -DUNROLL=U or -DSPEC=0 (sha256d.cuh; at K > 1 only rolled forms:
+// the reference's k-chain scan has no unfolded form). Inputs:
+// midstates[K][8] (row 0 the caller's own header), tail3(3), limbs(8),
+// nonce_base and limit, each a uint32 device buffer. Outputs per chain c:
+// hits[c][max_hits] — the FIRST max_hits hit nonces in ascending offset
+// order, unused slots 0xFFFFFFFF — and the uncapped hit count count[c],
+// over the offsets below min(limit, capacity); where `lowest` is not null,
+// the least word of hits[][] (0xFFFFFFFF when no chain hit). Nonces wrap
+// modulo 2^32.
 //
 // A global atomic append would keep a different subset of the hits once
-// the count exceeds max_hits, so the order is built in two kernels:
-// - scan_hitbuf_kernel: block b owns offsets [b*256*iters, (b+1)*256*iters)
-//   and walks them 256 at a time. When any thread of the block hits in any
-//   chain (__syncthreads_or), a ballot per warp and chain and the warps'
+// the count exceeds max_hits, so the order is built in two stages of one
+// launch:
+// - block b owns offsets [b*256*iters, (b+1)*256*iters) and walks them 256
+//   at a time. When any thread of the block hits in any chain
+//   (__syncthreads_or), a ballot per warp and chain and the warps'
 //   popcounts in a [K][warps] shared array give each hit its rank in its
 //   chain, so the block stores each chain's first max_hits hits in offset
-//   order into its own slot blk_hits[c][b], and its uncapped counts into
-//   blk_counts[c][b]. Blocks wholly past the limit exit after one test;
-//   nothing carries from one block to another. The K round-3 states are
-//   derived once per block into shared memory beside the midstates, and
-//   read from there where they are used.
-// - hitbuf_compact_kernel, one block per chain (gridDim.x = K): an
-//   exclusive scan of the chain's blk_counts gives each block's first rank;
-//   blocks copy their stored hits to hits[c][rank..] while rank < max_hits,
-//   and the total is count[c].
+//   order into its own block slot blk_hits[c][b], and its uncapped counts
+//   into blk_counts[c][b]. Blocks wholly past the limit stop after one
+//   test and still write their counts. The K round-3 states are derived
+//   once per block into shared memory beside the midstates, and read from
+//   there where they are used.
+// - every block then fences and draws a ticket on its stream's counter.
+//   The block that draws the last merges each chain's block slots in block
+//   order (merge_block_slots: an exclusive scan of the chain's blk_counts
+//   gives each block slot its first rank, and the slot is copied to
+//   hits[c][rank..] while rank < max_hits), takes the least word of the
+//   rows it wrote if asked, and sets the counter back to 0 for the next
+//   launch on the stream: no second launch and no memset. The block slots
+//   (K x 2048 counts at 2^24 nonces) stay in L2. The merge takes 256
+//   block slots a pass: 8 passes a chain at 2^24 nonces, 2048 at 2^32.
 //
 // Bound: 32-bit integer operations, as scan_tile_kernel (about 2.5k per
-// nonce at K=1, about 1.2k more per further chain); the compaction moves
-// K*n_blocks counts plus the hits it copies.
+// nonce at K=1, about 1.2k more per further chain); the merge moves
+// K*n_blocks counts plus the hits it copies, in the last block alone.
 //
 // rescan_steps_kernel: the tile hasher's exact re-enumeration of a
 // dispatch's candidate steps, all of them in one launch. It replaces, on
-// that path, one scan_hitbuf_kernel + hitbuf_compact_kernel pair per step:
-// the reference's _tile_rescan (bitcoin_miner_tpu/backends/tpu.py,
-// make_scan_fn over one step, i.e. sha256_jax.py::_scan_batch and its
-// ordered append) called once per candidate step. It is compiled into every
-// build of this file and launched from the one-chain libraries in each
-// compile form (scan_hitbuf, scan_hitbuf_u8, ..., scan_hitbuf_nospec).
+// that path, one hit-buffer scan per step: the reference's _tile_rescan
+// (bitcoin_miner_tpu/backends/tpu.py, make_scan_fn over one step, i.e.
+// sha256_jax.py::_scan_batch and its ordered append) called once per
+// candidate step. It is compiled into every build of this file and
+// launched from the one-chain libraries in each compile form
+// (scan_hitbuf, scan_hitbuf_u8, ..., scan_hitbuf_nospec).
 // Inputs: the dispatch's job block of k chains (16k+13 words: midstates,
 // round-3 states, tail3, limbs, nonce_base, limit; the tile kernel's) and S
 // int32 slots step*k + c. Outputs per slot s, exact mode, over chain c's
@@ -65,9 +75,7 @@
 //   several, each writes its block slot to scratch (a few KB a slot: it
 //   stays in L2), fences, and draws a ticket on the slot's counter. The
 //   block that draws the last merges the slot's block slots in block order
-//   (hitbuf_compact_kernel's exclusive scan, over one slot) and sets the
-//   counter back to 0 for the next launch on the stream: no second launch
-//   and no memset.
+//   (merge_block_slots, over one slot) and sets the counter back to 0.
 #include "sha256d.cuh"
 
 #ifndef VSHARE
@@ -78,8 +86,100 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCompactThreads = 1024;
 constexpr int kChains = VSHARE;
+constexpr int kRescanThreads = 128;
+constexpr int kRescanWarps = kRescanThreads / 32;
+
+// Exclusive-scan merge of n_blocks block slots (counts blk_counts, hits
+// blk_hits, max_hits words each) into one row of the outputs, by the block
+// of THREADS threads that drew the last ticket, one block slot per thread
+// and pass. Other blocks wrote the scratch: it is read past L1 (__ldcg).
+// Kept out of line and one slot per thread: inlined, or taking several
+// slots per thread, it made ptxas allocate the scan's nonce loop
+// otherwise, with more instructions a nonce at some K.
+template <int THREADS>
+__device__ __noinline__ void merge_block_slots(
+    const uint32_t* __restrict__ blk_hits, const int32_t* __restrict__ blk_counts,
+    int n_blocks, int max_hits, uint32_t* __restrict__ hits,
+    int32_t* __restrict__ count) {
+  constexpr int kW = THREADS / 32;
+  __shared__ uint32_t warp_sums[kW];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const uint32_t cap = static_cast<uint32_t>(max_hits);
+  uint32_t carry = 0;  // hits of all block slots before this pass
+  for (int c0 = 0; c0 < n_blocks; c0 += THREADS) {
+    const int b = c0 + threadIdx.x;
+    const uint32_t v =
+        b < n_blocks ? static_cast<uint32_t>(__ldcg(blk_counts + b)) : 0u;
+    uint32_t x = v;  // inclusive scan within the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane >= d) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of the warp totals
+      uint32_t t = lane < kW ? warp_sums[lane] : 0u;
+#pragma unroll
+      for (int d = 1; d < kW; d <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, d);
+        if (lane >= d) t += y;
+      }
+      if (lane < kW) warp_sums[lane] = t;
+    }
+    __syncthreads();
+    const uint32_t rank = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0u);
+    if (v > 0 && rank < cap) {
+      const uint32_t take = min(min(v, cap), cap - rank);
+      for (uint32_t i = 0; i < take; ++i) {
+        hits[rank + i] =
+            __ldcg(blk_hits + static_cast<size_t>(b) * max_hits + i);
+      }
+    }
+    carry += warp_sums[kW - 1];
+    __syncthreads();  // warp_sums is rewritten by the next pass
+  }
+  const uint32_t filled = min(carry, cap);
+  for (int i = threadIdx.x; i < max_hits; i += THREADS) {
+    if (static_cast<uint32_t>(i) >= filled) hits[i] = 0xFFFFFFFFu;
+  }
+  if (threadIdx.x == 0) *count = static_cast<int32_t>(carry);
+}
+
+// The tail of scan_hitbuf_kernel's last block: each chain's block slots
+// merged into its row of hits and count, then, where `lowest` is set, the
+// least word of those rows.
+template <int K>
+__device__ __forceinline__ void merge_chains(
+    const uint32_t* __restrict__ blk_hits, const int32_t* __restrict__ blk_counts,
+    int n_blocks, int max_hits, uint32_t* __restrict__ hits,
+    int32_t* __restrict__ count, uint32_t* __restrict__ lowest) {
+  for (int c = 0; c < K; ++c) {
+    merge_block_slots<kThreads>(
+        blk_hits + static_cast<size_t>(c) * n_blocks * max_hits,
+        blk_counts + static_cast<size_t>(c) * n_blocks, n_blocks, max_hits,
+        hits + static_cast<size_t>(c) * max_hits, count + c);
+  }
+  if (lowest == nullptr) return;
+  __shared__ uint32_t warp_min[kWarps];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  __syncthreads();  // the block's merged rows are written
+  uint32_t m = 0xFFFFFFFFu;
+  for (int i = threadIdx.x; i < K * max_hits; i += kThreads) {
+    m = min(m, hits[i]);
+  }
+  m = __reduce_min_sync(0xFFFFFFFFu, m);
+  if (lane == 0) warp_min[warp] = m;
+  __syncthreads();
+  if (warp == 0) {
+    m = __reduce_min_sync(0xFFFFFFFFu,
+                          lane < kWarps ? warp_min[lane] : 0xFFFFFFFFu);
+    if (lane == 0) *lowest = m;
+  }
+}
 
 template <int K, bool WORD7>
 __global__ void __launch_bounds__(kThreads)
@@ -90,6 +190,10 @@ __global__ void __launch_bounds__(kThreads)
                        const uint32_t* __restrict__ limit_p,
                        uint32_t* __restrict__ blk_hits,
                        int32_t* __restrict__ blk_counts,
+                       unsigned* __restrict__ ticket,
+                       uint32_t* __restrict__ hits,
+                       int32_t* __restrict__ count,
+                       uint32_t* __restrict__ lowest,
                        unsigned long long capacity, int max_hits,
                        int iters) {
   using L = sha256d::Layout<K>;
@@ -109,6 +213,7 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned long long n = limit < capacity ? limit : capacity;
 
   __shared__ uint32_t warp_hits[K][kWarps];
+  __shared__ bool last;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const unsigned long long start =
@@ -164,117 +269,17 @@ __global__ void __launch_bounds__(kThreads)
           static_cast<int32_t>(stored[c]);
     }
   }
-}
-
-// Block c merges chain c: blk_hits[c][n_blocks][max_hits] and
-// blk_counts[c][n_blocks] into hits[c][max_hits] and count[c].
-__global__ void __launch_bounds__(kCompactThreads)
-    hitbuf_compact_kernel(const uint32_t* __restrict__ blk_hits,
-                          const int32_t* __restrict__ blk_counts,
-                          int n_blocks, int max_hits,
-                          uint32_t* __restrict__ hits,
-                          int32_t* __restrict__ count) {
-  const size_t chain = blockIdx.x;
-  blk_hits += chain * n_blocks * max_hits;
-  blk_counts += chain * n_blocks;
-  hits += chain * max_hits;
-  __shared__ uint32_t warp_sums[kCompactThreads / 32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const uint32_t cap = static_cast<uint32_t>(max_hits);
-  uint32_t carry = 0;  // hits of all blocks before this chunk
-  for (int c0 = 0; c0 < n_blocks; c0 += kCompactThreads) {
-    const int b = c0 + threadIdx.x;
-    const uint32_t v = b < n_blocks ? static_cast<uint32_t>(blk_counts[b]) : 0u;
-    uint32_t x = v;  // inclusive scan within the warp
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals
-      uint32_t t = warp_sums[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, d);
-        if (lane >= d) t += y;
-      }
-      warp_sums[lane] = t;
-    }
-    __syncthreads();
-    const uint32_t rank = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0u);
-    if (v > 0 && rank < cap) {
-      const uint32_t take = min(min(v, cap), cap - rank);
-      for (uint32_t k = 0; k < take; ++k) {
-        hits[rank + k] = blk_hits[static_cast<size_t>(b) * max_hits + k];
-      }
-    }
-    carry += warp_sums[kCompactThreads / 32 - 1];
-    __syncthreads();  // warp_sums is rewritten by the next chunk
+  __threadfence();  // this block's slots are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    __threadfence();
   }
-  const uint32_t filled = min(carry, cap);
-  for (int i = threadIdx.x; i < max_hits; i += kCompactThreads) {
-    if (static_cast<uint32_t>(i) >= filled) hits[i] = 0xFFFFFFFFu;
-  }
-  if (threadIdx.x == 0) count[chain] = static_cast<int32_t>(carry);
-}
-
-constexpr int kRescanThreads = 128;
-constexpr int kRescanWarps = kRescanThreads / 32;
-
-// Exclusive-scan merge of slot s's n_blocks block slots (counts blk_counts,
-// hits blk_hits, max_hits words each) into its row of the outputs, by the
-// block that drew the slot's last ticket. Other blocks wrote the scratch:
-// it is read past L1 (__ldcg).
-__device__ __forceinline__ void merge_block_slots(
-    const uint32_t* __restrict__ blk_hits, const int32_t* __restrict__ blk_counts,
-    int n_blocks, int max_hits, uint32_t* __restrict__ hits,
-    int32_t* __restrict__ count) {
-  __shared__ uint32_t warp_sums[kRescanWarps];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const uint32_t cap = static_cast<uint32_t>(max_hits);
-  uint32_t carry = 0;  // hits of all block slots before this chunk
-  for (int c0 = 0; c0 < n_blocks; c0 += kRescanThreads) {
-    const int b = c0 + threadIdx.x;
-    const uint32_t v =
-        b < n_blocks ? static_cast<uint32_t>(__ldcg(blk_counts + b)) : 0u;
-    uint32_t x = v;  // inclusive scan within the warp
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals
-      uint32_t t = lane < kRescanWarps ? warp_sums[lane] : 0u;
-#pragma unroll
-      for (int d = 1; d < kRescanWarps; d <<= 1) {
-        const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, t, d);
-        if (lane >= d) t += y;
-      }
-      if (lane < kRescanWarps) warp_sums[lane] = t;
-    }
-    __syncthreads();
-    const uint32_t rank = carry + x - v + (warp > 0 ? warp_sums[warp - 1] : 0u);
-    if (v > 0 && rank < cap) {
-      const uint32_t take = min(min(v, cap), cap - rank);
-      for (uint32_t i = 0; i < take; ++i) {
-        hits[rank + i] =
-            __ldcg(blk_hits + static_cast<size_t>(b) * max_hits + i);
-      }
-    }
-    carry += warp_sums[kRescanWarps - 1];
-    __syncthreads();  // warp_sums is rewritten by the next chunk
-  }
-  const uint32_t filled = min(carry, cap);
-  for (int i = threadIdx.x; i < max_hits; i += kRescanThreads) {
-    if (static_cast<uint32_t>(i) >= filled) hits[i] = 0xFFFFFFFFu;
-  }
-  if (threadIdx.x == 0) *count = static_cast<int32_t>(carry);
+  __syncthreads();
+  if (!last) return;
+  merge_chains<K>(blk_hits, blk_counts, gridDim.x, max_hits, hits, count,
+                  lowest);
+  if (threadIdx.x == 0) *ticket = 0u;  // every block has drawn
 }
 
 // Grid: bps * S blocks of kRescanThreads. With bps == 1 the scratch and
@@ -363,41 +368,37 @@ __global__ void __launch_bounds__(kRescanThreads)
   }
   __syncthreads();
   if (!last) return;
-  merge_block_slots(blk_hits + static_cast<size_t>(s) * bps * max_hits,
-                    blk_counts + static_cast<size_t>(s) * bps, bps, max_hits,
-                    hits + static_cast<size_t>(s) * max_hits, count + s);
+  merge_block_slots<kRescanThreads>(
+      blk_hits + static_cast<size_t>(s) * bps * max_hits,
+      blk_counts + static_cast<size_t>(s) * bps, bps, max_hits,
+      hits + static_cast<size_t>(s) * max_hits, count + s);
   if (threadIdx.x == 0) tickets[s] = 0u;  // every block of s has drawn
 }
 
 }  // namespace
 
+// blk_hits, blk_counts: scratch of K * n_blocks block slots; ticket: the
+// stream's counter, 0 between launches; lowest: null unless asked for.
 extern "C" int scan_hitbuf_launch(const uint32_t* midstates,
                                   const uint32_t* tail3,
                                   const uint32_t* limbs,
                                   const uint32_t* nonce_base,
                                   const uint32_t* limit, uint32_t* blk_hits,
-                                  int32_t* blk_counts,
+                                  int32_t* blk_counts, unsigned* ticket,
+                                  uint32_t* hits, int32_t* count,
+                                  uint32_t* lowest,
                                   unsigned long long capacity, int max_hits,
                                   int iters, int n_blocks, int word7,
                                   cudaStream_t stream) {
   if (word7) {
     scan_hitbuf_kernel<kChains, true><<<n_blocks, kThreads, 0, stream>>>(
         midstates, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
-        capacity, max_hits, iters);
+        ticket, hits, count, lowest, capacity, max_hits, iters);
   } else {
     scan_hitbuf_kernel<kChains, false><<<n_blocks, kThreads, 0, stream>>>(
         midstates, tail3, limbs, nonce_base, limit, blk_hits, blk_counts,
-        capacity, max_hits, iters);
+        ticket, hits, count, lowest, capacity, max_hits, iters);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int hitbuf_compact_launch(const uint32_t* blk_hits,
-                                     const int32_t* blk_counts, int n_blocks,
-                                     int max_hits, uint32_t* hits,
-                                     int32_t* count, cudaStream_t stream) {
-  hitbuf_compact_kernel<<<kChains, kCompactThreads, 0, stream>>>(
-      blk_hits, blk_counts, n_blocks, max_hits, hits, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,8 +18,11 @@
 // the baseline, as launch parameters (copied from host memory) for the
 // others. Outputs: counts[n_steps*K] (int32) and mins[n_steps*K] (uint32,
 // 0xFFFFFFFF for no hit), slot step*K + c for chain c; a step wholly past
-// `limit` writes (0, 0xFFFFFFFF) in each of its slots. Nonces wrap modulo
-// 2^32. `block` is a multiple of 128 * I (of 256 * I for vroll-db).
+// `limit` writes (0, 0xFFFFFFFF) in each of its slots. On request, also
+// the least of all mins as one word (`lowest`): the jnp.min(mins) of
+// make_sharded_pallas_scan_fn's shard_map body
+// (bitcoin_miner_tpu/parallel/mesh.py:291). Nonces wrap modulo 2^32.
+// `block` is a multiple of 128 * I (of 256 * I for vroll-db).
 //
 // Bound: 32-bit integer operations, about 2.5k per nonce at K=1 and about
 // 1.2k more for each further chain, since the K chunk-2 compressions share
@@ -66,6 +69,12 @@
 //   staged first. Each thread reads and writes only its own column, so the
 //   barriers order nothing between threads, and a warp's 32 accesses hit
 //   32 banks. At most 9 slots fit in a block's 227 KB.
+// - the launch's least min, where asked for, is folded in by each block's
+//   step epilogue (fold_lowest): one atomicMax of its complement into a
+//   word of the stream's scratch, a fence and a ticket; the block that
+//   draws the last copies the word out and leaves the scratch at 0 for the
+//   next launch on the stream. A constant amount of work per block, no
+//   second launch; without `lowest` the epilogue skips it all.
 #include <string.h>
 
 #include "sha256d.cuh"
@@ -110,13 +119,36 @@ struct JobWords {
   __device__ __forceinline__ uint32_t operator[](int i) const { return w[i]; }
 };
 
-// Reduce each chain's count and lowest nonce over the block and write the
-// step's K slots.
+// The launch's optional least min: `out` is null unless asked for;
+// `scratch` is the stream's [ticket, complement of the least so far],
+// both 0 between launches.
+struct LaunchMin {
+  uint32_t* out;
+  unsigned* scratch;
+};
+
+// Fold a block's least min into the launch's, by one thread of the block.
+// The block that draws the last ticket writes the launch's least min and
+// sets both scratch words back to 0. The fold is an atomicMax of the
+// complement, so a zeroed word stands for "no hit" (0xFFFFFFFF).
+__device__ __forceinline__ void fold_lowest(uint32_t least, LaunchMin at) {
+  atomicMax(at.scratch + 1, ~least);
+  __threadfence();  // the fold is visible before the ticket
+  if (atomicAdd(at.scratch, 1u) == gridDim.x - 1) {
+    __threadfence();
+    *at.out = ~atomicExch(at.scratch + 1, 0u);
+    at.scratch[0] = 0u;  // every block has drawn
+  }
+}
+
+// Reduce each chain's count and lowest nonce over the block, write the
+// step's K slots, and fold their least into the launch's where asked.
 template <int K>
 __device__ __forceinline__ void store_step(uint32_t (&count)[K],
                                            uint32_t (&lowest)[K],
                                            int32_t* __restrict__ counts,
-                                           uint32_t* __restrict__ mins) {
+                                           uint32_t* __restrict__ mins,
+                                           LaunchMin launch_min) {
   __shared__ uint32_t warp_count[K][kMaxWarps];
   __shared__ uint32_t warp_lowest[K][kMaxWarps];
   const uint32_t step = blockIdx.x;
@@ -134,6 +166,7 @@ __device__ __forceinline__ void store_step(uint32_t (&count)[K],
   __syncthreads();
   if (warp == 0) {
     const bool live = lane < static_cast<int>(blockDim.x / 32);
+    uint32_t least = 0xFFFFFFFFu;
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       const uint32_t n =
@@ -144,7 +177,9 @@ __device__ __forceinline__ void store_step(uint32_t (&count)[K],
         counts[step * K + c] = static_cast<int32_t>(n);
         mins[step * K + c] = m;
       }
+      least = min(least, m);
     }
+    if (lane == 0 && launch_min.out != nullptr) fold_lowest(least, launch_min);
   }
 }
 
@@ -156,7 +191,8 @@ template <int K, int G, int I, bool WORD7, class Job>
 __device__ __forceinline__ void windowed_step(const Job& job,
                                               int32_t* __restrict__ counts,
                                               uint32_t* __restrict__ mins,
-                                              uint32_t block) {
+                                              uint32_t block,
+                                              LaunchMin launch_min) {
   const uint32_t base = job[16 * K + 11];
   const uint32_t limit = job[16 * K + 12];
 
@@ -194,7 +230,7 @@ __device__ __forceinline__ void windowed_step(const Job& job,
       }
     }
   }
-  store_step<K>(count, lowest, counts, mins);
+  store_step<K>(count, lowest, counts, mins, launch_min);
 }
 
 // baseline: the job block read from the card.
@@ -202,8 +238,9 @@ template <int K, int G, int I, bool WORD7>
 __global__ void __launch_bounds__(kMaxThreads)
     scan_tile_kernel(const uint32_t* __restrict__ job_block,
                      int32_t* __restrict__ counts,
-                     uint32_t* __restrict__ mins, uint32_t block) {
-  windowed_step<K, G, I, WORD7>(job_block, counts, mins, block);
+                     uint32_t* __restrict__ mins, uint32_t block,
+                     const LaunchMin launch_min) {
+  windowed_step<K, G, I, WORD7>(job_block, counts, mins, block, launch_min);
 }
 
 // regchain, wsplit: the job block as launch parameters.
@@ -211,8 +248,9 @@ template <int K, int G, int I, bool WORD7>
 __global__ void __launch_bounds__(kMaxThreads)
     scan_tile_param_kernel(const __grid_constant__ JobWords<K> job,
                            int32_t* __restrict__ counts,
-                           uint32_t* __restrict__ mins, uint32_t block) {
-  windowed_step<K, G, I, WORD7>(job, counts, mins, block);
+                           uint32_t* __restrict__ mins, uint32_t block,
+                           const LaunchMin launch_min) {
+  windowed_step<K, G, I, WORD7>(job, counts, mins, block, launch_min);
 }
 
 // Phase 2 of the staged layouts, body J of S slots x P passes in the
@@ -255,7 +293,8 @@ template <int K, int G, int I, bool WORD7, Variant V>
 __global__ void __launch_bounds__(kStagedThreads)
     scan_tile_staged_kernel(const __grid_constant__ JobWords<K> job,
                             int32_t* __restrict__ counts,
-                            uint32_t* __restrict__ mins, uint32_t block) {
+                            uint32_t* __restrict__ mins, uint32_t block,
+                            const LaunchMin launch_min) {
   constexpr int T = kStagedThreads;
   constexpr int S = (V == kVrollDb ? 2 : 1) * I;  // slots per loop body
   extern __shared__ uint32_t plane[];             // [S][48][T]
@@ -288,13 +327,13 @@ __global__ void __launch_bounds__(kStagedThreads)
     }
     staged_passes<K, G, I, WORD7, V, S>(job, nonce, live, col, count, lowest);
   }
-  store_step<K>(count, lowest, counts, mins);
+  store_step<K>(count, lowest, counts, mins, launch_min);
 }
 
 template <bool WORD7>
 cudaError_t launch(const uint32_t* job_block, const uint32_t* job_host,
-                   int32_t* counts, uint32_t* mins, int n_steps,
-                   unsigned block, cudaStream_t stream) {
+                   int32_t* counts, uint32_t* mins, LaunchMin launch_min,
+                   int n_steps, unsigned block, cudaStream_t stream) {
   constexpr int K = kChains, G = kGroup, I = kInterleave;
   // Windowed: see windowed_step (block is a multiple of 128 * I).
   const unsigned threads = I == 1 ? (block < kMaxThreads ? block : kMaxThreads)
@@ -302,21 +341,21 @@ cudaError_t launch(const uint32_t* job_block, const uint32_t* job_host,
                                                             : 128;
   if constexpr (kVariant == kBaseline) {
     scan_tile_kernel<K, G, I, WORD7><<<n_steps, threads, 0, stream>>>(
-        job_block, counts, mins, block);
+        job_block, counts, mins, block, launch_min);
   } else {
     JobWords<K> job;
     memcpy(job.w, job_host, sizeof job.w);
     if constexpr (kVariant == kRegchain || kVariant == kWsplit) {
       scan_tile_param_kernel<K, G, I, WORD7><<<n_steps, threads, 0, stream>>>(
-          job, counts, mins, block);
+          job, counts, mins, block, launch_min);
     } else {
       const cudaError_t e = cudaFuncSetAttribute(
           scan_tile_staged_kernel<K, G, I, WORD7, kVariant>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kPlaneBytes);
       if (e != cudaSuccess) return e;
       scan_tile_staged_kernel<K, G, I, WORD7, kVariant>
-          <<<n_steps, kStagedThreads, kPlaneBytes, stream>>>(job, counts,
-                                                             mins, block);
+          <<<n_steps, kStagedThreads, kPlaneBytes, stream>>>(
+              job, counts, mins, block, launch_min);
     }
   }
   return cudaGetLastError();
@@ -353,15 +392,20 @@ cudaError_t occupancy(int* threads, int* shared_bytes, int* blocks_per_sm) {
 
 // job_block: the job block on the card (read by the baseline); job_host:
 // the same words in host memory (the launch parameters of the others).
+// lowest: null unless the launch's least min is asked for; scratch: then
+// the stream's two words, 0 between launches.
 extern "C" int scan_tile_launch(const uint32_t* job_block,
                                 const uint32_t* job_host, int32_t* counts,
-                                uint32_t* mins, int n_steps, unsigned block,
-                                int word7, cudaStream_t stream) {
+                                uint32_t* mins, uint32_t* lowest,
+                                unsigned* scratch, int n_steps,
+                                unsigned block, int word7,
+                                cudaStream_t stream) {
+  const LaunchMin launch_min{lowest, scratch};
   return static_cast<int>(
-      word7 ? launch<true>(job_block, job_host, counts, mins, n_steps, block,
-                           stream)
-            : launch<false>(job_block, job_host, counts, mins, n_steps, block,
-                            stream));
+      word7 ? launch<true>(job_block, job_host, counts, mins, launch_min,
+                           n_steps, block, stream)
+            : launch<false>(job_block, job_host, counts, mins, launch_min,
+                            n_steps, block, stream));
 }
 
 // The launch shape of the default geometry (threads per block, dynamic

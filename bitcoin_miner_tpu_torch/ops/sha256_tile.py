@@ -20,7 +20,17 @@ import torch
 from ..core.sha256 import sha256_midstate, sha256_rounds
 from ..core.target import target_to_limbs
 from . import csrc
-from .sha256_torch import MASK32, _chunk_size, _meets, _u32, _words
+from .sha256_torch import (
+    MASK32,
+    RESCAN_TICKETS,
+    TILE_TICKET,
+    _chunk_size,
+    _meets,
+    _u32,
+    _words,
+    shard_min_plain,
+    ticket_words,
+)
 
 
 def job_block_words(vshare: int) -> int:
@@ -183,15 +193,18 @@ def job_block_from_header(header76: bytes, target: int, nonce_base: int,
 
 
 def scan_tile_plain(job_block: torch.Tensor, *, n_steps: int, block: int,
-                    word7: bool = False, vshare: int = 1
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    word7: bool = False, vshare: int = 1,
+                    lowest: bool = False) -> Tuple[torch.Tensor, ...]:
     """Step ``s`` covers offsets ``s·block + [0, block)`` from the block's
     nonce_base; only offsets < limit count, and nonces wrap modulo 2^32.
     Returns ``(counts, mins)``, slot ``s·k + c`` for chain ``c`` of the
     ``vshare`` = k chains: int32 hit counts and the lowest hit nonce as
     uint32 (0xFFFFFFFF when the step has none) — so a step wholly past
     ``limit`` reads (0, 0xFFFFFFFF). With ``word7`` both describe
-    candidates (bswap32(h2[7]) ≤ limbs[0]), a superset of the hits."""
+    candidates (bswap32(h2[7]) ≤ limbs[0]), a superset of the hits. With
+    ``lowest``, a third output: the least of ``mins`` as a 0-d uint32
+    (:func:`~.sha256_torch.shard_min_plain`), the sharded scan's
+    ``jnp.min(mins)``."""
     device = job_block.device
     k = vshare
     w = _words(job_block, job_block_words(k))
@@ -214,7 +227,8 @@ def scan_tile_plain(job_block: torch.Tensor, *, n_steps: int, block: int,
             counts[s0:s1, c] = meets.sum(1)
             mins[s0:s1, c] = torch.where(meets, nonces.view(s1 - s0, block),
                                          MASK32).min(1).values
-    return counts.view(-1).to(torch.int32), _u32(mins.view(-1), device)
+    out = (counts.view(-1).to(torch.int32), _u32(mins.view(-1), device))
+    return (*out, shard_min_plain(out[1])) if lowest else out
 
 
 #: Launches of the baseline ``csrc/scan_tile.cu`` libraries, by number of
@@ -229,12 +243,13 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
               variant: str = "baseline", cgroup: int = 0,
               interleave: int = 1,
               host_words: Optional[np.ndarray] = None,
-              unroll: int = 64, spec: bool = True
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tile scan (:func:`scan_tile_plain`'s contract) on the job
-    block's device, in the layout ``variant`` with chain passes of
-    ``cgroup`` (0: the variant's default) and ``interleave`` nonces in
-    flight per thread, in the compile form ``unroll``/``spec``
+              unroll: int = 64, spec: bool = True, lowest: bool = False
+              ) -> Tuple[torch.Tensor, ...]:
+    """The tile scan (:func:`scan_tile_plain`'s contract, ``lowest``
+    included) on the job block's device, in the layout ``variant`` with
+    chain passes of ``cgroup`` (0: the variant's default) and
+    ``interleave`` nonces in flight per thread, in the compile form
+    ``unroll``/``spec``
     (``make_pallas_scan_fn``'s: rolled round loops below 64, spec only at
     64; every form computes the same function). ``block`` is a multiple of
     128 (128-nonce rows);
@@ -242,15 +257,19 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
     ``block / 128`` rows as its tiles. A CPU block takes the plain version;
     a CUDA block (uint32, 16k+13 words for ``vshare`` = k chains, 1 ≤ k ≤
     8) launches the layout's kernel built for k chains on the current
-    stream with one thread block per step, without synchronising. Every
-    layout but the baseline takes the job block as launch parameters:
+    stream with one thread block per step, without synchronising; with
+    ``lowest`` every block folds its steps' least min into the launch's
+    in the same launch, through the stream's ticket words. Every layout
+    but the baseline takes the job block as launch parameters:
     ``host_words`` holds the same words in host memory, so that the launch
     never reads them back from the card.
 
     Replaces the Pallas kernel ``bitcoin_miner_tpu/ops/sha256_pallas.py::
-    _scan_tile_kernel``. Bound: 32-bit integer operations
-    (``sha256_torch.bound_ms`` with ``vshare=k`` and the form's ``spec``
-    over the nonces below ``limit``); the outputs are 8k bytes per step.
+    _scan_tile_kernel`` and, with ``lowest``, the ``jnp.min(mins)`` of
+    ``make_sharded_pallas_scan_fn``'s shard body. Bound: 32-bit integer
+    operations (``sha256_torch.bound_ms`` with ``vshare=k`` and the form's
+    ``spec`` over the nonces below ``limit``); the outputs are 8k bytes
+    per step.
     Design in ``csrc/scan_tile.cu``."""
     if block <= 0 or block % LANES:
         raise ValueError(f"block must be a positive multiple of {LANES}")
@@ -259,7 +278,7 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
     device = job_block.device
     if device.type == "cpu":
         return scan_tile_plain(job_block, n_steps=n_steps, block=block,
-                               word7=word7, vshare=vshare)
+                               word7=word7, vshare=vshare, lowest=lowest)
     name = tile_library(vshare, variant, cgroup, interleave, unroll, spec)
     n_words = job_block_words(vshare)
     csrc.check_tensor(job_block, device, torch.uint32, (n_words,))
@@ -275,14 +294,22 @@ def scan_tile(job_block: torch.Tensor, *, n_steps: int, block: int,
                 f"parameters: pass its {n_words} words in host memory as "
                 "host_words")
     check_plane(variant, interleave)
-    counts = torch.empty(n_steps * vshare, dtype=torch.int32, device=device)
-    mins = torch.empty(n_steps * vshare, dtype=torch.uint32, device=device)
+    slots = n_steps * vshare
+    counts = torch.empty(slots, dtype=torch.int32, device=device)
+    # The least min, where asked for, in the mins' own allocation.
+    words = torch.empty(slots + lowest, dtype=torch.uint32, device=device)
+    mins = words[:slots]
     lib = csrc.load(name)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
+        least = scratch = None
+        if lowest:
+            least = words[-1].data_ptr()
+            scratch = (ticket_words(device, stream, RESCAN_TICKETS).data_ptr()
+                       + 4 * TILE_TICKET)
         csrc.check(lib.scan_tile_launch(
             job_block.data_ptr(), None if host is None else host.ctypes.data,
-            counts.data_ptr(), mins.data_ptr(), n_steps, block, int(word7),
-            stream), name)
+            counts.data_ptr(), mins.data_ptr(), least, scratch, n_steps,
+            block, int(word7), stream.cuda_stream), name)
         csrc.launch_counter(name).add()
-    return counts, mins
+    return (counts, mins, words[-1]) if lowest else (counts, mins)

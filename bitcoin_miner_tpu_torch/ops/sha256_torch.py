@@ -21,7 +21,9 @@ schedule (:func:`compress_multi`).
 of one and of k chains: the plain versions (:func:`scan_batch_plain`,
 :func:`scan_batch_vshare_plain`, the semantics of
 ``sha256_jax._scan_batch`` and ``_scan_batch_vshare``) for CPU tensors,
-the CUDA kernels of ``csrc/scan_hitbuf.cu`` for CUDA tensors.
+the CUDA kernel of ``csrc/scan_hitbuf.cu`` for CUDA tensors. With
+``lowest`` each also returns the least word of its hit buffer
+(:func:`shard_min_plain`), which the sharded scans need.
 :func:`rescan_steps` re-enumerates many steps of a tile dispatch, each
 with one chain, in one launch: the tile hasher's rescans.
 """
@@ -461,10 +463,21 @@ def upload_words(words: Sequence[int], device: torch.device) -> torch.Tensor:
     return host.pin_memory().to(device, non_blocking=True)
 
 
+def shard_min_plain(x: torch.Tensor) -> torch.Tensor:
+    """The least word of a uint32 tensor, as a 0-d uint32 tensor on its
+    device; 0xFFFFFFFF for an empty one: ``jnp.min`` of a shard's outputs
+    in the ``shard_map`` bodies of ``bitcoin_miner_tpu/parallel/mesh.py``
+    (``:164``, ``:220``, ``:291``). The minimum is taken in int64: this
+    torch's CPU uint32 has no ``min``."""
+    words = x.reshape(-1).cpu().to(torch.int64)
+    least = int(words.min()) if words.numel() else MASK32
+    return torch.tensor(least, dtype=torch.int64).to(torch.uint32).to(x.device)
+
+
 def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
                             *, inner_size: int, n_steps: int, max_hits: int,
-                            word7: bool = False
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+                            word7: bool = False, lowest: bool = False
+                            ) -> Tuple[torch.Tensor, ...]:
     """Scan ``n_steps × inner_size`` nonces from ``nonce_base`` against k
     version-rolled sibling headers, given by their midstates ((k, 8), row
     0 the caller's own header); only offsets < ``limit`` count. Returns
@@ -472,7 +485,10 @@ def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
     ascending offset order as uint32 (k, max_hits), unused slots
     0xFFFFFFFF, and the uncapped hit counts as int32 (k,) — the contract
     of ``bitcoin_miner_tpu/ops/sha256_jax.py::_scan_batch_vshare``. Nonces
-    wrap modulo 2^32. With ``word7`` the buffers hold candidates."""
+    wrap modulo 2^32. With ``word7`` the buffers hold candidates. With
+    ``lowest``, a third output: the least word of ``bufs``
+    (:func:`shard_min_plain`), i.e. of the buffered hits, not of all of
+    them, as the reference's shard bodies take it."""
     device = _device_of(midstates)
     mids = _rows(midstates)
     tail = _words(tail3, 3)
@@ -496,35 +512,59 @@ def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
     bufs = torch.full((len(mids), max_hits), MASK32, dtype=torch.int64)
     for c, row in enumerate(hits):
         bufs[c, : len(row)] = torch.tensor(row, dtype=torch.int64)
-    return (_u32(bufs, device),
-            torch.tensor(counts, dtype=torch.int32, device=device))
+    out = (_u32(bufs, device),
+           torch.tensor(counts, dtype=torch.int32, device=device))
+    return (*out, shard_min_plain(out[0])) if lowest else out
 
 
 def scan_batch_plain(midstate, tail3, target_limbs, nonce_base, limit, *,
                      inner_size: int, n_steps: int, max_hits: int,
-                     word7: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     word7: bool = False, lowest: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
     """:func:`scan_batch_vshare_plain` of one chain: ``(hits, count)``, the
     first ``max_hits`` hit nonces (uint32) and the uncapped count as a 0-d
     int32 — the contract of ``bitcoin_miner_tpu/ops/sha256_jax.py::
-    _scan_batch``."""
+    _scan_batch`` — and with ``lowest`` the least word of ``hits``."""
     _words(midstate, 8)
-    bufs, counts = scan_batch_vshare_plain(
+    bufs, counts, *least = scan_batch_vshare_plain(
         midstate, tail3, target_limbs, nonce_base, limit,
         inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
-        word7=word7)
-    return bufs[0], counts[0]
+        word7=word7, lowest=lowest)
+    return (bufs[0], counts[0], *least)
 
 
 #: Launches of ``csrc/scan_hitbuf.cu::scan_hitbuf_kernel`` in its default
-#: form (made by :func:`scan_batch_vshare` and :func:`scan_batch`) and of
-#: its compaction ``hitbuf_compact_kernel`` (made by
-#: :func:`hitbuf_compact`), by number of chains; the one-chain counters also
-#: stand alone. Another compile form counts under its library's name
-#: (:func:`hitbuf_library`).
+#: form (made by :func:`scan_batch_vshare` and :func:`scan_batch`), by
+#: number of chains; the one-chain counter also stands alone. Another
+#: compile form counts under its library's name (:func:`hitbuf_library`).
 SCAN_HITBUF_K = csrc.launch_counters("scan_hitbuf")
-HITBUF_COMPACT_K = csrc.launch_counters("hitbuf_compact")
 SCAN_HITBUF = SCAN_HITBUF_K[1]
-HITBUF_COMPACT = HITBUF_COMPACT_K[1]
+
+#: Each stream's zeroed words (:func:`ticket_words`), by owner: the tile
+#: scan's ticket and the complement of its least min so far
+#: (``sha256_tile.scan_tile`` with ``lowest``), the hit-buffer scan's
+#: ticket, then one ticket per slot of a rescan. Kernels on one stream run
+#: one after another, and each sets the words it drew back to 0.
+TILE_TICKET, HITBUF_TICKET, RESCAN_TICKETS = 0, 2, 3
+
+_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def ticket_words(device: torch.device, stream, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed words for the launches on ``stream`` (laid
+    out as :data:`TILE_TICKET` says): zeroed once, on that stream, when
+    made; each launch sets the words it used back to 0, and launches on
+    one stream never overlap, so no launch needs a memset."""
+    key = (device, stream.cuda_stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < n:
+            size = max(n, 2 * t.numel() if t is not None else 1024)
+            t = _tickets[key] = torch.zeros(size, dtype=torch.int32,
+                                            device=device)
+        return t
+
 
 #: ``ShardedTpuHasher``'s refusal, for the same reason: the reference's
 #: k-chain scan always partially evaluates its shared window.
@@ -567,27 +607,31 @@ def hitbuf_geometry(capacity: int) -> Tuple[int, int]:
 def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
                       inner_size: int, n_steps: int, max_hits: int,
                       word7: bool = False, unroll: int = 64,
-                      spec: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                      spec: bool = True, lowest: bool = False
+                      ) -> Tuple[torch.Tensor, ...]:
     """The k-chain hit-buffer scan (:func:`scan_batch_vshare_plain`'s
-    contract) on the tensors' device. CPU tensors take the plain version;
-    CUDA tensors (uint32: midstates (k, 8) with 1 ≤ k ≤ 8, tail3 (3,),
-    limbs (8,), 0-d base and limit) launch ``scan_hitbuf_kernel`` built
-    for k chains in the compile form ``unroll``/``spec``
-    (:func:`hitbuf_library`; every form computes the same function), then
-    :func:`hitbuf_compact`, on the current stream, without synchronising.
+    contract, ``lowest`` included) on the tensors' device. CPU tensors
+    take the plain version; CUDA tensors (uint32: midstates (k, 8) with
+    1 ≤ k ≤ 8, tail3 (3,), limbs (8,), 0-d base and limit) launch
+    ``scan_hitbuf_kernel`` built for k chains in the compile form
+    ``unroll``/``spec`` (:func:`hitbuf_library`; every form computes the
+    same function) once, on the current stream, without synchronising:
+    its last block merges the block slots and takes the least word.
 
     Replaces the XLA scans ``bitcoin_miner_tpu/ops/sha256_jax.py::
-    _scan_batch_vshare`` (and ``_scan_batch`` at k=1; no Pallas source).
-    Bound: 32-bit integer operations (:func:`bound_ms` with ``vshare=k``
-    over the nonces below ``min(limit, capacity)``); the outputs are a few
-    hundred bytes per chain. Design in ``csrc/scan_hitbuf.cu``."""
+    _scan_batch_vshare`` (and ``_scan_batch`` at k=1; no Pallas source),
+    their ordered appends and, with ``lowest``, the shard bodies'
+    ``jnp.min`` of the buffer. Bound: 32-bit integer operations
+    (:func:`bound_ms` with ``vshare=k`` over the nonces below
+    ``min(limit, capacity)``); the outputs are a few hundred bytes per
+    chain. Design in ``csrc/scan_hitbuf.cu``."""
     device = _device_of(midstates)
     if device.type == "cpu":
         _check_hitbuf_form(len(_rows(midstates)), unroll, spec)
         return scan_batch_vshare_plain(
             midstates, tail3, target_limbs, nonce_base, limit,
             inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
-            word7=word7)
+            word7=word7, lowest=lowest)
     k = midstates.shape[0] if midstates.dim() == 2 else 0
     args = (midstates, tail3, target_limbs, nonce_base, limit)
     for t, shape in zip(args, ((k, 8), (3,), (8,), (), ())):
@@ -601,26 +645,35 @@ def scan_batch_vshare(midstates, tail3, target_limbs, nonce_base, limit, *,
     iters, n_blocks = hitbuf_geometry(capacity)
     blk_hits = torch.empty(k * n_blocks * max_hits, dtype=torch.uint32,
                            device=device)
-    blk_counts = torch.empty((k, n_blocks), dtype=torch.int32, device=device)
+    blk_counts = torch.empty(k * n_blocks, dtype=torch.int32, device=device)
+    # The least word, where asked for, in the hits' own allocation.
+    words = torch.empty(k * max_hits + lowest, dtype=torch.uint32,
+                        device=device)
+    hits = words[:k * max_hits].view(k, max_hits)
+    count = torch.empty(k, dtype=torch.int32, device=device)
     lib = csrc.load(name)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
+        ticket = (ticket_words(device, stream, RESCAN_TICKETS).data_ptr()
+                  + 4 * HITBUF_TICKET)
         csrc.check(lib.scan_hitbuf_launch(
             *(t.data_ptr() for t in args), blk_hits.data_ptr(),
-            blk_counts.data_ptr(), capacity, max_hits, iters, n_blocks,
-            int(word7), stream), name)
+            blk_counts.data_ptr(), ticket, hits.data_ptr(), count.data_ptr(),
+            words[-1].data_ptr() if lowest else None, capacity, max_hits,
+            iters, n_blocks, int(word7), stream.cuda_stream), name)
         csrc.launch_counter(name).add()
-    return hitbuf_compact(blk_hits, blk_counts, max_hits)
+    return (hits, count, words[-1]) if lowest else (hits, count)
 
 
 def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
                inner_size: int, n_steps: int, max_hits: int,
                word7: bool = False, unroll: int = 64,
-               spec: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The one-chain hit-buffer scan (:func:`scan_batch_plain`'s contract)
-    on the tensors' device: CPU tensors take the plain version, CUDA
-    tensors (midstate (8,)) :func:`scan_batch_vshare`'s kernels at k=1, in
-    the compile form ``unroll``/``spec``.
+               spec: bool = True, lowest: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
+    """The one-chain hit-buffer scan (:func:`scan_batch_plain`'s contract,
+    ``lowest`` included) on the tensors' device: CPU tensors take the
+    plain version, CUDA tensors (midstate (8,)) :func:`scan_batch_vshare`'s
+    kernel at k=1, in the compile form ``unroll``/``spec``.
 
     Replaces the XLA scan ``bitcoin_miner_tpu/ops/sha256_jax.py::
     _scan_batch``."""
@@ -629,13 +682,13 @@ def scan_batch(midstate, tail3, target_limbs, nonce_base, limit, *,
         return scan_batch_plain(
             midstate, tail3, target_limbs, nonce_base, limit,
             inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
-            word7=word7)
+            word7=word7, lowest=lowest)
     csrc.check_tensor(midstate, midstate.device, torch.uint32, (8,))
-    bufs, counts = scan_batch_vshare(
+    bufs, counts, *least = scan_batch_vshare(
         midstate.view(1, 8), tail3, target_limbs, nonce_base, limit,
         inner_size=inner_size, n_steps=n_steps, max_hits=max_hits,
-        word7=word7, unroll=unroll, spec=spec)
-    return bufs[0], counts[0]
+        word7=word7, unroll=unroll, spec=spec, lowest=lowest)
+    return (bufs[0], counts[0], *least)
 
 
 def _check_rescan(k: int, tile: int, max_hits: int) -> None:
@@ -724,25 +777,6 @@ def rescan_geometry(n_slots: int, tile: int) -> Tuple[int, int]:
     return iters, -(-tile // (RESCAN_THREADS * iters))
 
 
-_tickets: Dict[Tuple[torch.device, int], torch.Tensor] = {}
-_tickets_lock = threading.Lock()
-
-
-def _ticket_counters(device: torch.device, stream, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed per-slot ticket counters for the launches on
-    ``stream``: zeroed once, on that stream, when made; each launch sets
-    the counters it drew back to 0, and launches on one stream never
-    overlap, so no launch needs a memset."""
-    key = (device, stream.cuda_stream)
-    with _tickets_lock:
-        t = _tickets.get(key)
-        if t is None or t.numel() < n:
-            size = max(n, 2 * t.numel() if t is not None else 1024)
-            t = _tickets[key] = torch.zeros(size, dtype=torch.int32,
-                                            device=device)
-        return t
-
-
 def rescan_steps(job, slots, *, k: int, tile: int, max_hits: int,
                  unroll: int = 64, spec: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -753,8 +787,8 @@ def rescan_steps(job, slots, *, k: int, tile: int, max_hits: int,
     (every form computes the same function), on the current stream,
     without synchronising. An empty slot list launches nothing.
 
-    Replaces the tile hasher's per-step ``scan_batch`` + ``hitbuf_compact``
-    pairs, i.e. the reference's ``_tile_rescan`` (``bitcoin_miner_tpu/
+    Replaces the tile hasher's per-step ``scan_batch`` calls, i.e. the
+    reference's ``_tile_rescan`` (``bitcoin_miner_tpu/
     backends/tpu.py``: ``make_scan_fn`` over one step, ``sha256_jax.py::
     _scan_batch`` and its ordered append) once per candidate step. Bound:
     32-bit integer operations (:func:`bound_ms` in exact mode over the
@@ -786,9 +820,9 @@ def rescan_steps(job, slots, *, k: int, tile: int, max_hits: int,
                                    dtype=torch.uint32, device=device)
             blk_counts = torch.empty(n_slots * bps, dtype=torch.int32,
                                      device=device)
-            tickets = _ticket_counters(device, stream, n_slots)
+            tickets = ticket_words(device, stream, RESCAN_TICKETS + n_slots)
             scratch = [blk_hits.data_ptr(), blk_counts.data_ptr(),
-                       tickets.data_ptr()]
+                       tickets.data_ptr() + 4 * RESCAN_TICKETS]
         csrc.check(lib.rescan_steps_launch(
             job.data_ptr(), k, slots.data_ptr(), n_slots, tile, max_hits,
             iters, bps, *scratch, hits.data_ptr(), count.data_ptr(),
@@ -799,7 +833,12 @@ def rescan_steps(job, slots, *, k: int, tile: int, max_hits: int,
 
 def hitbuf_compact_plain(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
                          max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge per-block hit slots in block order, per chain: ``blk_counts``
+    """The hit-buffer scan's second stage, which ``scan_hitbuf_kernel``
+    runs in its last block: the ordered append of ``bitcoin_miner_tpu/
+    ops/sha256_jax.py::_scan_batch`` and ``_scan_batch_vshare``
+    (``jnp.nonzero`` and the scatter into the hit buffer).
+
+    Merge per-block hit slots in block order, per chain: ``blk_counts``
     is (n_blocks,) for one chain or (k, n_blocks), and block ``b`` of chain
     ``c`` stored its first ``min(blk_counts[c, b], max_hits)`` hits at
     ``blk_hits[(c·n_blocks + b)·max_hits:]``. Returns each chain's first
@@ -820,38 +859,3 @@ def hitbuf_compact_plain(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
     shape = tuple(blk_counts.shape[:-1])
     return (_u32(bufs.view(*shape, max_hits), device),
             counts.sum(1).to(torch.int32).view(shape).to(device))
-
-
-def hitbuf_compact(blk_hits: torch.Tensor, blk_counts: torch.Tensor,
-                   max_hits: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The second half of the hit-buffer scan (:func:`hitbuf_compact_plain`'s
-    contract). CPU tensors take the plain version; CUDA tensors launch
-    ``hitbuf_compact_kernel``, one block per chain, on the current stream.
-
-    Replaces the ordered append of ``bitcoin_miner_tpu/ops/sha256_jax.py::
-    _scan_batch`` and ``_scan_batch_vshare`` (``jnp.nonzero`` and the
-    scatter into the hit buffer). Bound: bytes — the block counts read and
-    the hits copied."""
-    device = blk_hits.device
-    if device.type == "cpu":
-        return hitbuf_compact_plain(blk_hits, blk_counts, max_hits)
-    if blk_counts.dim() not in (1, 2):
-        raise ValueError("blk_counts must be (n_blocks,) or (k, n_blocks)")
-    shape = tuple(blk_counts.shape[:-1])
-    k = blk_counts.shape[0] if shape else 1
-    n_blocks = blk_counts.shape[-1]
-    csrc.check_tensor(blk_counts, device, torch.int32, tuple(blk_counts.shape))
-    csrc.check_tensor(blk_hits, device, torch.uint32,
-                      (k * n_blocks * max_hits,))
-    name = csrc.kernel_name("scan_hitbuf", k)
-    hits = torch.empty((*shape, max_hits), dtype=torch.uint32, device=device)
-    count = torch.empty(shape, dtype=torch.int32, device=device)
-    lib = csrc.load(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        csrc.check(lib.hitbuf_compact_launch(
-            blk_hits.data_ptr(), blk_counts.data_ptr(), n_blocks, max_hits,
-            hits.data_ptr(), count.data_ptr(), stream),
-            csrc.kernel_name("hitbuf_compact", k))
-        HITBUF_COMPACT_K[k].add()
-    return hits, count

@@ -8,12 +8,12 @@ bodies run one program over a device mesh: each device scans its own
 same body once per shard, on the shard's device and that device's current
 stream: shard d scans from ``nonce_base + d·batch_per_device`` (modulo
 2^32) with the saturating limit ``clamp(limit − d·batch_per_device, 0,
-batch_per_device)`` through the ported kernels, and ``shard_min`` reduces
-its outputs to its lowest nonce; :func:`first_hit` takes the minimum over
-the shards on the host. Every shard is launched, one whose limit is 0
-included, as SPMD launches every device; its outputs are zeros and
-0xFFFFFFFF. There is no collective, so launches from several threads need
-no order between devices.
+batch_per_device)`` through the ported kernels, in one launch that also
+reduces its outputs to its lowest nonce (the scans' ``lowest`` option);
+:func:`first_hit` takes the minimum over the shards on the host. Every
+shard is launched, one whose limit is 0 included, as SPMD launches every
+device; its outputs are zeros and 0xFFFFFFFF. There is no collective, so
+launches from several threads need no order between devices.
 
 A mesh is a tuple of devices. An explicit device list may name a device
 more than once: several shards on one card, or on the CPU, where every
@@ -42,7 +42,6 @@ from ..ops.sha256_torch import (
     scan_batch_vshare,
     upload_words,
 )
-from ..ops.shard_min import shard_min
 
 Mesh = Tuple[torch.device, ...]
 
@@ -135,18 +134,18 @@ def make_sharded_scan_fn(mesh: Mesh, batch_per_device: int = 1 << 24,
                          unroll: int = 64, word7: bool = False,
                          spec: bool = True) -> ShardedScan:
     """The hit-buffer scan sharded over ``mesh``, one chain. Each shard's
-    outputs: ``(buf[max_hits], count, lowest)``, the first hits of its
-    slice in order, their uncapped count and the lowest word of ``buf``."""
+    outputs, from one launch: ``(buf[max_hits], count, lowest)``, the
+    first hits of its slice in order, their uncapped count and the lowest
+    word of ``buf``."""
     if batch_per_device % inner_size:
         raise ValueError("batch_per_device must be a multiple of inner_size")
 
     def body(words: np.ndarray, device: torch.device):
         t = upload_words(_hitbuf_words(words, 1), device)
-        buf, count = scan_batch(
+        return scan_batch(
             t[0:8], t[8:11], t[11:19], t[19], t[20], inner_size=inner_size,
             n_steps=batch_per_device // inner_size, max_hits=max_hits,
-            word7=word7, unroll=unroll, spec=spec)
-        return buf, count, shard_min(buf)
+            word7=word7, unroll=unroll, spec=spec, lowest=True)
 
     return ShardedScan(mesh, batch_per_device, 1, body,
                        hitbuf_library(1, unroll, spec))
@@ -157,8 +156,8 @@ def make_sharded_scan_fn_vshare(mesh: Mesh, batch_per_device: int = 1 << 24,
                                 unroll: int = 64, word7: bool = False,
                                 vshare: int = 2) -> ShardedScan:
     """The k-chain hit-buffer scan sharded over ``mesh`` (``vshare`` = k).
-    Each shard's outputs: ``(bufs[k, max_hits], counts[k], lowest)``, the
-    lowest over every chain's buffer."""
+    Each shard's outputs, from one launch: ``(bufs[k, max_hits],
+    counts[k], lowest)``, the lowest over every chain's buffer."""
     if batch_per_device % inner_size:
         raise ValueError("batch_per_device must be a multiple of inner_size")
     k = vshare
@@ -166,12 +165,11 @@ def make_sharded_scan_fn_vshare(mesh: Mesh, batch_per_device: int = 1 << 24,
     def body(words: np.ndarray, device: torch.device):
         t = upload_words(_hitbuf_words(words, k), device)
         at = 8 * k
-        bufs, counts = scan_batch_vshare(
+        return scan_batch_vshare(
             t[:at].view(k, 8), t[at:at + 3], t[at + 3:at + 11], t[at + 11],
             t[at + 12], inner_size=inner_size,
             n_steps=batch_per_device // inner_size, max_hits=max_hits,
-            word7=word7, unroll=unroll)
-        return bufs, counts, shard_min(bufs)
+            word7=word7, unroll=unroll, lowest=True)
 
     return ShardedScan(mesh, batch_per_device, k, body,
                        hitbuf_library(k, unroll))
@@ -192,20 +190,20 @@ def make_sharded_tile_scan_fn(
 ) -> Tuple[ShardedScan, int]:
     """The tile scan sharded over ``mesh``, the counterpart of
     ``make_sharded_pallas_scan_fn``: ``(scan, tile)``, where each shard's
-    outputs are ``(counts[n_steps·k], mins[n_steps·k], lowest)`` for its
-    steps of ``tile`` = sublanes·128·inner_tiles nonces."""
+    outputs, from one launch, are ``(counts[n_steps·k], mins[n_steps·k],
+    lowest)`` for its steps of ``tile`` = sublanes·128·inner_tiles
+    nonces."""
     check_layout(vshare, variant, cgroup, interleave, inner_tiles)
     tile = sublanes * LANES * inner_tiles
     if batch_per_device % tile:
         raise ValueError(f"batch_size must be a multiple of {tile}")
 
     def body(words: np.ndarray, device: torch.device):
-        counts, mins = scan_tile(
+        return scan_tile(
             upload_words(words, device), n_steps=batch_per_device // tile,
             block=tile, word7=word7, vshare=vshare, variant=variant,
             cgroup=cgroup, interleave=interleave, host_words=words,
-            unroll=unroll, spec=spec)
-        return counts, mins, shard_min(mins)
+            unroll=unroll, spec=spec, lowest=True)
 
     library = tile_library(vshare, variant, cgroup, interleave, unroll, spec)
     return ShardedScan(mesh, batch_per_device, vshare, body, library), tile

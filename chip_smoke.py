@@ -16,7 +16,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tile hasher's batched rescan ``rescan_steps`` at 1 slot (the genesis
    step), the ~1200 candidate steps of an easy 2^24 dispatch (K = 1, 2)
    and the 2048 of a regtest one — exact equality, since every output is
-   an integer; then the tile kernel's layouts (regchain, wsplit, wstage,
+   an integer (the hit-buffer scan merges its block slots in its own last
+   block: its outputs are the merged buffers); then the tile kernel's
+   layouts (regchain, wsplit, wstage,
    vroll, vroll-db at K = 1, 2, 4, 8; chain passes of 2 at K = 4; two
    nonces in flight at K = 2; steps of 128 and 256 nonces) against the
    same plain version;
@@ -48,10 +50,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    nonces through ``TileCudaHasher`` at an easy target (~2^-12 per nonce)
    and at regtest's (``easy_target_scan``): the rate, ``rescan_steps``
    launches per dispatch, and the same hits as ``CudaHasher``'s;
-8. holds ``shard_min`` against its plain version, and each compile form
-   (``--unroll`` 8, 16, 32 and ``--no-spec``) of the tile kernel at K = 1,
-   2, of the hit-buffer kernel at K = 1 and of ``rescan_steps`` against
-   the plain versions of 2;
+8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
+   folded into the scan's last block) against the plain scan and
+   ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
+   vroll, the hit-buffer scan at K = 1, 2, 4, at 2^24 nonces, over the
+   cases of 2 and a limit of 0; and each compile form (``--unroll`` 8, 16,
+   32 and ``--no-spec``) of the tile kernel at K = 1, 2, of the hit-buffer
+   kernel at K = 1 and of ``rescan_steps`` against the plain versions of 2;
    sweeps 2^28 genesis nonces through ``cli.bench`` in each form;
 9. shards: over every card when there are two or more, else over the one
    card named four times (printed first). A 4-shard ``ShardedScan`` (tile
@@ -69,8 +74,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    main``): CUDA-event times, the SM clock sampled meanwhile, the SASS of
    its group loop per pipe and the measured lanes per SM and clock;
 11. times each kernel with CUDA events beside its plain version and its
-   bound: the tile scan in every layout, form and K it drives,
-   ``rescan_steps`` at the sizes of 2, and ``shard_min``; beside the scan
+   bound: the tile scan in every layout, form and K it drives (at K = 1,
+   2 also with ``lowest``), the hit-buffer scan (with ``lowest``, and its
+   last block's merge over the 2^19 block slots of a 2^32-nonce scan),
+   ``rescan_steps`` at the sizes of 2; beside the scan
    kernels' operation bound, their SASS per nonce per pipe (the nonce loop
    of ``scan_tile``, ``scan_tile_k2`` and ``scan_hitbuf``, against
    ``ops_per_nonce``) and the bound of those instructions at the same peak
@@ -83,7 +90,11 @@ single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 Phases 3 to 7, 9's sweeps, session and ladder, and 10's probe run are the
 main path: the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. No tile hasher launches the
-hit-buffer kernels there: its rescans are ``rescan_steps``.
+hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
+is one scan launch per shard (per dispatch on one card), with no launch
+after it: the scans' last blocks merge the hit buffers and take each
+shard's minimum, and no kernel of :data:`REMOVED_KERNELS` may be built or
+counted.
 Every phase prints a JSON line; the kernel table and the card follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
@@ -109,7 +120,6 @@ DISPATCH = 1 << 24
 #: so ~1 ms of card work per launch the host has to queue meanwhile).
 BLOCKER_SCANS = 8
 SESSION_WINDOW_S = 5.0  # the Stratum sessions' measured window
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SWEEP_MHS_PR2 = 6823.0  # one-chain genesis sweep, H100 80GB HBM3 at 700 W
 VERSION_MASK = 0x1FFFE000  # the full BIP 310 mask the vshare pool grants
 SIBLING_HIT = (0x00002001, 2209238384)  # the genesis sibling at --vshare 2
@@ -118,6 +128,8 @@ SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock: 32 banks x 4 B
 FORMS = ((8, True), (16, True), (32, True), (64, False))
 SHARDS_ON_ONE_CARD = 4
 PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
+#: Kernels folded into the scans' last blocks: none may be built or counted.
+REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
 
 
 def emit(obj: dict) -> None:
@@ -130,11 +142,11 @@ def launched(counts: dict) -> dict:
 
 
 def no_hitbuf_pair(counts: dict) -> None:
-    """A tile hasher's phase launches no hit-buffer kernel: its rescans
-    are ``rescan_steps``."""
+    """A tile hasher's phase launches no hit-buffer scan: its rescans are
+    ``rescan_steps``."""
     pair = {name: n for name, n in counts.items()
-            if n and name.startswith(("scan_hitbuf", "hitbuf_compact"))}
-    assert not pair, f"a tile hasher launched the hit-buffer pair: {pair}"
+            if n and name.startswith("scan_hitbuf")}
+    assert not pair, f"a tile hasher launched the hit-buffer scan: {pair}"
 
 
 def tile_chains(name: str) -> int:
@@ -152,8 +164,7 @@ def kernel_of(mangled: str) -> tuple:
     if probe:
         return "int_probe_kernel", f"ilp{probe.group(1)}"
     kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
-                       r"|scan_hitbuf_kernel|hitbuf_compact_kernel"
-                       r"|rescan_steps_kernel|shard_min_kernel)",
+                       r"|scan_hitbuf_kernel|rescan_steps_kernel)",
                        mangled).group(1)
     mode = re.search(r"Lb([01])E", mangled)
     return kernel, (("word7" if mode.group(1) == "1" else "exact")
@@ -265,7 +276,7 @@ class Smoke:
         self.seen: set = set()  # kernels launched in any phase
         self.kernels: dict = {}
         self.plain: dict = {}  # (k, case) -> the plain tile scan's outputs
-        self.plain_hitbuf: dict = {}  # case -> the plain hit-buffer scan's
+        self.plain_hitbuf: dict = {}  # (k, case) -> the plain hit buffers
         #: case -> (job, slots, the plain rescan's outputs, its nonces)
         self.rescans: dict = {}
         self.sweep_mhs: dict = {}  # phase -> its sweep rate
@@ -297,9 +308,11 @@ class Smoke:
 
     def read_counts(self) -> dict:
         """Every kernel's launches since :meth:`reset_counts`, added to the
-        main path's."""
+        main path's. No counter of a removed kernel may exist."""
         self.note_launches()
         counts = {c.name: c.value for c in self.pkg.csrc.counters()}
+        gone = [name for name in counts if name.startswith(REMOVED_KERNELS)]
+        assert not gone, f"counters of removed kernels: {gone}"
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         return counts
@@ -431,6 +444,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts),
                  *form_tiles.values(), *form_hitbufs.values(),
                  pkg.int_probe.LIBRARY]
+        gone = [n for n in pkg.csrc.SOURCES if n.startswith(REMOVED_KERNELS)]
+        assert not gone, f"libraries of removed kernels: {gone}"
         logs = pkg.csrc.build(names)
         build_seconds = time.perf_counter() - t0
         rows = ptxas_table(logs)
@@ -548,10 +563,10 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             kw = dict(inner_size=inner, n_steps=cap // inner, max_hits=64,
                       word7=word7)
             got = pkg.scan_batch(*parts, **kw)
-            want = s.plain_hitbuf[label] = pkg.scan_batch_plain(*parts, **kw)
+            want = s.plain_hitbuf[1, label] = pkg.scan_batch_plain(*parts,
+                                                                   **kw)
             torch.cuda.synchronize()
             s.compare("scan_hitbuf", got, want)
-            s.compare("hitbuf_compact", got, want)
             count = int(want[1])
             if label.startswith("easy_overflow"):
                 assert count > 64, f"{label}: no overflow ({count} hits)"
@@ -582,10 +597,10 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 kw = dict(inner_size=inner, n_steps=cap // inner, max_hits=64,
                           word7=word7)
                 got = pkg.scan_batch_vshare(*parts, **kw)
-                want = pkg.scan_batch_vshare_plain(*parts, **kw)
+                want = s.plain_hitbuf[k, label] = pkg.scan_batch_vshare_plain(
+                    *parts, **kw)
                 torch.cuda.synchronize()
                 s.compare(f"scan_hitbuf_k{k}", got, want)
-                s.compare(f"hitbuf_compact_k{k}", got, want)
                 counts = want[1].tolist()
                 if label.startswith("easy_overflow"):
                     assert min(counts) > 64, f"{label}: no overflow {counts}"
@@ -698,8 +713,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert out["hashes"] == 1 << 33 and out["nonce_start"] == 0, out
         assert counts["scan_tile_k2"] == (1 << 32) // DISPATCH, counts
         assert not any(n for name, n in counts.items() if name.startswith(
-            ("scan_tile", "scan_hitbuf_k", "hitbuf_compact_k"))
-            and name != "scan_tile_k2"), counts
+            ("scan_tile", "scan_hitbuf_k")) and name != "scan_tile_k2"), counts
         no_hitbuf_pair(counts)
         assert 0 < counts["rescan_steps"] <= counts["scan_tile_k2"], counts
         siblings = []
@@ -724,8 +738,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         out = pkg.cli.bench(args)
         counts = s.read_counts()
         assert out["verified"] and out["hashes"] == 1 << 27, out
-        assert counts["scan_hitbuf_k2"] == 4, counts
-        assert counts["hitbuf_compact_k2"] == 4, counts
+        # One launch per dispatch, and nothing after it.
+        assert launched(counts) == {"scan_hitbuf_k2": 4}, counts
         return {"backend": "cuda", "vshare": 2, "mhs": out["mhs"],
                 "dispatches": out["dispatches"], "hits": out["nonces"],
                 "sibling_hits": out["version_hits"],
@@ -737,9 +751,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         out = pkg.cli.run_bench(hasher, 1 << 26, batch_size=DISPATCH)
         counts = s.read_counts()
         assert out["verified"], out["nonces"]
-        assert counts["scan_hitbuf"] == (1 << 26) // DISPATCH, counts
-        assert counts["hitbuf_compact"] == counts["scan_hitbuf"], counts
-        assert not counts["rescan_steps"] and not counts["scan_tile"], counts
+        # One launch per dispatch, and nothing after it.
+        assert launched(counts) == {"scan_hitbuf": (1 << 26) // DISPATCH}, (
+            counts)
         return {"backend": "cuda", "mhs": out["mhs"],
                 "dispatches": out["dispatches"], "hits": out["nonces"],
                 "launches": launched(counts)}
@@ -881,26 +895,61 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             assert int.from_bytes(pkg.sha256d(header80), "little") <= diff1
         return siblings
 
-    def shard_min_vs_plain():
-        """shard_min at the shard bodies' shapes (n_steps·k tile slots at
-        K = 1, 2; k·max_hits buffer words) and at edges."""
+    def lowest_vs_plain():
+        """The scans' fused ``lowest`` at 2^24 nonces against the plain
+        scan and ``shard_min_plain`` of its outputs: the tile scan at K =
+        1, 2, 4, 8 in the baseline and vroll (staged), the hit-buffer scan
+        at K = 1, 2, 4, each over the cases of kernels_vs_plain (a limit
+        that cuts a step, a base near 2^32 whose range wraps, a hit-buffer
+        overflow) and a limit of 0. The launches run back to back on one
+        stream: each also checks that the one before it left the stream's
+        ticket words at 0."""
         checks = []
-        gen = torch.Generator().manual_seed(5)
-        for n in (0, 1, 31, 64, 2048, 4096, 1025, (1 << 20) + 3):
-            words = torch.randint(0, 1 << 32, (n,), dtype=torch.int64,
-                                  generator=gen)
-            if n > 3:
-                words[n // 3] = GENESIS_NONCE % 1000
-            x = words.to(torch.uint32)
-            got = pkg.shard_min(x.to(s.dev))
-            want = pkg.shard_min_plain(x)
-            torch.cuda.synchronize()
-            s.compare("shard_min", [got], [want])
-            checks.append({"n": n, "min": int(want.to(torch.int64))})
-        # A hitless shard's mins are all 0xFFFFFFFF.
-        full = torch.full((2048,), 0xFFFFFFFF, dtype=torch.int64)
-        got = pkg.shard_min(full.to(torch.uint32).to(s.dev))
-        assert int(got.cpu().to(torch.int64)) == 0xFFFFFFFF
+        limit_0 = ("limit_0", header, easy, top_base, 0)
+        for k in (1, 2, 4, 8):
+            for label, h, t, base, limit, word7 in [*tile_cases,
+                                                    (*limit_0, False)]:
+                kw = dict(n_steps=DISPATCH // 8192, block=8192, word7=word7,
+                          vshare=k)
+                job = s.job(h, t, base, limit, k)
+                want = s.plain.get((k, label))
+                if want is None:
+                    want = pkg.scan_tile_plain(job, **kw)
+                want = (*want, pkg.shard_min_plain(want[1]))
+                for variant in ("baseline", "vroll"):
+                    got = pkg.scan_tile(job, variant=variant, lowest=True,
+                                        host_words=s.job(h, t, base, limit, k,
+                                                         host=True), **kw)
+                    torch.cuda.synchronize()
+                    s.compare(tile.tile_library(k, variant), got, want)
+                least = int(want[2].to(torch.int64))
+                if label == "limit_0":
+                    assert least == 0xFFFFFFFF, least
+                checks.append({"scan": f"tile k{k}", "case": label,
+                               "lowest": least})
+        for k in (1, 2, 4):
+            scan = pkg.scan_batch if k == 1 else pkg.scan_batch_vshare
+            plain = (pkg.scan_batch_plain if k == 1
+                     else pkg.scan_batch_vshare_plain)
+            for label, h, t, base, limit, word7, cap, inner in [
+                    *hitbuf_cases[:3],
+                    (*limit_0, False, DISPATCH, 1 << 18)]:
+                parts = s.hitbuf_parts(s.job(h, t, base, limit, k), k)
+                kw = dict(inner_size=inner, n_steps=cap // inner, max_hits=64,
+                          word7=word7)
+                want = s.plain_hitbuf.get((k, label))
+                if want is None:
+                    want = plain(*parts, **kw)
+                want = (*want, pkg.shard_min_plain(want[0]))
+                got = scan(*parts, lowest=True, **kw)
+                torch.cuda.synchronize()
+                s.compare(pkg.csrc.kernel_name("scan_hitbuf", k), got, want)
+                least = int(want[2].to(torch.int64))
+                if label == "limit_0":
+                    assert least == 0xFFFFFFFF, least
+                checks.append({"scan": f"hitbuf k{k}", "case": label,
+                               "lowest": least,
+                               "count": want[1].reshape(-1).tolist()})
         return {"checks": checks, "tolerance": "exact (integers)"}
 
     def forms_vs_plain():
@@ -924,7 +973,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                                      n_steps=cap // inner, max_hits=64,
                                      word7=word7, unroll=unroll, spec=spec)
                 torch.cuda.synchronize()
-                s.compare(name, got, s.plain_hitbuf[label])
+                s.compare(name, got, s.plain_hitbuf[1, label])
                 checks.append((name, label))
             # The rescans launch from the same library, in the same form.
             for label in ("genesis_s1", "easy_k1", "easy_k2"):
@@ -1081,10 +1130,11 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                                                   vshare=k,
                                                   devices=s.shards), k)
             name = tile.tile_library(k)
-            # One launch per shard and dispatch, whatever the shard count.
-            assert counts[name] == (1 << 32) // DISPATCH, counts
-            assert counts["shard_min"] == (1 << 32) // DISPATCH, counts
-            no_hitbuf_pair(counts)
+            # One launch per shard and dispatch, whatever the shard count,
+            # and nothing after it but the rescans of the collection.
+            dispatches = (1 << 32) // hasher.dispatch_size
+            assert counts[name] == len(s.shards) * dispatches, counts
+            assert set(launched(counts)) <= {name, "rescan_steps"}, counts
             siblings = verify_sibling(out["version_hits"]) if k == 2 else []
             runs.append({"vshare": k, "mhs": out["mhs"],
                          "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[k],
@@ -1102,8 +1152,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                                          kernel="cuda-tile",
                                          devices=s.shards), 1)
         assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
-        assert not counts["shard_min"], counts
-        no_hitbuf_pair(counts)
+        assert set(launched(counts)) <= {"scan_tile", "rescan_steps"}, counts
         return {"children": hasher.n_children,
                 "stream_depth": hasher.stream_depth, "mhs": out["mhs"],
                 "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[1],
@@ -1130,10 +1179,13 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             pkg, backend=backend, hasher=hasher), 300))
         assert result["topology"] == f"1x{len(s.shards)}", result
         counts = s.read_counts()
-        assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
-        assert counts["scan_tile"] == counts["shard_min"], counts
-        no_hitbuf_pair(counts)
-        return {**result, "launches": launched(counts)}
+        # Every dispatch launches each shard once, and nothing after it
+        # but the rescans of the collection.
+        assert counts["scan_tile"] > 0, counts
+        assert counts["scan_tile"] % len(s.shards) == 0, counts
+        assert set(launched(counts)) <= {"scan_tile", "rescan_steps"}, counts
+        return {**result, "launches": launched(counts),
+                "dispatches": counts["scan_tile"] // len(s.shards)}
 
     def mesh_native_ladder():
         """quarantine → per-device fan-out → rebuild → restore, each rung
@@ -1170,9 +1222,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert h.topology == f"1x{len(s.shards)}"
         rung("restored")
         counts = s.read_counts()
-        assert counts["scan_tile"] > 0 and counts["shard_min"] > 0, counts
+        assert counts["scan_tile"] > 0, counts
         assert counts["rescan_steps"] > 0, counts  # the easy scans
-        no_hitbuf_pair(counts)
+        assert set(launched(counts)) == {"scan_tile", "rescan_steps"}, counts
         return {"rungs": rungs, "libraries": h.compile_count,
                 "launches": launched(counts)}
 
@@ -1264,6 +1316,19 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
         for k in (1, 2, 3, 4, 8):
             tile_row(k)
+        # The baseline's launch with ``lowest`` (the sharded scans') against
+        # the same launch without it, in turns: without, with, with,
+        # without.
+        for k in (1, 2):
+            job, _ = jobs[k]
+            row = rows[tile.tile_library(k)]
+            times = [s.time_ms(lambda: pkg.scan_tile(
+                job, word7=True, vshare=k, lowest=lowest, **tile_kw), 20)
+                for lowest in (False, True, True, False)]
+            row["ms_without_lowest"] = (times[0] + times[3]) / 2
+            row["ms_lowest"] = (times[1] + times[2]) / 2
+            row["lowest_vs_without"] = (row["ms_lowest"]
+                                        / row["ms_without_lowest"])
         for layout in layouts:
             tile_row(*layout)
         # The compile forms: the baseline layout's rows, held against the
@@ -1300,12 +1365,19 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         small = dict(inner_size=1024, n_steps=8, max_hits=64)
         big_parts = s.hitbuf_parts(g_job)
         big = dict(inner_size=1 << 18, n_steps=64, max_hits=64)
-        # The hit-buffer scan at the cuda backend's 2^24 dispatch (with its
-        # compaction), and at the one 8192-nonce step that the tile hasher
-        # rescanned with it before rescan_steps.
+        # The hit-buffer scan, its merge in its last block, at the cuda
+        # backend's 2^24 dispatch (with ``lowest`` too, as the sharded
+        # cuda-mesh scan launches it), and at the one 8192-nonce step that
+        # the tile hasher rescanned with it before rescan_steps. At 2^32
+        # nonces the last block merges 2^19 block slots per chain: with a
+        # limit of 0 the launch is little more than that merge.
+        empty_parts = s.hitbuf_parts(s.job(genesis76, diff1, 0, 0))
+        whole = dict(inner_size=1 << 18, n_steps=1 << 14, max_hits=64)
         rows["scan_hitbuf"] = {
             "ms": s.time_ms(
                 lambda: pkg.scan_batch(*big_parts, word7=True, **big), 20),
+            "ms_lowest": s.time_ms(lambda: pkg.scan_batch(
+                *big_parts, word7=True, lowest=True, **big), 20),
             "plain_ms": s.plain_ms(
                 lambda: pkg.scan_batch_plain(*big_parts, word7=True, **big)),
             "bound_ms": bound(DISPATCH, True),
@@ -1315,6 +1387,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             "plain_ms_8192_exact": s.plain_ms(
                 lambda: pkg.scan_batch_plain(*tile_parts, **small)),
             "bound_ms_8192_exact": bound(8192, False),
+            "ms_2p32_limit_0": s.time_ms(
+                lambda: pkg.scan_batch(*empty_parts, **whole), 20),
+            "merge_block_slots_2p32": pkg.hitbuf_geometry(1 << 32)[1],
         }
         for (unroll, spec), name in form_hitbufs.items():
             ms = s.time_ms(lambda: pkg.scan_batch(
@@ -1375,29 +1450,6 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "slots": len(slots), "nonces": nonces,
                 "mode": "exact, the multi-hit steps of an easy 2^24 "
                         "dispatch"}
-        # shard_min over one K=1 shard's 2048 tile slots, as the sharded
-        # sweep launches it.
-        mins = torch.randint(0, 1 << 32, (DISPATCH // 8192,),
-                             dtype=torch.int64).to(torch.uint32).to(s.dev)
-        rows["shard_min"] = {
-            "ms": s.time_ms(lambda: pkg.shard_min(mins), 200),
-            "plain_ms": s.plain_ms(lambda: pkg.shard_min_plain(mins)),
-            "bound_ms": (mins.numel() * 4 + 4) / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "words": mins.numel(),
-        }
-        # torch.amin computes the same reduction where this torch supports
-        # it on uint32 tensors.
-        try:
-            same = int(torch.amin(mins).cpu().to(torch.int64)) == int(
-                pkg.shard_min(mins).cpu().to(torch.int64))
-        except (RuntimeError, NotImplementedError) as e:
-            rows["shard_min"]["library_ms"] = None
-            rows["shard_min"]["library_call"] = f"torch.amin: {e}"[:200]
-        else:
-            assert same, "torch.amin disagrees with shard_min"
-            rows["shard_min"]["library_ms"] = s.time_ms(
-                lambda: torch.amin(mins), 200)
-            rows["shard_min"]["library_call"] = "torch.amin"
         # The K-chain hit-buffer scan at the cuda backend's 2^24 dispatch.
         for k in (2, 4):
             parts = s.hitbuf_parts(jobs[k][0], k)
@@ -1405,38 +1457,13 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                                                          **big), 20)
             rows[f"scan_hitbuf_k{k}"] = {
                 "ms": ms,
+                "ms_lowest": s.time_ms(lambda: pkg.scan_batch_vshare(
+                    *parts, word7=True, lowest=True, **big), 20),
                 "plain_ms": s.plain_ms(lambda: pkg.scan_batch_vshare_plain(
                     *parts, word7=True, **big)),
                 "bound_ms": bound(DISPATCH, True, k),
                 "hashes_per_s": DISPATCH * k / ms * 1e3,
                 "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
-            }
-        # The compaction alone: on the K x 2048 block slots of a 2^24
-        # dispatch at K = 1, 2 and 4.
-        for k, capacity in ((1, DISPATCH), (2, DISPATCH), (4, DISPATCH)):
-            _, n_blocks = pkg.hitbuf_geometry(capacity)
-            shape = (n_blocks,) if k == 1 else (k, n_blocks)
-            blk_counts = torch.zeros(shape, dtype=torch.int32, device=s.dev)
-            blk_counts[..., n_blocks // 2] = 1
-            blk_hits = torch.full((k * n_blocks * 64,), GENESIS_NONCE,
-                                  dtype=torch.int64).to(torch.uint32).to(s.dev)
-
-            def compact():
-                return pkg.hitbuf_compact(blk_hits, blk_counts, 64)
-
-            def compact_plain():
-                return pkg.hitbuf_compact_plain(blk_hits, blk_counts, 64)
-
-            name = "hitbuf_compact" if k == 1 else f"hitbuf_compact_k{k}"
-            s.compare(name, compact(), compact_plain())
-            rows[name] = {
-                "ms": s.time_ms(compact, 200),
-                "plain_ms": s.plain_ms(compact_plain),
-                # per chain: n_blocks counts read, one stored hit read, 64
-                # slots and the count written.
-                "bound_ms": k * (n_blocks * 4 + 4 + 64 * 4 + 4)
-                / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "blocks": n_blocks, "chains": k,
             }
         # The scan kernels' SASS per nonce, and the bound of those
         # instructions at the card's peak rates, as bound_ms.
@@ -1495,7 +1522,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("genesis_sweep_variants", genesis_sweep_variants)
     s.phase("stratum_session_variant", stratum_session_variant)
     s.phase("easy_target_scan", easy_target_scan)
-    s.phase("shard_min_vs_plain", shard_min_vs_plain)
+    s.phase("lowest_vs_plain", lowest_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
     s.phase("int_probe_vs_plain", int_probe_vs_plain)
@@ -1523,27 +1550,17 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         if name.startswith("int_probe"):
             return ("bitcoin_miner_tpu_torch/ops/csrc/int_probe.cu",
                     "benchmarks/vpu_probe.py:35")
-        if name == "shard_min":
-            # jnp.min in make_sharded_pallas_scan_fn's body (and :164, :220
-            # in the two XLA bodies).
-            return ("bitcoin_miner_tpu_torch/ops/csrc/shard_min.cu",
-                    "bitcoin_miner_tpu/parallel/mesh.py:291")
         if name.startswith("rescan_steps"):
             # _rescan_tile: _scan_batch (sha256_jax.py:780) once per step.
             return hitbuf_src, "bitcoin_miner_tpu/backends/tpu.py:1102"
-        one = tile_chains(name) == 1
-        if name.startswith("scan_hitbuf"):
-            return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
-                                + ("780" if one else "857"))
         return hitbuf_src, ("bitcoin_miner_tpu/ops/sha256_jax.py:"
-                            + ("826" if one else "896"))
+                            + ("780" if tile_chains(name) == 1 else "857"))
 
-    main_path = ["scan_tile", "rescan_steps", "scan_hitbuf", "hitbuf_compact",
-                 "scan_tile_k2",
-                 "scan_hitbuf_k2", "hitbuf_compact_k2",
+    main_path = ["scan_tile", "rescan_steps", "scan_hitbuf", "scan_tile_k2",
+                 "scan_hitbuf_k2",
                  *(tile.tile_library(k, v) for v in tile.VARIANTS[1:]
                    for k in (1, 2)),
-                 "shard_min", *form_tiles.values(), *form_hitbufs.values(),
+                 *form_tiles.values(), *form_hitbufs.values(),
                  *(f"int_probe_ilp{ilp}" for ilp in pkg.int_probe.ILPS)]
     unlaunched = [name for name in main_path if not s.launches.get(name)]
     if unlaunched:
@@ -1716,10 +1733,6 @@ class _Package:
             sha256_tile,
             sha256_torch,
         )
-        from bitcoin_miner_tpu_torch.ops.shard_min import (
-            shard_min,
-            shard_min_plain,
-        )
         from bitcoin_miner_tpu_torch.parallel import mesh
         from bitcoin_miner_tpu_torch.parallel.fanout import make_cuda_fanout
         from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
@@ -1746,8 +1759,6 @@ class _Package:
         self.scan_batch_plain = sha256_torch.scan_batch_plain
         self.scan_batch_vshare = sha256_torch.scan_batch_vshare
         self.scan_batch_vshare_plain = sha256_torch.scan_batch_vshare_plain
-        self.hitbuf_compact = sha256_torch.hitbuf_compact
-        self.hitbuf_compact_plain = sha256_torch.hitbuf_compact_plain
         self.hitbuf_geometry = sha256_torch.hitbuf_geometry
         self.bound_ms = sha256_torch.bound_ms
         self.ops_per_nonce = sha256_torch.ops_per_nonce
@@ -1757,7 +1768,7 @@ class _Package:
         self.rescan_steps_plain = sha256_torch.rescan_steps_plain
         self.rescan_counter = sha256_torch.rescan_counter
         self.rescan_geometry = sha256_torch.rescan_geometry
-        self.shard_min, self.shard_min_plain = shard_min, shard_min_plain
+        self.shard_min_plain = sha256_torch.shard_min_plain
         self.mesh = mesh
         self.scheduler_for = scheduler_for
         self.StratumMiner = StratumMiner

@@ -18,7 +18,6 @@ from bitcoin_miner_tpu_torch.backends.cuda import (
 from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX, GENESIS_NONCE
 from bitcoin_miner_tpu_torch.core.target import difficulty_to_target, nbits_to_target
 from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile, sha256_torch
-from bitcoin_miner_tpu_torch.ops.shard_min import SHARD_MIN, shard_min, shard_min_plain
 from bitcoin_miner_tpu_torch.ops import int_probe
 from bitcoin_miner_tpu_torch.parallel import mesh
 from bitcoin_miner_tpu_torch.ops.sha256_tile import (
@@ -29,8 +28,7 @@ from bitcoin_miner_tpu_torch.ops.sha256_tile import (
     tile_library,
 )
 from bitcoin_miner_tpu_torch.ops.sha256_torch import (
-    hitbuf_compact,
-    hitbuf_compact_plain,
+    hitbuf_geometry,
     hitbuf_library,
     rescan_counter,
     rescan_steps,
@@ -39,6 +37,8 @@ from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     scan_batch_plain,
     scan_batch_vshare,
     scan_batch_vshare_plain,
+    shard_min_plain,
+    ticket_words,
 )
 
 pytestmark = pytest.mark.gpu
@@ -116,12 +116,24 @@ def test_scan_batch_matches_plain(cuda, case, word7):
 
 
 def test_hitbuf_compact_matches_plain(cuda):
-    counts = torch.tensor([0, 3, 100, 0, 2] * 500, dtype=torch.int32)
-    slots = torch.arange(counts.numel() * 8, dtype=torch.int64)
-    blk_hits = slots.to(torch.uint32).to(cuda)
-    got = hitbuf_compact(blk_hits, counts.to(cuda), 8)
-    assert _equal(got, hitbuf_compact_plain(blk_hits, counts, 8))
-    assert int(got[1]) == 105 * 500
+    """The scan's merge of its block slots, in its last block, over more
+    block slots than one pass of that block takes (4096 at 2^25 nonces),
+    with hits in blocks on both sides of the pass boundary: one launch."""
+    n = 1 << 25
+    assert hitbuf_geometry(n)[1] == 4096
+    job = job_block_from_header(bytes(range(76)),
+                                difficulty_to_target(1 / (1 << 18)),
+                                (1 << 32) - n // 3, n - 5000).to(cuda)
+    parts = (job[0:8], job[16:19], job[19:27], job[27], job[28])
+    kw = dict(inner_size=1 << 18, n_steps=n >> 18, max_hits=4096)
+    counters = {c.name: c.value for c in csrc.counters()}
+    got = scan_batch(*parts, **kw)
+    assert {c.name: c.value - counters.get(c.name, 0)
+            for c in csrc.counters() if c.value != counters.get(c.name, 0)
+            } == {"scan_hitbuf": 1}
+    want = scan_batch_plain(*parts, **kw)
+    assert _equal(got, want)
+    assert 1024 < int(want[1]) < 4096  # about 2048, all in the buffer
 
 
 @pytest.mark.parametrize("cls", [TileCudaHasher, CudaHasher])
@@ -170,12 +182,12 @@ def test_scan_batch_vshare_matches_plain(cuda, case, word7, k):
     parts = (job[:8 * k].view(k, 8), job[t:t + 3], job[t + 3:t + 11],
              job[t + 11], job[t + 12])
     kw = dict(inner_size=1 << 16, n_steps=N >> 16, max_hits=32, word7=word7)
-    before = (sha256_torch.SCAN_HITBUF_K[k].value,
-              sha256_torch.HITBUF_COMPACT_K[k].value)
+    counters = {c.name: c.value for c in csrc.counters()}
     got = scan_batch_vshare(*parts, **kw)
-    assert (sha256_torch.SCAN_HITBUF_K[k].value,
-            sha256_torch.HITBUF_COMPACT_K[k].value) == (before[0] + 1,
-                                                        before[1] + 1)
+    # One launch, and nothing after it: the merge runs in its last block.
+    assert {c.name: c.value - counters.get(c.name, 0)
+            for c in csrc.counters() if c.value != counters.get(c.name, 0)
+            } == {f"scan_hitbuf_k{k}": 1}
     want = scan_batch_vshare_plain(*parts, **kw)
     assert _equal(got, want)
     if case[0] != "genesis":
@@ -273,16 +285,21 @@ def test_layout_hasher_on_card_matches_plain_hasher(cuda, variant):
 
 @pytest.mark.parametrize("n", [0, 1, 5, 1023, 1025, 4096, (1 << 20) + 3])
 def test_shard_min_matches_plain(cuda, n):
-    words = torch.randint(0, 1 << 32, (n,), dtype=torch.int64,
-                          generator=torch.Generator().manual_seed(n))
-    if n > 3:
-        words[n // 3] = 7
-    x = words.to(torch.uint32)
-    before = SHARD_MIN.value
-    got = shard_min(x.to(cuda))
-    assert SHARD_MIN.value == before + 1
-    assert got.device == cuda and got.shape == ()
-    assert _equal([got], [shard_min_plain(x)])
+    """The shard minimum, folded into the tile scan: ``lowest`` over 16384
+    steps of 128 nonces (one block each, each drawing a ticket) whose
+    range wraps past 2^32, cut at limit ``n``; 0xFFFFFFFF when no step
+    hits (limit 0). One launch."""
+    job = job_block_from_header(bytes(range(76)), EASY, (1 << 32) - N // 2,
+                                n).to(cuda)
+    kw = dict(n_steps=2 * N // 128, block=128)
+    before = sha256_tile.SCAN_TILE.value
+    got = scan_tile(job, lowest=True, **kw)
+    assert sha256_tile.SCAN_TILE.value == before + 1
+    assert got[2].device == cuda and got[2].shape == ()
+    counts, mins = scan_tile_plain(job, **kw)
+    assert _equal(got, (counts, mins, shard_min_plain(mins)))
+    if n == 0:
+        assert int(got[2].cpu().to(torch.int64)) == 0xFFFFFFFF
 
 
 @pytest.mark.parametrize("form", FORMS, ids=lambda f: f"u{f[0]}-spec{f[1]}")
@@ -323,9 +340,12 @@ def test_sharded_scan_on_one_card_matches_one_scan(cuda, k):
     job = _k_job(("easy", bytes(range(76)), EASY, 12345, bpd + 999), k, cuda,
                  host=True)
     scan, tile = mesh.make_sharded_tile_scan_fn((cuda, cuda), bpd, vshare=k)
-    before = SHARD_MIN.value
+    counters = {c.name: c.value for c in csrc.counters()}
     shards = scan(job)
-    assert SHARD_MIN.value == before + 2
+    # One scan launch per shard, and nothing after it.
+    assert {c.name: c.value - counters.get(c.name, 0)
+            for c in csrc.counters() if c.value != counters.get(c.name, 0)
+            } == {tile_library(k): 2}
     one = scan_tile(torch.from_numpy(job).to(cuda), n_steps=N // tile,
                     block=tile, vshare=k)
     flat = [torch.cat([s[i].cpu().to(torch.int64) for s in shards])
@@ -434,3 +454,68 @@ def test_rescan_steps_on_a_side_stream(cuda):
     assert none[0].shape == (0, 8)
     assert _equal(got, rescan_steps_plain(job, slots, k=2, tile=8192,
                                           max_hits=8))
+
+
+# The fused ``lowest`` against the plain scan and ``shard_min_plain``:
+# the tile scan in the baseline and a staged layout, the hit buffer.
+@pytest.mark.parametrize("variant", ["baseline", "vroll"])
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_tile_lowest_matches_plain(cuda, case, k, variant):
+    job = _k_job(case, k, cuda)
+    kw = dict(n_steps=N // 8192, block=8192, vshare=k)
+    got = scan_tile(job, variant=variant, lowest=True,
+                    host_words=_k_job(case, k, cuda, host=True), **kw)
+    counts, mins = scan_tile_plain(job, **kw)
+    assert _equal(got, (counts, mins, shard_min_plain(mins)))
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_scan_batch_lowest_matches_plain(cuda, case, k):
+    """With 32 slots at the easy target every buffer overflows: the
+    lowest is that of the buffer, not of every hit."""
+    job = _k_job(case, k, cuda)
+    t = 16 * k
+    parts = (job[:8 * k].view(k, 8), job[t:t + 3], job[t + 3:t + 11],
+             job[t + 11], job[t + 12])
+    kw = dict(inner_size=1 << 16, n_steps=N >> 16, max_hits=32)
+    got = scan_batch_vshare(*parts, lowest=True, **kw)
+    bufs, counts = scan_batch_vshare_plain(*parts, **kw)
+    assert _equal(got, (bufs, counts, shard_min_plain(bufs)))
+    if k == 1:
+        one = scan_batch(parts[0][0], *parts[1:], lowest=True, **kw)
+        assert _equal(one, (bufs[0], counts[0], shard_min_plain(bufs)))
+
+
+def test_lowest_ticket_words_are_reused(cuda):
+    """The scans' ticket words, one set per stream: launches back to back
+    on one stream, each leaving the words at 0 for the next, and launches
+    on two streams of the card at once, each on its own words."""
+    cases = [(_k_job(case, 2, cuda), case) for case in CASES]
+    want = [scan_tile_plain(job, n_steps=N // 8192, block=8192, vshare=2)
+            for job, _ in cases]
+    want = [(*w, shard_min_plain(w[1])) for w in want]
+    kw = dict(n_steps=N // 8192, block=8192, vshare=2, lowest=True)
+    main = torch.cuda.current_stream(cuda)
+    got = [scan_tile(job, **kw) for _ in range(4) for job, _ in cases]
+    main.synchronize()
+    for i, g in enumerate(got):
+        assert _equal(g, want[i % len(cases)])
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    for st in streams:
+        st.wait_stream(main)
+    got = {0: [], 1: []}
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i] += [scan_tile(job, **kw) for job, _ in cases]
+    for st in streams:
+        st.synchronize()
+    words = [ticket_words(cuda, st, 3) for st in [main, *streams]]
+    assert len({w.data_ptr() for w in words}) == 3
+    for w in words:
+        assert not w[:3].cpu().any()  # every launch left them at 0
+    for i in (0, 1):
+        for j, g in enumerate(got[i]):
+            assert _equal(g, want[j % len(cases)])

@@ -187,24 +187,25 @@ class TestWrappers:
     def test_scan_batch_on_cpu_is_plain(self):
         job = job_block_from_header(*CASES["easy_full"][:3], 4096)
         parts = (job[0:8], job[16:19], job[19:27], job[27], job[28])
-        before = (sha256_torch.SCAN_HITBUF.value,
-                  sha256_torch.HITBUF_COMPACT.value)
+        before = sha256_torch.SCAN_HITBUF.value
         kw = dict(inner_size=1024, n_steps=4, max_hits=16)
         got = scan_batch(*parts, **kw)
         want = scan_batch_plain(*parts, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-        assert (sha256_torch.SCAN_HITBUF.value,
-                sha256_torch.HITBUF_COMPACT.value) == before
+        assert sha256_torch.SCAN_HITBUF.value == before
 
     def test_hitbuf_compact_merges_blocks_in_order(self):
+        """The plain merge of the fused scan's second stage: block slots
+        in block order, capped at max_hits, the count uncapped."""
         counts = torch.tensor([0, 3, 100, 0, 2], dtype=torch.int32)
         slots = torch.arange(20, dtype=torch.int64).to(torch.uint32)
-        before = sha256_torch.HITBUF_COMPACT.value
-        hits, count = sha256_torch.hitbuf_compact(slots, counts, 4)
+        before = sha256_torch.SCAN_HITBUF.value
+        hits, count = sha256_torch.hitbuf_compact_plain(slots, counts, 4)
         assert hits.tolist() == [4, 5, 6, 8] and int(count) == 105
-        hits, count = sha256_torch.hitbuf_compact(slots[:8], counts[:2], 4)
+        hits, count = sha256_torch.hitbuf_compact_plain(slots[:8],
+                                                        counts[:2], 4)
         assert hits.tolist() == [4, 5, 6, 0xFFFFFFFF] and int(count) == 3
-        assert sha256_torch.HITBUF_COMPACT.value == before
+        assert sha256_torch.SCAN_HITBUF.value == before
 
     @pytest.mark.parametrize("capacity, iters, blocks", [
         (8192, 1, 32), (1 << 24, 32, 2048), (1 << 32, 32, 1 << 19),

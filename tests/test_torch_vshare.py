@@ -49,7 +49,7 @@ from bitcoin_miner_tpu_torch.ops.sha256_tile import (
 )
 from bitcoin_miner_tpu_torch.ops.sha256_torch import (
     bound_ms,
-    hitbuf_compact,
+    hitbuf_compact_plain,
     ops_per_nonce,
     scan_batch_vshare,
     scan_batch_vshare_plain,
@@ -239,19 +239,17 @@ class TestWrappersOnCpu:
                                     versions=_versions(header76, 2))
         parts = (job[:16].view(2, 8), job[32:35], job[35:43], job[43], job[44])
         kw = dict(inner_size=1024, n_steps=4, max_hits=16)
-        before = (sha256_torch.SCAN_HITBUF_K[2].value,
-                  sha256_torch.HITBUF_COMPACT_K[2].value)
+        before = sha256_torch.SCAN_HITBUF_K[2].value
         got = scan_batch_vshare(*parts, **kw)
         want = scan_batch_vshare_plain(*parts, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-        assert (sha256_torch.SCAN_HITBUF_K[2].value,
-                sha256_torch.HITBUF_COMPACT_K[2].value) == before
+        assert sha256_torch.SCAN_HITBUF_K[2].value == before
 
     def test_hitbuf_compact_merges_each_chain_in_block_order(self):
         counts = torch.tensor([[0, 3, 100, 0, 2], [1, 0, 0, 9, 0]],
                               dtype=torch.int32)
         slots = torch.arange(40, dtype=torch.int64).to(torch.uint32)
-        hits, count = hitbuf_compact(slots, counts, 4)
+        hits, count = hitbuf_compact_plain(slots, counts, 4)
         assert hits.tolist() == [[4, 5, 6, 8], [20, 32, 33, 34]]
         assert count.tolist() == [105, 10]
 
