@@ -1,7 +1,11 @@
 """Command line: ``python -m bitcoin_miner_tpu_torch``.
 
 Modes:
-  --pool stratum+tcp://HOST:PORT   Stratum v1 pool mining
+  --pool stratum+tcp://HOST:PORT   Stratum v1 pool mining (stratum+ssl://
+                                   for TLS; comma-listed backups for
+                                   failover)
+  --gbt  http://HOST:PORT          solo mining via getblocktemplate
+  --getwork http://HOST:PORT       getwork polling
   --bench                          offline sweep of the genesis header
 
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
@@ -17,8 +21,11 @@ nonce against k version-rolled sibling headers (overt AsicBoost) on the
 CUDA backends. ``--variant``, ``--cgroup``, ``--interleave``,
 ``--sublanes`` and ``--inner-tiles`` choose the tile kernel's layout and
 step wherever the tile kernel runs; the other backends refuse them.
-``--unroll`` and ``--no-spec`` choose the kernels' compile form. The
-miner writes no files.
+``--unroll`` and ``--no-spec`` choose the kernels' compile form.
+``--batch-3x`` makes the dispatch 3·2^batch-bits nonces, which tile
+heights such as ``--sublanes 24`` divide. The miner writes no files,
+except the resume positions ``--checkpoint PATH`` keeps (``--pool``,
+``--gbt``).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import asyncio
 import logging
 import sys
 import time
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, List, Optional, Tuple
 from urllib.parse import urlparse
 
 from .backends.base import (
@@ -48,7 +55,7 @@ from .miner.scheduler import (
 )
 
 if TYPE_CHECKING:
-    from .miner.runner import StratumMiner
+    from .miner.runner import GbtMiner, GetworkMiner, StratumMiner
 
 logger = logging.getLogger("tpu_miner_torch")
 
@@ -67,12 +74,18 @@ def build_parser() -> argparse.ArgumentParser:
         description="Bitcoin miner with hand-written CUDA sha256d kernels",
     )
     mode = p.add_mutually_exclusive_group(required=True)
-    mode.add_argument("--pool", help="stratum+tcp://host:port pool URL")
+    mode.add_argument("--pool", action="append",
+                      help="stratum+tcp://host:port (or stratum+ssl:// for "
+                           "TLS) pool URL; comma-separate backups for "
+                           "failover, all of one scheme")
+    mode.add_argument("--gbt", help="http://host:port bitcoind RPC "
+                                    "(getblocktemplate)")
+    mode.add_argument("--getwork", help="http://host:port getwork endpoint")
     mode.add_argument("--bench", action="store_true",
                       help="offline sweep around the genesis nonce at the "
                            "difficulty-1 target")
-    p.add_argument("--user", default="tpu-miner", help="pool username")
-    p.add_argument("--password", default="x", help="pool password")
+    p.add_argument("--user", default="tpu-miner", help="pool/RPC username")
+    p.add_argument("--password", default="x", help="pool/RPC password")
     p.add_argument("--backend", default="cuda-tile", choices=BACKENDS,
                    help="hasher backend (default: %(default)s)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
@@ -140,6 +153,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "default: the adaptive scheduler sizes requests "
                         "online over a dispatch grid of "
                         f"2^{DEFAULT_BATCH_BITS} nonces per device")
+    p.add_argument("--batch-3x", action="store_true",
+                   help="dispatch 3·2^batch-bits nonces instead of "
+                        "2^batch-bits: a size that tile heights such as "
+                        "--sublanes 24 divide")
     p.add_argument("--workers", type=int, default=8,
                    help="dispatcher workers (nonce-range split ways)")
     p.add_argument("--stream-depth", type=int, default=2,
@@ -150,6 +167,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "(2^32 sweeps the whole nonce space)")
     p.add_argument("--report-interval", type=float, default=10.0,
                    help="seconds between stats lines")
+    p.add_argument("--checkpoint", default=None,
+                   help="--pool, --gbt: file that keeps each job's sweep "
+                        "position, so a restarted miner resumes")
+    p.add_argument("--ntime-roll", type=int, default=None,
+                   help="--pool, --getwork: seconds of ntime rolling once "
+                        "the extranonce2 x nonce space is exhausted "
+                        "(default: 600 for --getwork, 0 for --pool)")
+    p.add_argument("--host-index", type=int, default=None,
+                   help="--pool: this host's index for the extranonce2 "
+                        "partition (default 0)")
+    p.add_argument("--n-hosts", type=int, default=None,
+                   help="--pool: hosts sharing the extranonce2 space "
+                        "(default 1)")
+    p.add_argument("--suggest-difficulty", type=float, default=None,
+                   help="--pool: ask the pool for this share difficulty "
+                        "after subscribing (mining.suggest_difficulty; "
+                        "pools may ignore it)")
+    p.add_argument("--tls-no-verify", action="store_true",
+                   help="stratum+ssl:// pools: skip certificate "
+                        "verification (self-signed certificates); "
+                        "verification is on by default")
+    p.add_argument("--allow-redirect", action="store_true",
+                   help="--pool: honour client.reconnect to a different "
+                        "host (off: a cross-host redirect over the "
+                        "plaintext link is a hijack vector)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -220,6 +262,7 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
             f"--vshare > 1 on the hit-buffer kernel (--backend "
             f"{args.backend}) requires the spec kernel form (drop --no-spec)")
     bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
+    batch = batch_size_for(args)
     kwargs = dict(vshare=args.vshare, unroll=unroll, spec=spec)
     if kernel == "cuda-tile":
         kwargs.update({flag: default if getattr(args, flag) is None
@@ -235,7 +278,7 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
     else:
         kwargs["inner_size"] = 1 << min(bits, INNER_BITS)
     if args.backend not in MULTI_DEVICE_BACKENDS:
-        return get_hasher(args.backend, batch_size=1 << bits,
+        return get_hasher(args.backend, batch_size=batch,
                           device=args.device, **kwargs)
     if args.device == "cpu":
         # One shard on the CPU: the command line never names a device
@@ -248,7 +291,20 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
         kwargs["n_devices"] = args.mesh_devices
     if args.backend in ("cuda-mesh-native", "cuda-fanout"):
         kwargs["kernel"] = kernel
-    return get_hasher(args.backend, batch_per_device=1 << bits, **kwargs)
+    return get_hasher(args.backend, batch_per_device=batch, **kwargs)
+
+
+def batch_size_for(args: argparse.Namespace) -> int:
+    """Nonces per device dispatch: 2^batch-bits, or 3·2^batch-bits with
+    ``--batch-3x``."""
+    bits = DEFAULT_BATCH_BITS if args.batch_bits is None else args.batch_bits
+    return (3 if args.batch_3x else 1) << bits
+
+
+def dispatch_size(hasher: Hasher, args: argparse.Namespace) -> int:
+    """The dispatcher's fixed request size: the hasher's dispatch grid
+    (every shard of a sharded dispatch), else the batch."""
+    return dispatch_granularity(hasher, batch_size_for(args))
 
 
 def make_scheduler(args: argparse.Namespace, hasher: Hasher
@@ -290,6 +346,7 @@ def run_bench(hasher: Hasher, count: int,
 def bench(args: argparse.Namespace) -> dict:
     """``--bench``: :func:`run_bench` through the hasher and scheduler the
     options select."""
+    _refuse_session_flags(args, "--bench", ())
     hasher = make_hasher(args)
     return run_bench(hasher, args.bench_nonces,
                      scheduler=make_scheduler(args, hasher))
@@ -325,30 +382,146 @@ async def _run_with_reporter(miner, interval: float) -> None:
         logger.info("stopped; final: %s", miner.dispatcher.stats.summary())
 
 
+#: The session options, each with the modes that take it.
+SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
+                 ("ntime_roll", ("--pool", "--getwork")),
+                 ("host_index", ("--pool",)), ("n_hosts", ("--pool",)),
+                 ("suggest_difficulty", ("--pool",)),
+                 ("tls_no_verify", ("--pool",)),
+                 ("allow_redirect", ("--pool",)))
+
+
+def _refuse_session_flags(args: argparse.Namespace, mode: str,
+                          takes: Tuple[str, ...]) -> None:
+    """Refuse a session option that ``mode`` would ignore."""
+    for flag, modes in SESSION_FLAGS:
+        val = getattr(args, flag)
+        if val not in (None, False) and flag not in takes:
+            raise SystemExit(
+                f"--{flag.replace('_', '-')} applies only to "
+                f"{', '.join(modes)}; {mode} ignores it")
+
+
+def normalize_url(url: str, default_scheme: str) -> str:
+    """A bare ``host:port`` with the default scheme."""
+    return url if "//" in url else f"{default_scheme}://{url}"
+
+
+def parse_hostport(url: str, scheme: str, default_port: int
+                   ) -> Tuple[str, int]:
+    parsed = urlparse(normalize_url(url, scheme))
+    return parsed.hostname or "127.0.0.1", parsed.port or default_port
+
+
+def _pool_endpoints(pools: List[str]) -> Tuple[List[Tuple[str, int]], bool]:
+    """The ``--pool`` endpoints, primary first, and whether they use TLS.
+    A repeated ``--pool`` or a getwork+http/gbt+http URL is the multi-pool
+    fabric, which this package does not have."""
+    pool_args = [u.strip() for u in pools if u.strip()]
+    if not pool_args:
+        raise SystemExit("--pool needs at least one URL")
+    first = normalize_url(pool_args[0].split(",")[0].strip(), "stratum+tcp")
+    if len(pool_args) > 1 or urlparse(first).scheme not in (
+            "stratum+tcp", "stratum+ssl"):
+        raise SystemExit(
+            "the multi-pool fabric (a repeated --pool, or getwork+http:// "
+            "and gbt+http:// pool URLs) is not ported to this package yet; "
+            "give one --pool of stratum+tcp:// or stratum+ssl:// URLs")
+    urls = [u.strip() for u in pool_args[0].split(",") if u.strip()]
+    schemes = {urlparse(normalize_url(u, "stratum+tcp")).scheme for u in urls}
+    if not schemes <= {"stratum+tcp", "stratum+ssl"}:
+        raise SystemExit(f"--pool URLs must be stratum+tcp:// or "
+                         f"stratum+ssl://, got {sorted(schemes)}")
+    if len(schemes) > 1:
+        raise SystemExit("--pool failover URLs must all share one scheme "
+                         "(stratum+tcp or stratum+ssl)")
+    try:
+        endpoints = [parse_hostport(u, "stratum+tcp", 3333) for u in urls]
+    except ValueError as e:
+        raise SystemExit(f"bad --pool URL: {e}")
+    return endpoints, schemes == {"stratum+ssl"}
+
+
+def _checkpoint(args: argparse.Namespace):
+    if not args.checkpoint:
+        return None
+    from .utils.checkpoint import SweepCheckpoint
+
+    return SweepCheckpoint(args.checkpoint)
+
+
 def make_miner(args: argparse.Namespace) -> "StratumMiner":
     """The ``--pool`` session the options select."""
     from .miner.runner import StratumMiner
+    from .parallel.ranges import partition_extranonce2_space
 
-    url = args.pool if "//" in args.pool else f"stratum+tcp://{args.pool}"
-    parsed = urlparse(url)
-    if parsed.scheme != "stratum+tcp":
-        raise SystemExit(f"--pool must be a stratum+tcp:// URL, got {url!r}")
+    _refuse_session_flags(args, "--pool", tuple(f for f, _ in SESSION_FLAGS))
+    endpoints, use_tls = _pool_endpoints(args.pool)
+    host_index = 0 if args.host_index is None else args.host_index
+    n_hosts = 1 if args.n_hosts is None else args.n_hosts
     try:
-        host, port = parsed.hostname or "127.0.0.1", parsed.port or 3333
+        e2_start, _space, e2_step = partition_extranonce2_space(
+            4, host_index, n_hosts)
     except ValueError as e:
-        raise SystemExit(f"bad --pool URL: {e}")
+        raise SystemExit(str(e))
+    if args.suggest_difficulty is not None and args.suggest_difficulty <= 0:
+        raise SystemExit("--suggest-difficulty must be > 0")
     hasher = make_hasher(args)
-    return StratumMiner(
+    (host, port), failover = endpoints[0], endpoints[1:]
+    miner = StratumMiner(
         host, port, args.user, args.password, hasher=hasher,
         n_workers=args.workers,
-        batch_size=dispatch_granularity(hasher, 1 << DEFAULT_BATCH_BITS),
+        batch_size=dispatch_size(hasher, args),
+        extranonce2_start=e2_start,
+        extranonce2_step=e2_step,
+        allow_redirect=args.allow_redirect,
+        ntime_roll=args.ntime_roll or 0,
+        suggest_difficulty=args.suggest_difficulty,
+        failover=failover,
+        use_tls=use_tls,
+        tls_verify=not args.tls_no_verify,
+        stream_depth=args.stream_depth,
+        scheduler=make_scheduler(args, hasher),
+    )
+    miner.dispatcher.checkpoint = _checkpoint(args)
+    return miner
+
+
+def make_gbt_miner(args: argparse.Namespace) -> "GbtMiner":
+    """The ``--gbt`` session the options select."""
+    from .miner.runner import GbtMiner
+
+    _refuse_session_flags(args, "--gbt", ("checkpoint",))
+    hasher = make_hasher(args)
+    miner = GbtMiner(
+        args.gbt, args.user, args.password, hasher=hasher,
+        n_workers=args.workers,
+        batch_size=dispatch_size(hasher, args),
+        stream_depth=args.stream_depth,
+        scheduler=make_scheduler(args, hasher),
+    )
+    miner.dispatcher.checkpoint = _checkpoint(args)
+    return miner
+
+
+def make_getwork_miner(args: argparse.Namespace) -> "GetworkMiner":
+    """The ``--getwork`` session the options select: ntime rolls 600 s
+    unless ``--ntime-roll`` says otherwise."""
+    from .miner.runner import GetworkMiner
+
+    _refuse_session_flags(args, "--getwork", ("ntime_roll",))
+    hasher = make_hasher(args)
+    return GetworkMiner(
+        args.getwork, args.user, args.password, hasher=hasher,
+        n_workers=args.workers,
+        batch_size=dispatch_size(hasher, args),
+        ntime_roll=600 if args.ntime_roll is None else args.ntime_roll,
         stream_depth=args.stream_depth,
         scheduler=make_scheduler(args, hasher),
     )
 
 
-def cmd_pool(args: argparse.Namespace) -> int:
-    miner = make_miner(args)
+def cmd_session(miner, args: argparse.Namespace) -> int:
     try:
         asyncio.run(_run_with_reporter(miner, args.report_interval))
     except KeyboardInterrupt:
@@ -365,4 +538,8 @@ def main(argv: Optional[list] = None) -> int:
     )
     if args.bench:
         return cmd_bench(args)
-    return cmd_pool(args)
+    if args.gbt:
+        return cmd_session(make_gbt_miner(args), args)
+    if args.getwork:
+        return cmd_session(make_getwork_miner(args), args)
+    return cmd_session(make_miner(args), args)

@@ -3,8 +3,9 @@
 A single-threaded event loop owns all bookkeeping:
 
 - a producer turns the current job into work items: for each extranonce2
-  value (the outermost search axis) the 2^32 nonce space is split into
-  ``n_workers`` disjoint ranges;
+  value of this host's stride the 2^32 nonce space is split into
+  ``n_workers`` disjoint ranges; once that space is exhausted the BIP 310
+  version bits roll, then ntime (``ntime_roll``);
 - each worker feeds its items, as dispatch-sized ``ScanRequest``s, to the
   backend's ``scan_stream`` running on a pump thread, and verifies and
   submits the results as they stream back — CPU re-verification and share
@@ -14,7 +15,10 @@ A single-threaded event loop owns all bookkeeping:
   in flight;
 - every device hit is re-verified on the CPU oracle before it becomes a
   ``Share`` (the parity gate): a mismatch counts as a hardware error and is
-  never submitted.
+  never submitted;
+- the resume position of each job, one linear index over (ntime offset,
+  version variant, extranonce2 stride), is kept in memory and, with a
+  ``checkpoint``, on disk.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..parallel.ranges import ExtranonceCounter, NONCE_SPACE, split_range
 from .job import Job
 
 if TYPE_CHECKING:
+    from ..utils.checkpoint import SweepCheckpoint
     from .scheduler import AdaptiveBatchScheduler
 
 logger = logging.getLogger(__name__)
@@ -144,7 +149,12 @@ class Dispatcher:
         oracle: Optional[Hasher] = None,
         n_workers: int = 8,
         batch_size: int = 1 << 24,
+        extranonce2_start: int = 0,
+        extranonce2_step: int = 1,
         queue_depth: Optional[int] = None,
+        checkpoint: Optional["SweepCheckpoint"] = None,
+        ntime_roll: int = 0,
+        submit_blocks_only: bool = False,
         stream_depth: int = 2,
         scheduler: Optional["AdaptiveBatchScheduler"] = None,
     ) -> None:
@@ -158,6 +168,19 @@ class Dispatcher:
         self.oracle = oracle
         self.n_workers = n_workers
         self.batch_size = batch_size
+        #: this host's extranonce2 stride (``partition_extranonce2_space``).
+        self.extranonce2_start = extranonce2_start
+        self.extranonce2_step = extranonce2_step
+        #: resume positions on disk, beside the in-memory ones.
+        self.checkpoint = checkpoint
+        #: solo mining submits block-target hits only: easier hits are
+        #: neither counted as found nor handed on.
+        self.submit_blocks_only = submit_blocks_only
+        #: seconds of ntime rolling once the extranonce2 × version × nonce
+        #: space is exhausted: each pass sweeps it again at ntime + 1 s, up
+        #: to this many. A fixed-merkle (getwork) job holds 2^32 nonces and
+        #: would idle without it.
+        self.ntime_roll = max(0, ntime_roll)
         #: requests a worker keeps in flight ahead of verification. 0 runs
         #: the blocking scan-then-verify loop. A dispatch ring yields its
         #: first result only once ring_depth+1 requests are queued, so the
@@ -222,11 +245,20 @@ class Dispatcher:
         )
         return job
 
+    @property
+    def current_generation(self) -> int:
+        return self._generation
+
     def reset_sweep_positions(self) -> None:
-        """Forget all resume positions: job ids and extranonce1 are
-        per-connection, so after a disconnect or an extranonce migration
-        the old positions describe other headers."""
+        """Forget all resume positions, in memory and on disk: job ids and
+        extranonce1 are per-connection, so after a disconnect or an
+        extranonce migration the old positions describe other headers, and
+        resuming a new session's job from them would skip space never
+        mined."""
         self._sweep_pos.clear()
+        if self.checkpoint is not None:
+            self.checkpoint.clear_all()
+            self.checkpoint.save()
 
     def stop(self) -> None:
         self._stopping = True
@@ -279,47 +311,86 @@ class Dispatcher:
                 logger.exception("producer failed for job %s", job.job_id)
 
     def _iter_items(self, job: Job) -> Iterator[WorkItem]:
-        """extranonce2-major work items; once the job's own version
-        exhausts the extranonce2 × nonce space, the BIP 310 version bits
-        roll. Resume positions are one linear index over (version variant,
-        extranonce2), so a re-installed job resumes mid-roll too."""
+        """extranonce2-major work items over two bounded outer axes: pass 0
+        sweeps the job's own (ntime, version) over this host's extranonce2
+        × nonce space; once that is exhausted (a fixed-merkle job after
+        2^32 nonces) the BIP 310 version bits roll, then ntime +1 s up to
+        ``ntime_roll``. Resume positions are one linear index over
+        (ntime offset, version variant, extranonce2 stride), so a
+        re-installed or checkpointed job resumes mid-roll too."""
         positions = self._stride_positions(job)
+        vcount = job.version_variants
         resume_lin = self._sweep_pos.get(job.sweep_key, -1)
-        start_v, start_idx = (0, 0) if resume_lin < 0 else divmod(
-            resume_lin, positions)
-        for v_idx in range(start_v, job.version_variants):
-            version = job.rolled_version(v_idx)
-            first_idx = start_idx if v_idx == start_v else 0
-            for e2 in self._iter_extranonce2(job, first_idx):
-                self._record_resume(job, e2, v_idx, positions)
-                header76 = job.header76(e2, version=version)
-                for start, count in split_range(0, NONCE_SPACE,
-                                                self.n_workers):
-                    if count:
-                        yield WorkItem(
-                            job.generation, job, e2, header76, start,
-                            count, ntime=job.ntime, version=version,
-                        )
+        if self.checkpoint is not None:
+            saved = self.checkpoint.get_resume_index(job.sweep_key)
+            if saved is not None and saved > resume_lin:
+                resume_lin = saved
+        if resume_lin < 0:
+            start_off = start_v = start_idx = 0
+        else:
+            outer, start_idx = divmod(resume_lin, positions)
+            start_off, start_v = divmod(outer, vcount)
+        for ntime_off in range(start_off, self.ntime_roll + 1):
+            if ntime_off > start_off:
+                logger.info("job %s: search space exhausted, rolling ntime "
+                            "to +%ds", job.job_id, ntime_off)
+            ntime = job.ntime + ntime_off
+            first_v = start_v if ntime_off == start_off else 0
+            for v_idx in range(first_v, vcount):
+                version = job.rolled_version(v_idx)
+                first_idx = (start_idx if (ntime_off, v_idx) == (start_off,
+                                                                 first_v)
+                             else 0)
+                for e2 in self._iter_extranonce2(job, first_idx):
+                    if positions > 1 or self.ntime_roll or vcount > 1:
+                        self._record_resume(job, e2,
+                                            ntime_off * vcount + v_idx,
+                                            positions)
+                    header76 = job.header76(e2, ntime=ntime, version=version)
+                    for start, count in split_range(0, NONCE_SPACE,
+                                                    self.n_workers):
+                        if count:
+                            yield WorkItem(
+                                job.generation, job, e2, header76, start,
+                                count, ntime=ntime, version=version,
+                            )
 
-    @staticmethod
-    def _stride_positions(job: Job) -> int:
-        """How many extranonce2 values one version variant sweeps."""
-        return 1 << (8 * job.extranonce2_size)
+    def _stride_positions(self, job: Job) -> int:
+        """How many extranonce2 values this host sweeps per pass."""
+        if job.extranonce2_size == 0:
+            return 1
+        span = (1 << (8 * job.extranonce2_size)) - self.extranonce2_start
+        return max(1, -(-span // self.extranonce2_step))
 
-    @staticmethod
-    def _iter_extranonce2(job: Job, first_idx: int) -> Iterator[bytes]:
-        return iter(ExtranonceCounter(size=job.extranonce2_size,
-                                      start=first_idx))
+    def _iter_extranonce2(self, job: Job, first_idx: int) -> Iterator[bytes]:
+        """This host's extranonce2 stride from ``first_idx`` positions in;
+        a fixed-merkle job's single empty value."""
+        if job.extranonce2_size == 0:
+            return iter([b""])
+        return iter(ExtranonceCounter(
+            size=job.extranonce2_size,
+            start=self.extranonce2_start + first_idx * self.extranonce2_step,
+            step=self.extranonce2_step))
 
-    def _record_resume(self, job: Job, e2: bytes, v_idx: int,
+    def _record_resume(self, job: Job, e2: bytes, outer: int,
                        positions: int) -> None:
-        lin = (v_idx * positions + int.from_bytes(e2, "little")
-               - self._resume_lag_strides)
+        """Move the job's resume point to ``e2`` of pass ``outer`` (ntime
+        offset × version variants + variant), lagged as
+        ``_resume_lag_strides`` says; near a pass boundary the lag reaches
+        back into the previous pass. The checkpoint follows."""
+        idx = ((int.from_bytes(e2, "little") - self.extranonce2_start)
+               // self.extranonce2_step)
+        lin = outer * positions + idx - self._resume_lag_strides
         if lin > self._sweep_pos.get(job.sweep_key, -1):
             self._sweep_pos[job.sweep_key] = lin
             self._sweep_pos.move_to_end(job.sweep_key)
             while len(self._sweep_pos) > self._sweep_pos_capacity:
                 self._sweep_pos.popitem(last=False)
+            if self.checkpoint is not None:
+                prev = self.checkpoint.get_resume_index(job.sweep_key)
+                if lin > (prev if prev is not None else -1):
+                    self.checkpoint.set_progress(job.sweep_key, lin)
+                    self.checkpoint.save()
 
     async def _worker(self, wid: int, on_share: OnShare) -> None:
         if self.stream_depth == 0 or not getattr(
@@ -539,6 +610,8 @@ class Dispatcher:
             )
             return None
         is_block = h <= item.job.block_target
+        if self.submit_blocks_only and not is_block:
+            return None  # a real hit, but this mode never submits it
         self.stats.shares_found += 1
         if is_block:
             self.stats.blocks_found += 1

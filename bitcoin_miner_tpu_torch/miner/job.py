@@ -1,6 +1,7 @@
-"""Work units: Stratum job params → 80-byte header templates.
+"""Work units: protocol job params → 80-byte header templates.
 
-A ``mining.notify`` becomes a ``Job``; for each extranonce2 value the job
+A ``mining.notify`` or a getblocktemplate response becomes a ``Job``, a
+getwork header a ``FixedMerkleJob``; for each extranonce2 value the job
 yields the 76 fixed header bytes (version‖prevhash‖merkle_root‖ntime‖
 nbits) whose midstate the backend caches, leaving the 4-byte nonce to
 sweep.
@@ -203,3 +204,46 @@ class Job:
         hdr += struct.pack("<II", ntime if ntime is not None else self.ntime,
                            self.nbits)
         return hdr
+
+
+def job_from_template_fields(
+    job_id: str,
+    prevhash_display_hex: str,
+    merkle_root_internal: bytes,
+    version: int,
+    nbits: int,
+    ntime: int,
+    share_target: Optional[int] = None,
+    generation: int = 0,
+) -> "FixedMerkleJob":
+    """A job for sources that give a final merkle root (getwork): no
+    extranonce2 axis. The share target defaults to the block target."""
+    return FixedMerkleJob(
+        job_id=job_id,
+        prevhash_internal=bytes.fromhex(prevhash_display_hex)[::-1],
+        coinb1=b"",
+        coinb2=b"",
+        extranonce1=b"",
+        extranonce2_size=0,
+        merkle_branch=[],
+        version=version,
+        nbits=nbits,
+        ntime=ntime,
+        share_target=(share_target if share_target is not None
+                      else nbits_to_target(nbits)),
+        generation=generation,
+        _merkle=merkle_root_internal,
+    )
+
+
+@dataclass(frozen=True)
+class FixedMerkleJob(Job):
+    """A job whose merkle root is already final: extranonce2 has size 0 and
+    the single empty value."""
+
+    _merkle: bytes = b""
+
+    def merkle_root_internal(self, extranonce2: bytes) -> bytes:
+        if extranonce2 != b"":
+            raise ValueError("fixed-merkle jobs have no extranonce2 axis")
+        return self._merkle

@@ -1,22 +1,34 @@
-"""The Stratum mining session: protocol client ↔ dispatcher glue.
+"""Mining sessions: protocol client ↔ dispatcher glue.
 
-Pool notifications become dispatcher jobs; dispatcher shares become
-``mining.submit`` calls; accept, reject and stale verdicts land in the
-stats the periodic reporter prints.
+- :class:`StratumMiner`: pool notifications become dispatcher jobs,
+  shares become ``mining.submit`` calls;
+- :class:`GetworkMiner`: polled getwork headers become fixed-merkle jobs,
+  solves go back through ``getwork``;
+- :class:`GbtMiner`: getblocktemplate templates (BIP22 long polling where
+  the node offers it) become jobs whose coinbase carries the extranonce2
+  slot, and block-target hits go back as whole blocks via
+  ``submitblock``.
+
+Accept, reject and stale verdicts land in the stats the periodic reporter
+prints. Every session's default hasher is the tile kernel on the card
+(``cuda-tile``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import TYPE_CHECKING, Optional
+from collections import Counter
+from typing import TYPE_CHECKING, Any, List, Optional, Tuple
 
 from ..backends.base import Hasher
 from ..protocol.stratum import StratumClient, StratumError
+from ..utils.backoff import DecorrelatedJitterBackoff
 from .dispatcher import Dispatcher, Share
 from .job import Job, StratumJobParams
 
 if TYPE_CHECKING:
+    from ..protocol.getwork import GbtJob
     from .scheduler import AdaptiveBatchScheduler
 
 logger = logging.getLogger(__name__)
@@ -34,6 +46,22 @@ def _is_stale_error(e: StratumError) -> bool:
     return "stale" in msg or "job not found" in msg or "job-not-found" in msg
 
 
+def _is_stale_reason(reason: str) -> bool:
+    """A ``submitblock`` verdict that the block was built on a tip that is
+    no longer the best (BIP22's "inconclusive" family, "duplicate", or a
+    "stale" reason): a block that came too late, not an invalid one."""
+    r = reason.lower()
+    return r.startswith(("inconclusive", "duplicate")) or "stale" in r
+
+
+def _default_hasher(hasher: Optional[Hasher]) -> Hasher:
+    if hasher is not None:
+        return hasher
+    from ..backends.base import get_hasher
+
+    return get_hasher("cuda-tile")
+
+
 class StratumMiner:
     """Mine against a Stratum v1 pool until stopped. The default hasher is
     the tile kernel on the card (``cuda-tile``)."""
@@ -48,18 +76,25 @@ class StratumMiner:
         oracle: Optional[Hasher] = None,
         n_workers: int = 8,
         batch_size: int = 1 << 24,
+        extranonce2_start: int = 0,
+        extranonce2_step: int = 1,
+        allow_redirect: bool = False,
+        ntime_roll: int = 0,
+        suggest_difficulty: Optional[float] = None,
+        failover: Optional[List[Tuple[str, int]]] = None,
+        use_tls: bool = False,
+        tls_verify: bool = True,
         stream_depth: int = 2,
         scheduler: Optional["AdaptiveBatchScheduler"] = None,
     ) -> None:
-        if hasher is None:
-            from ..backends.base import get_hasher
-
-            hasher = get_hasher("cuda-tile")
         self.dispatcher = Dispatcher(
-            hasher,
+            _default_hasher(hasher),
             oracle=oracle,
             n_workers=n_workers,
             batch_size=batch_size,
+            extranonce2_start=extranonce2_start,
+            extranonce2_step=extranonce2_step,
+            ntime_roll=ntime_roll,
             stream_depth=stream_depth,
             scheduler=scheduler,
         )
@@ -76,6 +111,11 @@ class StratumMiner:
             on_disconnect=self._on_disconnect,
             on_extranonce=self._on_extranonce,
             on_version_mask=self._on_version_mask,
+            allow_redirect=allow_redirect,
+            suggest_difficulty=suggest_difficulty,
+            failover=failover,
+            use_tls=use_tls,
+            tls_verify=tls_verify,
         )
 
     # --------------------------------------------------------- client → jobs
@@ -115,6 +155,8 @@ class StratumMiner:
 
     def _sync_reconnects(self) -> None:
         """Fold the client's reconnect count into the stats."""
+        if self.client.reconnects < self._client_reconnects_seen:
+            self._client_reconnects_seen = 0  # a new client counts from 0
         delta = self.client.reconnects - self._client_reconnects_seen
         if delta > 0:
             self.dispatcher.stats.reconnects += delta
@@ -163,3 +205,238 @@ class StratumMiner:
     def stop(self) -> None:
         self.dispatcher.stop()
         self.client.stop()
+
+
+class GetworkMiner:
+    """getwork polling through the dispatcher: each fetched header is a
+    fixed-merkle job (no extranonce2 axis), so new work supersedes the old
+    sweep by generation instead of waiting behind a 2^32 scan, and the
+    ntime axis (``ntime_roll``, 600 s by default) keeps the card busy
+    between polls."""
+
+    def __init__(
+        self,
+        url: str,
+        username: str = "",
+        password: str = "",
+        hasher: Optional[Hasher] = None,
+        oracle: Optional[Hasher] = None,
+        n_workers: int = 8,
+        batch_size: int = 1 << 24,
+        poll_interval: float = 5.0,
+        ntime_roll: int = 600,
+        stream_depth: int = 2,
+        scheduler: Optional["AdaptiveBatchScheduler"] = None,
+    ) -> None:
+        from ..protocol.getwork import GetworkClient
+
+        self.client = GetworkClient(url, username, password)
+        self.dispatcher = Dispatcher(
+            _default_hasher(hasher), oracle=oracle, n_workers=n_workers,
+            batch_size=batch_size, ntime_roll=ntime_roll,
+            stream_depth=stream_depth, scheduler=scheduler,
+        )
+        self.poll_interval = poll_interval
+        self.solves_submitted = 0
+        self.solves_accepted = 0
+        self._stopping = False
+        self._current_job_id: Optional[str] = None
+        #: retry delays after a failed fetch, so a dead node is not polled
+        #: at full cadence; a success resets them.
+        self._poll_backoff = DecorrelatedJitterBackoff(
+            poll_interval, max(poll_interval * 2, 60.0))
+
+    async def _poll_loop(self) -> None:
+        last_work: Optional[bytes] = None
+        while not self._stopping:
+            try:
+                job, header76 = await self.client.fetch_work()
+            except Exception as e:  # noqa: BLE001 — a dead node is retried
+                logger.warning("getwork fetch failed: %s; retrying", e)
+                await asyncio.sleep(self._poll_backoff.next())
+                continue
+            self._poll_backoff.reset()
+            # The ntime bytes (68-72) are left out: servers bump ntime on
+            # every request, and taking that for new work would restart the
+            # sweep at nonce 0 each poll, never reaching the ntime axis. The
+            # dispatcher mines and submits its own job's ntimes.
+            work_identity = header76[:68] + header76[72:76]
+            if work_identity != last_work:
+                last_work = work_identity
+                self._current_job_id = job.job_id
+                self.dispatcher.set_job(job)
+            await asyncio.sleep(self.poll_interval)
+
+    async def _on_share(self, share: Share) -> None:
+        stats = self.dispatcher.stats
+        if share.job_id != self._current_job_id:
+            stats.shares_stale += 1
+            return
+        self.solves_submitted += 1
+        try:
+            ok = await self.client.submit(share.header80)
+        except Exception as e:  # noqa: BLE001 — logged; the session goes on
+            logger.error("getwork submit failed: %s", e)
+            return
+        if ok:
+            self.solves_accepted += 1
+            stats.shares_accepted += 1
+        else:
+            stats.shares_rejected += 1
+
+    async def run(self) -> None:
+        poll_task = asyncio.create_task(self._poll_loop(), name="getwork-poll")
+        try:
+            await self.dispatcher.run(self._on_share)
+        finally:
+            self._stopping = True
+            poll_task.cancel()
+            await asyncio.gather(poll_task, return_exceptions=True)
+
+    def stop(self) -> None:
+        self._stopping = True
+        self.dispatcher.stop()
+
+
+class GbtMiner:
+    """Solo mining against a node's getblocktemplate: templates become
+    jobs (the coinbase carries the extranonce2 slot), and every hit that
+    meets the block target goes back as a whole block through
+    ``submitblock``.
+
+    Besides the dispatcher's stats it counts blocks submitted, accepted,
+    stale (built on a template the node has moved past: the miner's job
+    changed before the submit, or the node said so) and rejected, with
+    the node's reasons in :attr:`reject_reasons`."""
+
+    def __init__(
+        self,
+        url: str,
+        username: str = "",
+        password: str = "",
+        hasher: Optional[Hasher] = None,
+        oracle: Optional[Hasher] = None,
+        n_workers: int = 8,
+        batch_size: int = 1 << 24,
+        poll_interval: float = 5.0,
+        extranonce2_size: int = 4,
+        script_pubkey: Optional[bytes] = None,
+        stream_depth: int = 2,
+        scheduler: Optional["AdaptiveBatchScheduler"] = None,
+    ) -> None:
+        from ..core.tx import OP_TRUE_SCRIPT
+        from ..protocol.getwork import GbtClient
+
+        self.client = GbtClient(
+            url, username, password, extranonce2_size=extranonce2_size,
+            script_pubkey=script_pubkey or OP_TRUE_SCRIPT)
+        self.dispatcher = Dispatcher(
+            _default_hasher(hasher), oracle=oracle, n_workers=n_workers,
+            batch_size=batch_size, submit_blocks_only=True,
+            stream_depth=stream_depth, scheduler=scheduler,
+        )
+        self.poll_interval = poll_interval
+        self.blocks_submitted = 0
+        self.blocks_accepted = 0
+        self.blocks_stale = 0
+        self.blocks_rejected = 0
+        self.reject_reasons: "Counter[str]" = Counter()
+        self._current: Optional["GbtJob"] = None
+        self._stopping = False
+        self._poll_backoff = DecorrelatedJitterBackoff(
+            poll_interval, max(poll_interval * 2, 60.0))
+
+    @staticmethod
+    def _template_identity(template: "dict[str, Any]") -> "tuple[Any, ...]":
+        """What makes a template new work: the tip it builds on, the
+        reward and the transaction set. A fee-bumped template at the same
+        height must supersede the running job."""
+        return (
+            template.get("previousblockhash"),
+            template.get("coinbasevalue"),
+            tuple(t.get("txid") or t.get("hash")
+                  for t in template.get("transactions", [])),
+        )
+
+    async def _poll_loop(self) -> None:
+        last_identity = None
+        while not self._stopping:
+            # After the first fetch, BIP22 long polling where the node
+            # offers it: the request waits on the node and returns when the
+            # template changes. Otherwise interval polling.
+            longpoll = self.client.last_longpollid is not None
+            try:
+                gbt = await self.client.fetch_job(longpoll=longpoll)
+            except asyncio.TimeoutError:
+                if longpoll:
+                    continue  # a quiet template outlived the wait: re-park
+                logger.warning("getblocktemplate timed out; retrying")
+                await asyncio.sleep(self._poll_backoff.next())
+                continue
+            except Exception as e:  # noqa: BLE001 — a dead node is retried
+                logger.warning("getblocktemplate failed: %s; retrying", e)
+                # A restarted node may refuse the remembered longpollid:
+                # the next attempt is a plain request.
+                self.client.last_longpollid = None
+                await asyncio.sleep(self._poll_backoff.next())
+                continue
+            self._poll_backoff.reset()
+            identity = self._template_identity(gbt.template)
+            changed = identity != last_identity
+            if changed:
+                if last_identity is not None:
+                    logger.info("template changed (%s); switching jobs",
+                                "new tip" if identity[0] != last_identity[0]
+                                else "tx set / fees")
+                last_identity = identity
+                self._current = gbt
+                self.dispatcher.set_job(gbt.job)
+            if self.client.last_longpollid is None:
+                await asyncio.sleep(self.poll_interval)
+            elif not changed:
+                # A long poll that returned the same work: a short pause,
+                # so a server that does not park cannot spin us.
+                await asyncio.sleep(min(1.0, self.poll_interval))
+
+    async def _on_share(self, share: Share) -> None:
+        stats = self.dispatcher.stats
+        gbt = self._current
+        if gbt is None or share.job_id != gbt.job.job_id:
+            stats.shares_stale += 1
+            self.blocks_stale += share.is_block
+            return
+        if not share.is_block:
+            return  # solo mining: only block-target hits count
+        self.blocks_submitted += 1
+        try:
+            reason = await self.client.submit_block(gbt, share.extranonce2,
+                                                    share.header80)
+        except Exception as e:  # noqa: BLE001 — logged; the session goes on
+            logger.error("submitblock failed: %s", e)
+            return
+        if reason is None:
+            self.blocks_accepted += 1
+            stats.shares_accepted += 1
+            logger.warning("block ACCEPTED (job %s)", share.job_id)
+        elif _is_stale_reason(str(reason)):
+            self.blocks_stale += 1
+            stats.shares_stale += 1
+            logger.info("block stale (job %s): %s", share.job_id, reason)
+        else:
+            self.blocks_rejected += 1
+            self.reject_reasons[str(reason)] += 1
+            stats.shares_rejected += 1
+            logger.error("block rejected: %s", reason)
+
+    async def run(self) -> None:
+        poll_task = asyncio.create_task(self._poll_loop(), name="gbt-poll")
+        try:
+            await self.dispatcher.run(self._on_share)
+        finally:
+            self._stopping = True
+            poll_task.cancel()
+            await asyncio.gather(poll_task, return_exceptions=True)
+
+    def stop(self) -> None:
+        self._stopping = True
+        self.dispatcher.stop()

@@ -3,13 +3,22 @@
 - ``mining.configure``  → BIP 310 version-rolling negotiation (mask)
 - ``mining.subscribe``  → extranonce1 + extranonce2_size
 - ``mining.authorize``  → worker credentials
+- ``mining.suggest_difficulty`` → an optional share difficulty, sent once
+  the session is authorized (the pool may answer with
+  ``mining.set_difficulty`` or ignore it)
 - ``mining.notify``     → new job (clean_jobs ⇒ stale-work flush upstream)
 - ``mining.set_difficulty`` → share target for the following jobs
 - ``mining.set_extranonce`` / ``mining.set_version_mask`` → mid-session
   changes that rebuild the current job
 - ``mining.submit``     → share submission, with the rolled version bits as
   a 6th param when rolling was negotiated
-- ``client.reconnect`` / EOF / errors → reconnect with jittered backoff
+- ``client.reconnect`` / EOF / errors → reconnect with jittered backoff;
+  a cross-host ``client.reconnect`` only with ``allow_redirect``
+- failover: after ``failover_threshold`` attempts in a row that never
+  complete a handshake, the next endpoint of ``failover`` (wrapping back
+  to the primary); ``use_tls`` wraps each connection in TLS
+  (``stratum+ssl``), verifying the certificate unless ``tls_verify`` is
+  off
 
 Requests carry ``id``/``method``/``params``; notifications have ``id:
 null``. Responses are matched to requests by id. The client owns no
@@ -23,11 +32,23 @@ import asyncio
 import itertools
 import json
 import logging
-from typing import Any, Awaitable, Callable, Dict, Optional
+from typing import (
+    TYPE_CHECKING,
+    Any,
+    Awaitable,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Tuple,
+)
 
 from ..miner.dispatcher import Share
 from ..miner.job import StratumJobParams
 from ..utils.backoff import DecorrelatedJitterBackoff
+
+if TYPE_CHECKING:
+    import ssl
 
 logger = logging.getLogger(__name__)
 
@@ -77,13 +98,40 @@ class StratumClient:
         on_disconnect: Optional[OnEvent] = None,
         on_extranonce: Optional[OnEvent] = None,
         on_version_mask: Optional[OnEvent] = None,
+        on_connect: Optional[OnEvent] = None,
         user_agent: str = "tpu-miner-torch/0.1",
         request_timeout: float = 30.0,
         reconnect_base_delay: float = 1.0,
         reconnect_max_delay: float = 60.0,
+        allow_redirect: bool = False,
+        suggest_difficulty: Optional[float] = None,
+        failover: Optional[List[Tuple[str, int]]] = None,
+        failover_threshold: int = 3,
+        use_tls: bool = False,
+        tls_verify: bool = True,
     ) -> None:
         self.host = host
         self.port = port
+        #: the primary, then the backups in order. A pool that connects and
+        #: then drops resets the failure count: failover is for dead
+        #: endpoints, not flaky sessions.
+        self._endpoints: List[Tuple[str, int]] = (
+            [(host, port)] + list(failover or []))
+        self._endpoint_idx = 0
+        self.failover_threshold = failover_threshold
+        self._consec_conn_failures = 0
+        #: stratum+ssl. Verification is on by default: a man in the middle
+        #: of the pool link could redirect the hashrate; ``tls_verify=False``
+        #: is the opt-out for self-signed pool certificates.
+        self.use_tls = use_tls
+        self.tls_verify = tls_verify
+        self._tls_ctx: Optional["ssl.SSLContext"] = None
+        #: honour a ``client.reconnect`` to another host (off: over a
+        #: plaintext link that is the classic hashrate hijack).
+        self.allow_redirect = allow_redirect
+        #: the difficulty suggested after each authorize (None: none).
+        self.suggest_difficulty = suggest_difficulty
+        self.on_connect = on_connect
         self.username = username
         self.password = password
         self.on_job = on_job
@@ -102,6 +150,8 @@ class StratumClient:
         #: the mask asked for: the BIP 320 general-purpose bits 13-28.
         self.version_mask_request: int = 0x1FFFE000
         self.reconnects = 0
+        #: set while a session is established (handshake done).
+        self.connected = asyncio.Event()
 
         self._ids = itertools.count(1)
         self._pending: Dict[int, asyncio.Future] = {}
@@ -129,7 +179,21 @@ class StratumClient:
                     self.host, self.port, e,
                 )
             if self._session_established:
+                self._consec_conn_failures = 0
                 self._backoff.reset()
+            else:
+                self._consec_conn_failures += 1
+                if (self._consec_conn_failures >= self.failover_threshold
+                        and len(self._endpoints) > 1 and not self._stopping):
+                    self._endpoint_idx = ((self._endpoint_idx + 1)
+                                          % len(self._endpoints))
+                    self.host, self.port = self._endpoints[self._endpoint_idx]
+                    self._consec_conn_failures = 0
+                    # The backoff carries across the rotation: reset per
+                    # endpoint, a full outage would retry hot forever.
+                    logger.warning("failing over to stratum pool %s:%d",
+                                   self.host, self.port)
+            self.connected.clear()
             self._fail_pending(ConnectionError("connection lost"))
             if not self._stopping:
                 self.reconnects += 1
@@ -144,9 +208,33 @@ class StratumClient:
         if self._writer is not None:
             self._writer.close()
 
+    def _ssl_context(self) -> Optional["ssl.SSLContext"]:
+        """Built once: the default context reads the CA bundle from disk,
+        which the reconnect loop must not repeat."""
+        if not self.use_tls:
+            return None
+        if self._tls_ctx is None:
+            import ssl
+
+            ctx = ssl.create_default_context()
+            if not self.tls_verify:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            self._tls_ctx = ctx
+        return self._tls_ctx
+
     async def _connect_and_read(self) -> None:
         self._session_established = False
-        reader, writer = await asyncio.open_connection(self.host, self.port)
+        ctx = self._ssl_context()
+        kwargs: Dict[str, Any] = {}
+        if ctx is not None:
+            # A plaintext endpoint behind a stratum+ssl URL stalls the
+            # handshake: bound it by the request timeout, not asyncio's 60 s,
+            # or failover waits minutes.
+            kwargs = dict(ssl=ctx, ssl_handshake_timeout=min(
+                30.0, self.request_timeout))
+        reader, writer = await asyncio.open_connection(self.host, self.port,
+                                                       **kwargs)
         self._writer = writer
         logger.info("connected to stratum pool %s:%d", self.host, self.port)
         # The read loop runs during the handshake: subscribe and authorize
@@ -155,10 +243,14 @@ class StratumClient:
         try:
             await self._handshake()
             self._session_established = True
+            self.connected.set()
+            if self.on_connect is not None:
+                await self.on_connect()
             await read_task  # raises ConnectionError on EOF
         finally:
             read_task.cancel()
             await asyncio.gather(read_task, return_exceptions=True)
+            self.connected.clear()
             writer.close()
             self._writer = None
 
@@ -213,6 +305,21 @@ class StratumClient:
             "subscribed: extranonce1=%s extranonce2_size=%d; authorized as %s",
             self.extranonce1.hex(), self.extranonce2_size, self.username,
         )
+        if self.suggest_difficulty is not None:
+            await self._send_fire_and_forget("mining.suggest_difficulty",
+                                             [self.suggest_difficulty])
+
+    async def _send_fire_and_forget(self, method: str, params: list) -> None:
+        """Send a request without waiting for its reply: pools answer an
+        optional extension with an error, a push, or nothing, and waiting
+        would stall every (re)connect on the silent ones. A reply lands in
+        the unknown-id path."""
+        if self._writer is None:
+            raise ConnectionError("not connected")
+        self._writer.write((json.dumps(
+            {"id": next(self._ids), "method": method, "params": params}
+        ) + "\n").encode())
+        await self._writer.drain()
 
     # ------------------------------------------------------------ requests
     async def _request(
@@ -313,19 +420,22 @@ class StratumClient:
             if self.on_version_mask is not None:
                 await self.on_version_mask()
         elif method == "client.reconnect":
-            # Same-host moves only: a redirect to another host over the
-            # plaintext link is the classic hashrate-hijack vector.
+            # Same-host moves are routine load shedding; a move to another
+            # host over the plaintext link is the classic hashrate hijack,
+            # honoured only with ``allow_redirect``.
             host = params[0] if len(params) > 0 and params[0] else self.host
             port = params[1] if len(params) > 1 and params[1] else self.port
-            if host != self.host:
+            if host != self.host and not self.allow_redirect:
                 logger.warning("ignoring client.reconnect to foreign host "
-                               "%s:%s", host, port)
+                               "%s:%s (allow_redirect is off)", host, port)
                 return
             try:
-                self.port = int(port)
+                port = int(port)
             except (TypeError, ValueError):
                 logger.warning("bad client.reconnect: %r", params)
                 return
+            logger.info("pool requested reconnect to %s:%d", host, port)
+            self.host, self.port = host, port
             if self._writer is not None:
                 self._writer.close()  # the read loop exits; run() reconnects
         else:

@@ -86,9 +86,11 @@ class MockStratumPool:
         self.port: int = 0
 
     # ------------------------------------------------------------ lifecycle
-    async def start(self, host: str = "127.0.0.1", port: int = 0
-                    ) -> Tuple[str, int]:
-        self._server = await asyncio.start_server(self._serve, host, port)
+    async def start(self, host: str = "127.0.0.1", port: int = 0,
+                    ssl=None) -> Tuple[str, int]:
+        """``ssl``: an ``ssl.SSLContext`` to serve stratum+ssl sessions."""
+        self._server = await asyncio.start_server(self._serve, host, port,
+                                                  ssl=ssl)
         self.port = self._server.sockets[0].getsockname()[1]
         return host, self.port
 
@@ -144,6 +146,16 @@ class MockStratumPool:
                     await self._broadcast(
                         "mining.notify", self.current_job.notify_params()
                     )
+                if msg.get("method") == "mining.suggest_difficulty":
+                    # This pool honours a positive suggestion: it adopts it
+                    # and pushes it back, as real pools acknowledge.
+                    params = msg.get("params") or []
+                    try:
+                        suggested = float(params[0])
+                    except (IndexError, TypeError, ValueError):
+                        suggested = 0.0
+                    if suggested > 0:
+                        await self.set_difficulty(suggested)
         except ConnectionError:
             pass
         finally:
@@ -172,6 +184,8 @@ class MockStratumPool:
             ]
             return {"id": req_id, "result": result, "error": None}
         if method == "mining.authorize":
+            return {"id": req_id, "result": True, "error": None}
+        if method == "mining.suggest_difficulty":
             return {"id": req_id, "result": True, "error": None}
         if method == "mining.submit":
             return self._handle_submit(req_id, params)

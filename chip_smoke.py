@@ -49,7 +49,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    --variant vroll`` session and its degraded twin as in 6; scans 2^26
    nonces through ``TileCudaHasher`` at an easy target (~2^-12 per nonce)
    and at regtest's (``easy_target_scan``): the rate, ``rescan_steps``
-   launches per dispatch, and the same hits as ``CudaHasher``'s;
+   launches per dispatch, and the same hits as ``CudaHasher``'s; mines a
+   getblocktemplate session as ``--gbt URL --workers 8`` against the
+   package's fake node at regtest's nbits, which takes each accepted block
+   as its new tip (≥3 blocks on 3 tips, none rejected; ``gbt_session``),
+   a getwork session as ``--getwork URL --workers 4`` at difficulty 1 (3
+   solves accepted, 2 at a rolled ntime; ``getwork_session``), a Stratum
+   session as ``--pool DEAD,LIVE --host-index 1 --n-hosts 2
+   --suggest-difficulty 0.00390625 --checkpoint PATH`` (the rotation, odd
+   extranonce2 only, the suggested difficulty, a resume from the file;
+   ``stratum_session_failover``), and the genesis sweep as ``--bench
+   --batch-3x --sublanes 24`` (86 dispatches of 3·2^24 nonces, the last
+   cut by its limit; ``genesis_sweep_batch3x``);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -884,6 +895,64 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                          "launches": launched(counts)})
         return {"runs": runs}
 
+    def gbt_session():
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(gbt(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and counts["rescan_steps"] > 0, counts
+        assert not any(n for name, n in counts.items() if "_k" in name), (
+            f"a K>1 kernel launched in the one-chain session: {counts}")
+        no_hitbuf_pair(counts)
+        return {**result, "launches": launched(counts)}
+
+    def getwork_session():
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(getwork(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0, counts
+        assert not any(n for name, n in counts.items() if "_k" in name), (
+            f"a K>1 kernel launched in the one-chain session: {counts}")
+        no_hitbuf_pair(counts)
+        return {**result, "launches": launched(counts)}
+
+    def stratum_session_failover():
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(failover(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0, counts
+        assert not any(n for name, n in counts.items() if "_k" in name), (
+            f"a K>1 kernel launched in the one-chain session: {counts}")
+        no_hitbuf_pair(counts)
+        return {**result, "launches": launched(counts)}
+
+    def genesis_sweep_batch3x():
+        """The whole genesis sweep as ``--bench --batch-3x --sublanes 24``
+        runs it: 3·2^24-nonce dispatches of 24576-nonce steps (24 rows of
+        128 nonces × 8 tiles), the last one cut by its limit."""
+        args = pkg.cli.build_parser().parse_args(
+            ["--bench", "--batch-3x", "--sublanes", "24", "--bench-nonces",
+             str(1 << 32)])
+        hasher = pkg.cli.make_hasher(args)
+        assert (hasher.batch_size, hasher.tile) == (3 * DISPATCH, 24576), (
+            hasher.batch_size, hasher.tile)
+        s.reset_counts()
+        out = pkg.cli.run_bench(hasher, 1 << 32,
+                                scheduler=pkg.cli.make_scheduler(args, hasher))
+        counts = s.read_counts()
+        assert out["verified"], f"genesis nonce not found: {out['nonces']}"
+        assert out["hashes"] == 1 << 32 and out["nonce_start"] == 0, out
+        dispatches = -(-(1 << 32) // (3 * DISPATCH))
+        assert counts["scan_tile"] == dispatches, (counts, dispatches)
+        assert counts["rescan_steps"] <= counts["scan_tile"], counts
+        assert launched(counts).keys() <= {"scan_tile", "rescan_steps"}, (
+            counts)
+        return {"mhs": out["mhs"], "requests": out["dispatches"],
+                "dispatch_nonces": hasher.batch_size, "step": hasher.tile,
+                "sweep_seconds": out["seconds"], "hits": out["nonces"],
+                "mhs_vs_k1_sweep": out["mhs"] / s.sweep_mhs[1]
+                if 1 in s.sweep_mhs else None,
+                "launches": launched(counts)}
+
     def verify_sibling(version_hits) -> list:
         """The sweep's sibling hits, each verified on the CPU; the genesis
         sibling at --vshare 2 must be among them."""
@@ -1522,6 +1591,10 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("genesis_sweep_variants", genesis_sweep_variants)
     s.phase("stratum_session_variant", stratum_session_variant)
     s.phase("easy_target_scan", easy_target_scan)
+    s.phase("gbt_session", gbt_session)
+    s.phase("getwork_session", getwork_session)
+    s.phase("stratum_session_failover", stratum_session_failover)
+    s.phase("genesis_sweep_batch3x", genesis_sweep_batch3x)
     s.phase("lowest_vs_plain", lowest_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
@@ -1640,15 +1713,6 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
     stats = dispatcher.stats
     task = asyncio.create_task(miner.run())
 
-    async def until(done, what: str, seconds: float) -> None:
-        deadline = time.perf_counter() + seconds
-        while not done():
-            if task.done():
-                raise RuntimeError(f"miner stopped: {task!r}")
-            if time.perf_counter() > deadline:
-                raise TimeoutError(f"{what}: {stats.summary()}")
-            await asyncio.sleep(0.05)
-
     def mark() -> tuple:
         tiles = [c for c in pkg.csrc.counters()
                  if c.name.startswith("scan_tile")]
@@ -1672,10 +1736,11 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
 
     t0 = time.perf_counter()
     try:
-        await until(enough, "3 accepted shares per chain kind", 240)
+        await until(task, enough, "3 accepted shares per chain kind",
+                    stats.summary, 240)
         a = mark()
-        await until(lambda: time.perf_counter() - a[0] >= window_s,
-                    "window", window_s + 60)
+        await until(task, lambda: time.perf_counter() - a[0] >= window_s,
+                    "window", stats.summary, window_s + 60)
         b = mark()
     finally:
         miner.stop()
@@ -1707,6 +1772,244 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
             "window_shares_per_s": (b[3] - a[3]) / window}
 
 
+async def gbt(pkg) -> dict:
+    """A getblocktemplate session as ``--gbt URL --workers 8`` builds it,
+    against the package's fake node at regtest's nbits, which advances its
+    tip on every accepted block (the block's hash is the next template's
+    prevhash, at height + 1) as a regtest node does. It needs 3 blocks
+    accepted on 3 distinct tips. The window runs from the first accepted
+    block to the third tip: its rate counts the tile kernel's launches ×
+    the batch, ``hashes_mhs`` the finished requests, and it holds two job
+    switches. No block may be rejected for a reason other than a stale
+    tip, and there may be no hardware error."""
+    node = pkg.FakeNode(nbits=pkg.REGTEST_NBITS, advance_tip=True)
+    await node.start()
+    args = pkg.cli.build_parser().parse_args(
+        ["--gbt", node.url, "--workers", "8"])
+    miner = pkg.cli.make_gbt_miner(args)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and dispatcher.n_workers == 8
+    stats = dispatcher.stats
+    task = asyncio.create_task(miner.run())
+
+    def mark() -> tuple:
+        launches = sum(c.value for c in pkg.csrc.counters()
+                       if c.name == "scan_tile")
+        return (time.perf_counter(), launches, stats.hashes,
+                miner.blocks_accepted)
+
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: miner.blocks_accepted >= 1, "a block",
+                    stats.summary, 60)
+        a = mark()
+        await until(task, lambda: miner.blocks_accepted >= 3
+                    and len(node.tips) >= 3, "3 blocks on 3 tips",
+                    stats.summary, 120)
+        b = mark()
+    finally:
+        miner.stop()
+        t_stop = time.perf_counter()
+        await asyncio.gather(task, return_exceptions=True)
+        stop_seconds = time.perf_counter() - t_stop
+        await node.stop()
+    node_rejects = [blk.reason for blk in node.blocks if not blk.accepted]
+    assert miner.blocks_rejected == 0, dict(miner.reject_reasons)
+    assert all(r == "inconclusive-not-best-prevblk" for r in node_rejects), (
+        node_rejects)
+    assert stats.hw_errors == 0, stats.summary()
+    window = b[0] - a[0]
+    return {"blocks_accepted": miner.blocks_accepted,
+            "blocks_stale": miner.blocks_stale,
+            "blocks_rejected": miner.blocks_rejected,
+            "reject_reasons": dict(miner.reject_reasons),
+            "blocks_submitted": miner.blocks_submitted,
+            "node_accepted": sum(blk.accepted for blk in node.blocks),
+            "node_stale_tip": len(node_rejects), "tips": len(node.tips),
+            "height": node.template["height"],
+            "hw_errors": stats.hw_errors, "hashes": stats.hashes,
+            "workers": dispatcher.n_workers, "backend": hasher.name,
+            "first_block_seconds": a[0] - t0, "window_seconds": window,
+            "window_launches": b[1] - a[1],
+            "seconds_per_tip": window / (b[3] - a[3]),
+            "stop_seconds": stop_seconds,
+            "mhs": (b[1] - a[1]) * hasher.batch_size / window / 1e6,
+            "hashes_mhs": (b[2] - a[2]) / window / 1e6}
+
+
+async def getwork(pkg) -> dict:
+    """A getwork session as ``--getwork URL --workers 4`` builds it (ntime
+    rolls 600 s), against the package's fake node at difficulty 1 (one
+    solve per 2^32 nonces), which takes a solve at an ntime up to 600 s
+    past the one it served. It needs 3 accepted solves, 2 of them at a
+    rolled ntime; none rejected, no hardware error. The rate counts the
+    tile kernel's launches × the batch from the first job to the third
+    solve."""
+    node = pkg.FakeNode(nbits=0x1D00FFFF, getwork_ntime_roll=600)
+    await node.start()
+    args = pkg.cli.build_parser().parse_args(
+        ["--getwork", node.url, "--workers", "4"])
+    miner = pkg.cli.make_getwork_miner(args)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and dispatcher.ntime_roll == 600
+    stats = dispatcher.stats
+
+    def rolled() -> list:
+        return [w for w in node.getwork_submits if w.accepted and int.from_bytes(
+            w.header80[68:72], "little") != w.served_ntime]
+
+    def mark() -> tuple:
+        launches = sum(c.value for c in pkg.csrc.counters()
+                       if c.name == "scan_tile")
+        return time.perf_counter(), launches, stats.hashes
+
+    task = asyncio.create_task(miner.run())
+    try:
+        await until(task, lambda: dispatcher.current_generation >= 1,
+                    "a job", stats.summary, 60)
+        a = mark()
+        await until(task, lambda: miner.solves_accepted >= 3
+                    and len(rolled()) >= 2, "3 solves, 2 at a rolled ntime",
+                    stats.summary, 120)
+        b = mark()
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await node.stop()
+    rejected = [w for w in node.getwork_submits if not w.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    return {"solves_accepted": miner.solves_accepted,
+            "solves_submitted": miner.solves_submitted,
+            "node_accepted": sum(w.accepted for w in node.getwork_submits),
+            "rolled_ntime_accepted": [
+                int.from_bytes(w.header80[68:72], "little") - w.served_ntime
+                for w in rolled()],
+            "stale": stats.shares_stale, "rejected": stats.shares_rejected,
+            "hw_errors": stats.hw_errors, "hashes": stats.hashes,
+            "workers": dispatcher.n_workers, "window_seconds": b[0] - a[0],
+            "window_launches": b[1] - a[1],
+            "mhs": (b[1] - a[1]) * hasher.batch_size / (b[0] - a[0]) / 1e6,
+            "hashes_mhs": (b[2] - a[2]) / (b[0] - a[0]) / 1e6}
+
+
+async def failover(pkg, suggest: float = 0.00390625) -> dict:
+    """A Stratum session as ``--pool stratum+tcp://127.0.0.1:DEAD,
+    stratum+tcp://127.0.0.1:LIVE --host-index 1 --n-hosts 2
+    --suggest-difficulty S --checkpoint PATH`` builds it, against the mock
+    pool at difficulty 1 on LIVE (nothing listens on DEAD). The client's
+    reconnect delays are cut to 0.05-0.2 s so that its three failed
+    attempts take a fraction of a second. It needs the rotation to LIVE,
+    the pool's difficulty at the suggestion, 3 accepted shares, each of an
+    odd extranonce2 (host 1 of 2), and a resume index ≥ 1 in the
+    checkpoint file; a second miner built on that file must then resume
+    the job at that index, past the partition's start."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        dead = sock.getsockname()[1]
+    pool = pkg.MockStratumPool(difficulty=1.0)
+    await pool.start()
+    pool_job = pkg.PoolJob(
+        job_id="failover",
+        prevhash_internal=pkg.sha256d(b"chip smoke failover prev"),
+        coinb1=bytes.fromhex("01000000") + b"\x11" * 30,
+        coinb2=b"\x22" * 30 + bytes.fromhex("00000000"),
+        merkle_branch=[pkg.sha256d(b"tx1")],
+        version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C,
+    )
+    await pool.announce_job(pool_job)
+    tmp = tempfile.TemporaryDirectory()
+    path = f"{tmp.name}/sweep.json"
+    argv = ["--pool", f"stratum+tcp://127.0.0.1:{dead},"
+            f"stratum+tcp://127.0.0.1:{pool.port}", "--host-index", "1",
+            "--n-hosts", "2", "--suggest-difficulty", str(suggest),
+            "--checkpoint", path]
+    args = pkg.cli.build_parser().parse_args(argv)
+    miner = pkg.cli.make_miner(args)
+    miner.client._backoff = pkg.DecorrelatedJitterBackoff(0.05, 0.2)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert (dispatcher.extranonce2_start, dispatcher.extranonce2_step) == (
+        1, 2)
+    assert (miner.client.host, miner.client.port) == ("127.0.0.1", dead)
+    stats = dispatcher.stats
+    job = pkg.Job.from_stratum(
+        pkg.StratumJobParams.from_notify(pool_job.notify_params()),
+        extranonce1=pool.extranonce1,
+        extranonce2_size=pool.extranonce2_size, difficulty=suggest)
+
+    def saved() -> int:
+        index = dispatcher.checkpoint.get_resume_index(job.sweep_key)
+        return -1 if index is None else index
+
+    task = asyncio.create_task(miner.run())
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: miner.client.connected.is_set(),
+                    "the rotation to the live pool", stats.summary, 60)
+        rotated = time.perf_counter() - t0
+        await until(task, lambda: stats.shares_accepted >= 3 and saved() >= 1,
+                    "3 shares and a checkpoint", stats.summary, 120)
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+    seconds = time.perf_counter() - t0
+    with open(path) as f:
+        on_disk = json.load(f)
+    index = on_disk["jobs"][job.sweep_key]
+    # A restarted miner on the same file resumes there.
+    resumed = pkg.cli.make_miner(args).dispatcher
+    assert resumed.checkpoint.get_resume_index(job.sweep_key) == index
+    first = next(resumed._iter_items(resumed.set_job(job)))
+    first_e2 = int.from_bytes(first.extranonce2, "little")
+    tmp.cleanup()
+    assert first_e2 == 1 + 2 * index and first_e2 > 1, (first_e2, index)
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    e2s = sorted({int.from_bytes(sh.extranonce2, "little")
+                  for sh in pool.shares})
+    assert e2s and all(e2 % 2 == 1 for e2 in e2s), e2s
+    assert (miner.client.host, miner.client.port) == ("127.0.0.1", pool.port)
+    assert pool.difficulty == suggest == miner.client.difficulty, (
+        pool.difficulty, miner.client.difficulty)
+    return {"rotated_to_live_after_s": rotated,
+            "failed_attempts": miner.client.reconnects,
+            "pool_difficulty": pool.difficulty,
+            "accepted": stats.shares_accepted,
+            "pool_validated": sum(sh.accepted for sh in pool.shares),
+            "extranonce2_accepted": e2s[:16],
+            "shares_per_host_residue": {
+                str(r): sum(1 for sh in pool.shares if sh.accepted and
+                            int.from_bytes(sh.extranonce2, "little") % 2 == r)
+                for r in (0, 1)},
+            "checkpoint_index": index, "resumed_at_extranonce2": first_e2,
+            "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
+            "hashes": stats.hashes, "seconds": seconds,
+            "hashes_mhs": stats.hashes / seconds / 1e6}
+
+
+async def until(task, done, what: str, summary, seconds: float) -> None:
+    """Wait for ``done()``; fail if the session's task ends first or
+    ``seconds`` pass."""
+    deadline = time.perf_counter() + seconds
+    while not done():
+        if task.done():
+            raise RuntimeError(f"miner stopped: {task!r}")
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{what}: {summary()}")
+        await asyncio.sleep(0.05)
+
+
 class _Package:
     """The names the smoke test drives, from the package beside it."""
 
@@ -1725,6 +2028,7 @@ class _Package:
             nbits_to_target,
         )
         from bitcoin_miner_tpu_torch.backends.base import dispatch_granularity
+        from bitcoin_miner_tpu_torch.miner.job import Job, StratumJobParams
         from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
         from bitcoin_miner_tpu_torch.miner.scheduler import scheduler_for
         from bitcoin_miner_tpu_torch.ops import (
@@ -1738,9 +2042,16 @@ class _Package:
         from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
         from bitcoin_miner_tpu_torch.probes import sass
+        from bitcoin_miner_tpu_torch.testing.fake_node import (
+            REGTEST_NBITS,
+            FakeNode,
+        )
         from bitcoin_miner_tpu_torch.testing.mock_pool import (
             MockStratumPool,
             PoolJob,
+        )
+        from bitcoin_miner_tpu_torch.utils.backoff import (
+            DecorrelatedJitterBackoff,
         )
 
         self.CudaHasher, self.TileCudaHasher = CudaHasher, TileCudaHasher
@@ -1750,6 +2061,9 @@ class _Package:
         self.difficulty_to_target = difficulty_to_target
         self.nbits_to_target = nbits_to_target
         self.MockStratumPool, self.PoolJob = MockStratumPool, PoolJob
+        self.FakeNode, self.REGTEST_NBITS = FakeNode, REGTEST_NBITS
+        self.Job, self.StratumJobParams = Job, StratumJobParams
+        self.DecorrelatedJitterBackoff = DecorrelatedJitterBackoff
         self.csrc = csrc
         self.sibling_version_patterns = sibling_version_patterns
         self.job_block_from_header = sha256_tile.job_block_from_header
