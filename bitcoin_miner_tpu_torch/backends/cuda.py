@@ -34,6 +34,16 @@ Several dispatcher pump threads share one hasher: launches from all of
 them go to the current stream in the order they are made, each collect
 waits on its own event, and the per-job constants cache has a lock.
 
+The ring reports into the process telemetry bundle (``TelemetryBound``):
+``consts_cache{result}`` per lookup, ``ring_occupancy`` as deltas (every
+pump's ring shares the one gauge), and per dispatch collected the
+``ring_collect`` histogram and span (the blocking wait, on the tile path
+the dispatch's rescans included), the ``scan_batch`` histogram and the
+``device_dispatch`` span (host enqueue to collect end), the spans with
+``nonce_start``, ``count`` and, on a fan-out child, ``chip``. The host
+clock is read around the event wait that is there anyway: no telemetry
+call waits on the card.
+
 ``device="cpu"`` runs every kernel's plain PyTorch version synchronously
 — the tests' path. With no card and no such request the hashers raise.
 """
@@ -43,6 +53,7 @@ from __future__ import annotations
 import logging
 import struct
 import threading
+import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -74,6 +85,7 @@ from ..parallel.mesh import (
     make_sharded_tile_scan_fn,
     merge_device_hits,
 )
+from ..telemetry import TelemetryBound
 from .base import (
     Hasher,
     STREAM_FLUSH,
@@ -248,7 +260,7 @@ def _verify_candidates(candidates: List[int], jc: JobConstants, chain: int
     return hits, len(hits)
 
 
-class CudaHasher(Hasher):
+class CudaHasher(TelemetryBound, Hasher):
     """The hit-buffer kernel behind the dispatch ring (``--backend cuda``).
 
     Each dispatch of ``batch_size`` nonces returns, per chain, the first
@@ -273,6 +285,10 @@ class CudaHasher(Hasher):
     #: per-job constants kept (LRU): a session alternates between at most
     #: a few live (header, target, mask) triples.
     _CONSTS_CAPACITY = 8
+
+    #: the card's label on a fan-out child (``make_cuda_fanout``): the
+    #: ring's spans carry it as ``chip``. None on a standalone hasher.
+    chip_label: Optional[str] = None
 
     def __init__(
         self,
@@ -303,6 +319,9 @@ class CudaHasher(Hasher):
         self._siblings_ok = True
         self._consts_cache: "OrderedDict[tuple, JobConstants]" = OrderedDict()
         self._consts_lock = threading.Lock()
+        #: dispatches launched but never collected, because their stream was
+        #: abandoned (its consumer went away, or the ring raised).
+        self.dispatches_abandoned = 0
 
     # ------------------------------------------------------------------ cold
     def sha256d(self, data: bytes) -> bytes:
@@ -347,7 +366,9 @@ class CudaHasher(Hasher):
             entry = self._consts_cache.get(key)
             if entry is not None:
                 self._consts_cache.move_to_end(key)
+                self.telemetry.consts_cache.labels(result="hit").inc()
                 return entry
+        self.telemetry.consts_cache.labels(result="miss").inc()
         version = int.from_bytes(header76[:4], "little")
         entry = JobConstants.build(header76, target,
                                    self._chain_versions(version, mask))
@@ -415,12 +436,30 @@ class CudaHasher(Hasher):
         ahead) before collecting dispatch k, across request, work-item and
         job boundaries. Results are those of :meth:`scan` per request, in
         request order."""
+        tel = self.telemetry
         pending: deque = deque()
+        # This stream's dispatches in the ring: the shared occupancy gauge
+        # moves by deltas, and gets them back if the stream is abandoned.
+        live = [0]
 
         def collect_oldest() -> Optional[StreamResult]:
-            out, base, limit, st = pending.popleft()
+            out, base, limit, st, enq_ns = pending.popleft()
             if out is not None:
+                live[0] -= 1
+                tel.ring_occupancy.dec()
+                c0 = time.perf_counter_ns() if tel.enabled else 0
                 self._collect(out, st["jc"], base, limit, st["found"])
+                if tel.enabled:
+                    end = time.perf_counter_ns()
+                    tel.ring_collect.observe((end - c0) / 1e9)
+                    tel.scan_batch.observe((end - enq_ns) / 1e9)
+                    span_args = {"nonce_start": base, "count": limit}
+                    if self.chip_label is not None:
+                        span_args["chip"] = self.chip_label
+                    tel.tracer.complete("ring_collect", c0, end,
+                                        cat="device", **span_args)
+                    tel.tracer.complete("device_dispatch", enq_ns, end,
+                                        cat="device", **span_args)
             st["left"] -= 1
             if st["left"] == 0:
                 req, found = st["req"], st["found"]
@@ -439,35 +478,46 @@ class CudaHasher(Hasher):
                 if res is not None:
                     yield res
 
-        for req in requests:
-            if req is STREAM_FLUSH:
-                # The caller is about to idle: finish everything in flight
-                # now, so no hit waits in the ring and goes stale.
-                yield from drain(0)
-                continue
-            self._check_range(req.header76, req.nonce_start, req.count)
-            st = {"req": req, "found": _Found(), "chains": 1,
-                  "left": max(1, -(-req.count // self.batch_size))}
-            if req.count == 0:
-                # An empty range still owes its result in order: it rides
-                # the FIFO as an entry without a dispatch.
-                pending.append((None, req.nonce_start, 0, st))
-                yield from drain(self.stream_depth)
-                continue
-            # Every dispatch of a request reads the constants built here
-            # from one reading of the mask, so its hashes_done and its
-            # sibling versions agree with what the kernels hashed.
-            st["jc"] = self._job_constants(req.header76, req.target)
-            st["chains"] = st["jc"].chains
-            off = 0
-            while off < req.count:
-                limit = min(self.batch_size, req.count - off)
-                base = req.nonce_start + off
-                pending.append((self._scan_fn(st["jc"], base, limit), base,
-                                limit, st))
-                off += limit
-                yield from drain(self.stream_depth)
-        yield from drain(0)
+        try:
+            for req in requests:
+                if req is STREAM_FLUSH:
+                    # The caller is about to idle: finish everything in
+                    # flight now, so no hit waits in the ring and goes
+                    # stale.
+                    yield from drain(0)
+                    continue
+                self._check_range(req.header76, req.nonce_start, req.count)
+                st = {"req": req, "found": _Found(), "chains": 1,
+                      "left": max(1, -(-req.count // self.batch_size))}
+                if req.count == 0:
+                    # An empty range still owes its result in order: it
+                    # rides the FIFO as an entry without a dispatch.
+                    pending.append((None, req.nonce_start, 0, st, 0))
+                    yield from drain(self.stream_depth)
+                    continue
+                # Every dispatch of a request reads the constants built
+                # here from one reading of the mask, so its hashes_done and
+                # its sibling versions agree with what the kernels hashed.
+                st["jc"] = self._job_constants(req.header76, req.target)
+                st["chains"] = st["jc"].chains
+                off = 0
+                while off < req.count:
+                    limit = min(self.batch_size, req.count - off)
+                    base = req.nonce_start + off
+                    enq_ns = time.perf_counter_ns() if tel.enabled else 0
+                    pending.append((self._scan_fn(st["jc"], base, limit),
+                                    base, limit, st, enq_ns))
+                    live[0] += 1
+                    tel.ring_occupancy.inc()
+                    off += limit
+                    yield from drain(self.stream_depth)
+            yield from drain(0)
+        finally:
+            if live[0]:
+                tel.ring_occupancy.dec(live[0])
+                with self._consts_lock:
+                    self.dispatches_abandoned += live[0]
+                live[0] = 0
 
     @property
     def version_roll_bits(self) -> int:

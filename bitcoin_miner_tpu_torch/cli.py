@@ -23,9 +23,15 @@ CUDA backends. ``--variant``, ``--cgroup``, ``--interleave``,
 step wherever the tile kernel runs; the other backends refuse them.
 ``--unroll`` and ``--no-spec`` choose the kernels' compile form.
 ``--batch-3x`` makes the dispatch 3·2^batch-bits nonces, which tile
-heights such as ``--sublanes 24`` divide. The miner writes no files,
-except the resume positions ``--checkpoint PATH`` keeps (``--pool``,
-``--gbt``).
+heights such as ``--sublanes 24`` divide.
+
+Telemetry (``telemetry/``): metrics are on unless
+``TPU_MINER_TELEMETRY=0``; ``--status-port`` serves them with the health
+verdict, the span buffer, the flight recorder and the share lifecycles
+(``utils/status.py``); ``--trace-out PATH`` records spans and writes
+them at exit; ``--health-interval`` paces the health watchdog. The miner
+writes no other files than ``--checkpoint PATH`` (``--pool``, ``--gbt``),
+``--trace-out`` and, on a crash or SIGUSR2 only, ``--flightrec-out``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import signal
 import sys
 import time
 from typing import TYPE_CHECKING, List, Optional, Tuple
@@ -53,6 +60,13 @@ from .miner.scheduler import (
     scheduler_for,
     stream_sweep,
 )
+from .telemetry import (
+    HealthModel,
+    HealthWatchdog,
+    PipelineTelemetry,
+    get_telemetry,
+    set_telemetry,
+)
 
 if TYPE_CHECKING:
     from .miner.runner import GbtMiner, GetworkMiner, StratumMiner
@@ -61,6 +75,9 @@ logger = logging.getLogger("tpu_miner_torch")
 
 #: log2 of the nonces per device dispatch when ``--batch-bits`` is not given.
 DEFAULT_BATCH_BITS = 24
+
+#: seconds between health-watchdog evaluations when not given.
+DEFAULT_HEALTH_INTERVAL = 5.0
 
 #: ``--backend`` choices, the default first.
 BACKENDS = ("cuda-tile", "cuda", "cuda-tile-mesh", "cuda-mesh",
@@ -192,6 +209,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--pool: honour client.reconnect to a different "
                         "host (off: a cross-host redirect over the "
                         "plaintext link is a hijack vector)")
+    p.add_argument("--status-port", type=int, default=None,
+                   help="--pool, --gbt, --getwork: serve live stats on "
+                        "http://127.0.0.1:PORT/ as JSON; /metrics answers "
+                        "in Prometheus exposition format, /telemetry dumps "
+                        "the metric registry as JSON, /healthz answers "
+                        "200/503 from the health model, /trace serves the "
+                        "span buffer, /flightrec the flight recorder, "
+                        "/lifecycle the share lifecycles")
+    p.add_argument("--trace-out", metavar="PATH", default=None,
+                   help="record the share pipeline (job notify, feeder "
+                        "slices, device dispatches, ring collects, CPU "
+                        "verifies, submits, pool acks) and write it as "
+                        "Chrome trace-event JSON here on exit; opens in "
+                        "Perfetto")
+    p.add_argument("--flightrec-out", metavar="PATH",
+                   default="tpu-miner-flightrec.json",
+                   help="where the flight recorder (the structured-event "
+                        "black box) dumps on a crash or SIGUSR2; also "
+                        "served at /flightrec on --status-port (default: "
+                        "%(default)s)")
+    p.add_argument("--health-interval", type=float, default=None,
+                   help="--pool, --gbt, --getwork: seconds between "
+                        "health-watchdog evaluations (the /healthz rule "
+                        "engine; 0 runs no watchdog and /healthz "
+                        f"evaluates per request); default "
+                        f"{DEFAULT_HEALTH_INTERVAL:g}. The reference's "
+                        "--slo-*, --incident-dir and --federate flags "
+                        "(SLO engine, incident capture, federation) are "
+                        "not ported to this package yet")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -345,11 +391,15 @@ def run_bench(hasher: Hasher, count: int,
 
 def bench(args: argparse.Namespace) -> dict:
     """``--bench``: :func:`run_bench` through the hasher and scheduler the
-    options select."""
+    options select, with the telemetry they ask for (the trace is written
+    after the sweep)."""
     _refuse_session_flags(args, "--bench", ())
+    telemetry = setup_telemetry(args)
     hasher = make_hasher(args)
-    return run_bench(hasher, args.bench_nonces,
-                     scheduler=make_scheduler(args, hasher))
+    out = run_bench(hasher, args.bench_nonces,
+                    scheduler=make_scheduler(args, hasher))
+    _dump_trace(telemetry)
+    return out
 
 
 def cmd_bench(args: argparse.Namespace) -> int:
@@ -367,19 +417,94 @@ def cmd_bench(args: argparse.Namespace) -> int:
     return 0 if out["verified"] else 2
 
 
-async def _run_with_reporter(miner, interval: float) -> None:
-    async def report() -> None:
-        while True:
-            await asyncio.sleep(interval)
-            logger.info("%s", miner.dispatcher.stats.summary())
+def setup_telemetry(args: argparse.Namespace) -> PipelineTelemetry:
+    """The process default telemetry bundle, tracing on with
+    ``--trace-out`` (which also overrides ``TPU_MINER_TELEMETRY=0``: the
+    flag is the stronger signal), and the flight recorder armed to dump
+    to ``--flightrec-out`` on a crash or SIGUSR2. Runs before the hasher
+    and the dispatcher are built, since the dispatcher keeps the bundle
+    it finds."""
+    telemetry = get_telemetry()
+    if args.trace_out:
+        if not telemetry.enabled:
+            telemetry = set_telemetry(
+                PipelineTelemetry(trace_path=args.trace_out))
+        else:
+            telemetry.enable_tracing(args.trace_out)
+    if args.flightrec_out:
+        telemetry.flightrec.arm(args.flightrec_out)
+    return telemetry
 
-    reporter = asyncio.create_task(report())
+
+def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
+                stats) -> Tuple[HealthModel, Optional[HealthWatchdog]]:
+    """The health model over ``telemetry`` and ``stats``, and its watchdog
+    thread, started, every ``--health-interval`` seconds (none at 0)."""
+    interval = (DEFAULT_HEALTH_INTERVAL if args.health_interval is None
+                else args.health_interval)
+    model = HealthModel(telemetry, stats=stats)
+    watchdog = (HealthWatchdog(model, interval=interval).start()
+                if interval > 0 else None)
+    return model, watchdog
+
+
+def _dump_trace(telemetry: PipelineTelemetry) -> None:
+    """Write the ``--trace-out`` file, if tracing was asked for."""
+    path = telemetry.dump_trace()
+    if path is not None:
+        logger.info("pipeline trace written to %s (open in Perfetto)", path)
+
+
+async def run_session(miner, args: argparse.Namespace) -> None:
+    """Run a session until it stops, with its reporter line, its health
+    watchdog, the ``--status-port`` server and SIGTERM stopping it as
+    Ctrl-C does; at the end the ``--trace-out`` file is written."""
+    dispatcher = miner.dispatcher
+    telemetry, stats = dispatcher.telemetry, dispatcher.stats
+    from .utils.reporting import StatsReporter
+    from .utils.status import StatusServer
+
+    health, watchdog = make_health(args, telemetry, stats)
+    # The line shows health only while the watchdog keeps its report
+    # fresh; /healthz evaluates per request without one.
+    reporter = StatsReporter(
+        stats, args.report_interval, telemetry=telemetry,
+        health=health if watchdog is not None else None,
+        accounting=getattr(miner, "accounting", None))
+    report_task = asyncio.create_task(reporter.run())
+    status_server = None
+    loop = asyncio.get_running_loop()
     try:
+        if args.status_port is not None:
+            status_server = StatusServer(
+                stats, args.status_port, registry=telemetry.registry,
+                telemetry=telemetry, health=health)
+            try:
+                await status_server.start()
+            except (OSError, OverflowError, ValueError) as e:
+                status_server = None
+                raise SystemExit(
+                    f"cannot serve --status-port {args.status_port}: {e}")
+            logger.info("status endpoint on http://127.0.0.1:%d/",
+                        status_server.port)
+        try:
+            loop.add_signal_handler(signal.SIGTERM, miner.stop)
+        except (NotImplementedError, RuntimeError):  # not the main thread
+            pass
         await miner.run()
     finally:
-        reporter.cancel()
-        await asyncio.gather(reporter, return_exceptions=True)
-        logger.info("stopped; final: %s", miner.dispatcher.stats.summary())
+        try:
+            loop.remove_signal_handler(signal.SIGTERM)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass
+        report_task.cancel()
+        await asyncio.gather(report_task, return_exceptions=True)
+        if status_server is not None:
+            await status_server.stop()
+        if watchdog is not None:
+            watchdog.stop()
+        logger.info("stopped; final: %s", stats.summary())
+        _dump_trace(telemetry)
 
 
 #: The session options, each with the modes that take it.
@@ -388,7 +513,12 @@ SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
                  ("host_index", ("--pool",)), ("n_hosts", ("--pool",)),
                  ("suggest_difficulty", ("--pool",)),
                  ("tls_no_verify", ("--pool",)),
-                 ("allow_redirect", ("--pool",)))
+                 ("allow_redirect", ("--pool",)),
+                 ("status_port", ("--pool", "--gbt", "--getwork")),
+                 ("health_interval", ("--pool", "--gbt", "--getwork")))
+
+#: The options every session mode takes.
+LIVE_FLAGS = ("status_port", "health_interval")
 
 
 def _refuse_session_flags(args: argparse.Namespace, mode: str,
@@ -466,6 +596,7 @@ def make_miner(args: argparse.Namespace) -> "StratumMiner":
         raise SystemExit(str(e))
     if args.suggest_difficulty is not None and args.suggest_difficulty <= 0:
         raise SystemExit("--suggest-difficulty must be > 0")
+    setup_telemetry(args)
     hasher = make_hasher(args)
     (host, port), failover = endpoints[0], endpoints[1:]
     miner = StratumMiner(
@@ -491,7 +622,8 @@ def make_gbt_miner(args: argparse.Namespace) -> "GbtMiner":
     """The ``--gbt`` session the options select."""
     from .miner.runner import GbtMiner
 
-    _refuse_session_flags(args, "--gbt", ("checkpoint",))
+    _refuse_session_flags(args, "--gbt", ("checkpoint", *LIVE_FLAGS))
+    setup_telemetry(args)
     hasher = make_hasher(args)
     miner = GbtMiner(
         args.gbt, args.user, args.password, hasher=hasher,
@@ -509,7 +641,8 @@ def make_getwork_miner(args: argparse.Namespace) -> "GetworkMiner":
     unless ``--ntime-roll`` says otherwise."""
     from .miner.runner import GetworkMiner
 
-    _refuse_session_flags(args, "--getwork", ("ntime_roll",))
+    _refuse_session_flags(args, "--getwork", ("ntime_roll", *LIVE_FLAGS))
+    setup_telemetry(args)
     hasher = make_hasher(args)
     return GetworkMiner(
         args.getwork, args.user, args.password, hasher=hasher,
@@ -523,7 +656,7 @@ def make_getwork_miner(args: argparse.Namespace) -> "GetworkMiner":
 
 def cmd_session(miner, args: argparse.Namespace) -> int:
     try:
-        asyncio.run(_run_with_reporter(miner, args.report_interval))
+        asyncio.run(run_session(miner, args))
     except KeyboardInterrupt:
         logger.info("interrupted; final: %s", miner.dispatcher.stats.summary())
     return 0

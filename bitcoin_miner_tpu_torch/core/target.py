@@ -35,6 +35,14 @@ def difficulty_to_target(difficulty: float) -> int:
     return int(DIFF1_TARGET / difficulty)
 
 
+def target_to_difficulty(target: int) -> float:
+    """The difficulty a share target stands for (the inverse of
+    :func:`difficulty_to_target`)."""
+    if target <= 0:
+        raise ValueError("target must be positive")
+    return DIFF1_TARGET / target
+
+
 def hash_to_int(digest: bytes) -> int:
     """sha256d digest → the 256-bit integer consensus compares (LE)."""
     return int.from_bytes(digest, "little")

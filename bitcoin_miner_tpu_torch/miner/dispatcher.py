@@ -18,7 +18,12 @@ A single-threaded event loop owns all bookkeeping:
   never submitted;
 - the resume position of each job, one linear index over (ntime offset,
   version variant, extranonce2 stride), is kept in memory and, with a
-  ``checkpoint``, on disk.
+  ``checkpoint``, on disk;
+- it reports into a telemetry bundle (``telemetry/pipeline.py``; the
+  process default unless one is given): the busy clock's
+  ``dispatch_gap``, stale drops, the ``job_notify``, ``feeder_slice``,
+  ``device_dispatch`` (blocking path) and ``cpu_verify`` spans, flight
+  recorder events and each verified share's lifecycle record.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ..backends.base import (
 )
 from ..core.target import hash_to_int
 from ..parallel.ranges import ExtranonceCounter, NONCE_SPACE, split_range
+from ..telemetry import PipelineTelemetry, get_telemetry, share_key
 from .job import Job
 
 if TYPE_CHECKING:
@@ -78,6 +84,9 @@ class MinerStats:
 
     hashes: int = 0
     batches: int = 0
+    #: wall time of the closed busy intervals (at least one scan in
+    #: flight): overlapping scans of several workers count once.
+    scan_seconds: float = 0.0
     shares_found: int = 0
     shares_accepted: int = 0
     shares_rejected: int = 0
@@ -86,8 +95,13 @@ class MinerStats:
     hw_errors: int = 0  # device hit that failed CPU re-verification
     reconnects: int = 0
     started_at: float = field(default_factory=time.monotonic)
+    #: the bundle whose ``dispatch_gap`` histogram the busy clock feeds
+    #: (with a sampled exemplar); None = none.
+    telemetry: Optional[PipelineTelemetry] = field(
+        default=None, repr=False, compare=False
+    )
     #: fed every inter-dispatch gap (seconds): the adaptive scheduler's
-    #: input.
+    #: input, the same series as ``dispatch_gap``.
     gap_listener: Optional[Callable[[float], None]] = field(
         default=None, repr=False, compare=False
     )
@@ -97,22 +111,54 @@ class MinerStats:
         dt = time.monotonic() - self.started_at
         return self.hashes / dt if dt > 0 else 0.0
 
-    # Busy-interval accounting, called from the event loop only.
+    def busy_seconds(self) -> float:
+        """:attr:`scan_seconds` and the busy interval still open: a
+        pipeline that never runs dry has one interval, open for the whole
+        session."""
+        busy = self.scan_seconds
+        if self._active_scans > 0:
+            busy += time.monotonic() - self._busy_since
+        return busy
+
+    def device_hashrate(self) -> float:
+        """Hashes/second while a scan was in flight: the device's own
+        rate, without the protocol's and verification's time. It counts
+        the open busy interval (the reference's reads 0 until the busy
+        clock first goes idle)."""
+        busy = self.busy_seconds()
+        return self.hashes / busy if busy else 0.0
+
+    # The busy clock, called from the event loop only.
     _active_scans: int = 0
+    _busy_since: float = 0.0
     _idle_since: float = 0.0  # end of the last busy interval; 0 = never busy
 
     def scan_started(self) -> None:
         if self._active_scans == 0:
             now = time.monotonic()
+            self._busy_since = now
             # The idle interval of the busy clock is the inter-dispatch gap.
-            if self._idle_since and self.gap_listener is not None:
-                self.gap_listener(max(0.0, now - self._idle_since))
+            if self._idle_since:
+                gap = max(0.0, now - self._idle_since)
+                tel = self.telemetry
+                if tel is not None and tel.enabled:
+                    tel.dispatch_gap.observe(gap)
+                    # The gap's trace id leads from a histogram tail to
+                    # the timeline around it (a bounded sample).
+                    tel.lifecycle.exemplar(
+                        tel.dispatch_gap.name, gap,
+                        trace=tel.tracer.current_trace(),
+                    )
+                if self.gap_listener is not None:
+                    self.gap_listener(gap)
         self._active_scans += 1
 
     def scan_finished(self) -> None:
         self._active_scans -= 1
         if self._active_scans == 0:
-            self._idle_since = time.monotonic()
+            now = time.monotonic()
+            self.scan_seconds += now - self._busy_since
+            self._idle_since = now
 
     def summary(self) -> str:
         line = (
@@ -157,6 +203,7 @@ class Dispatcher:
         submit_blocks_only: bool = False,
         stream_depth: int = 2,
         scheduler: Optional["AdaptiveBatchScheduler"] = None,
+        telemetry: Optional[PipelineTelemetry] = None,
     ) -> None:
         if n_workers < 1:
             raise ValueError("n_workers must be >= 1")
@@ -189,11 +236,18 @@ class Dispatcher:
         self.stream_depth = (
             0 if stream_depth <= 0 else max(ring_depth, stream_depth)
         )
-        self.stats = MinerStats()
+        #: the bundle this dispatcher reports into: the process default
+        #: unless one is given (tests pass their own).
+        self.telemetry = (
+            telemetry if telemetry is not None else get_telemetry()
+        )
+        self.stats = MinerStats(telemetry=self.telemetry)
         #: sizes every dispatch when present; else ``batch_size`` is fixed.
         self.scheduler = scheduler
         if scheduler is not None:
             self.stats.gap_listener = scheduler.record_gap
+            if scheduler._telemetry_override is None:
+                scheduler.telemetry = self.telemetry
         self._generation = 0
         self._job: Optional[Job] = None
         #: next extranonce2 position per job (bounded LRU), so re-installing
@@ -240,6 +294,18 @@ class Dispatcher:
                 self._queue.get_nowait()
                 self._queue.task_done()
         self._job_event.set()
+        tel = self.telemetry
+        tel.lifecycle.note_job(
+            job.job_id, generation=job.generation, clean=bool(job.clean),
+        )
+        tel.tracer.instant(
+            "job_notify", cat="job", job_id=job.job_id,
+            generation=job.generation, clean=bool(job.clean),
+        )
+        tel.flightrec.record(
+            "job_switch", job_id=job.job_id, generation=job.generation,
+            clean=bool(job.clean),
+        )
         logger.info(
             "new job %s gen=%d clean=%s", job.job_id, job.generation, job.clean
         )
@@ -467,6 +533,7 @@ class Dispatcher:
         thread = threading.Thread(target=pump, name=f"scan-pump-{wid}",
                                   daemon=True)
         thread.start()
+        tel = self.telemetry
 
         async def feed() -> None:
             while True:
@@ -476,11 +543,14 @@ class Dispatcher:
                     # them stale.
                     req_q.put(STREAM_FLUSH)
                 item: WorkItem = await queue.get()
+                slice_t0 = tel.tracer.now_ns() if tel.tracer.enabled else 0
                 try:
                     off = 0
                     while off < item.nonce_count:
                         if (self._stopping
                                 or item.generation != self._generation):
+                            if not self._stopping:
+                                self._stale_drop("item", item)
                             break  # stale: a new job superseded this item
                         count = min(self._next_dispatch_count(),
                                     item.nonce_count - off)
@@ -495,6 +565,12 @@ class Dispatcher:
                         ))
                         off += count
                 finally:
+                    if slice_t0:
+                        tel.tracer.complete(
+                            "feeder_slice", slice_t0, cat="pipeline",
+                            job_id=item.job.job_id,
+                            nonce_start=item.nonce_start,
+                        )
                     queue.task_done()
 
         feeder = asyncio.create_task(feed(), name=f"stream-feed-{wid}")
@@ -517,6 +593,8 @@ class Dispatcher:
                     # sizes requests in nonces.
                     self.scheduler.record_result(sres.request.count)
                 if self._stopping or item.generation != self._generation:
+                    if not self._stopping:
+                        self._stale_drop("result", item)
                     continue
                 try:
                     for share in self._shares_from_result(item, result):
@@ -551,25 +629,40 @@ class Dispatcher:
         on_share: OnShare,
     ) -> None:
         """Sweep one nonce range in blocking dispatches; verify and report
-        hits."""
+        hits. Each scan is one ``device_dispatch`` span and one
+        ``scan_batch`` sample."""
+        tel = self.telemetry
         off = 0
         while off < item.nonce_count:
             if self._stopping or item.generation != self._generation:
+                if not self._stopping:
+                    self._stale_drop("item", item)
                 return  # stale: a new job superseded this item
             count = min(self._next_dispatch_count(), item.nonce_count - off)
+            start = item.nonce_start + off
             self.stats.scan_started()
+            t0 = time.perf_counter_ns()
             try:
                 result: ScanResult = await loop.run_in_executor(
-                    None, self.hasher.scan, item.header76,
-                    item.nonce_start + off, count, item.job.share_target,
+                    None, self.hasher.scan, item.header76, start, count,
+                    item.job.share_target,
                 )
             finally:
                 self.stats.scan_finished()
+                if tel.enabled:
+                    end = time.perf_counter_ns()
+                    tel.scan_batch.observe((end - t0) / 1e9)
+                    tel.tracer.complete(
+                        "device_dispatch", t0, end, cat="device",
+                        job_id=item.job.job_id, nonce_start=start,
+                        count=count,
+                    )
             self.stats.hashes += result.hashes_done
             self.stats.batches += 1
             if self.scheduler is not None:
                 self.scheduler.record_result(count)
             if item.generation != self._generation:
+                self._stale_drop("result", item)
                 return
             for share in self._shares_from_result(item, result):
                 await on_share(share)
@@ -596,11 +689,23 @@ class Dispatcher:
                 "plausible at absurdly easy targets",
                 len(result.version_hits), result.version_total_hits)
 
+    def _stale_drop(self, stage: str, item: WorkItem) -> None:
+        """Count work a newer job superseded: an ``item`` left unsliced or a
+        ``result`` whose hits are dropped."""
+        self.telemetry.stale_drops.labels(stage=stage).inc()
+        self.telemetry.flightrec.record(
+            "stale_drop", stage=stage, job_id=item.job.job_id,
+        )
+
     def _verify_hit(self, item: WorkItem, nonce: int) -> Optional[Share]:
         """The parity gate: full CPU sha256d against the share and block
-        targets. A hit the oracle disagrees with is never submitted."""
+        targets. A hit the oracle disagrees with is never submitted; a
+        verified one opens the share's lifecycle record."""
         header80 = item.header76 + nonce.to_bytes(4, "little")
-        h = hash_to_int(self.oracle.sha256d(header80))
+        tel = self.telemetry
+        with tel.span("cpu_verify", cat="share", job_id=item.job.job_id,
+                      nonce=f"{nonce:#010x}"):
+            h = hash_to_int(self.oracle.sha256d(header80))
         if h > item.job.share_target:
             self.stats.hw_errors += 1
             logger.error(
@@ -617,6 +722,16 @@ class Dispatcher:
             self.stats.blocks_found += 1
             logger.warning("BLOCK FOUND: job=%s nonce=%#010x",
                            item.job.job_id, nonce)
+        if tel.lifecycle.enabled:
+            tel.lifecycle.found(
+                share_key(item.job.job_id, item.extranonce2, nonce),
+                job_id=item.job.job_id, nonce=nonce,
+                trace=tel.tracer.current_trace(),
+                generation=item.generation, is_block=is_block,
+                sched_nonces=int(
+                    getattr(tel.batch_nonces, "value", 0) or 0
+                ),
+            )
         version = item.version if item.version is not None else item.job.version
         return Share(
             job_id=item.job.job_id,

@@ -10,19 +10,25 @@
   ``submitblock``.
 
 Accept, reject and stale verdicts land in the stats the periodic reporter
-prints. Every session's default hasher is the tile kernel on the card
-(``cuda-tile``).
+prints, and every verdict passes ``_record_submit``: the ``pool_acks``
+counter, the ``submits_inflight`` gauge, ``submit_rtt``, the ``submit``
+span and ``pool_ack`` instant, a flight-recorder event, the share's
+lifecycle hop and the session's :class:`ShareAccountant`. Every session's
+default hasher is the tile kernel on the card (``cuda-tile``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import time
 from collections import Counter
 from typing import TYPE_CHECKING, Any, List, Optional, Tuple
 
 from ..backends.base import Hasher
+from ..core.target import target_to_difficulty
 from ..protocol.stratum import StratumClient, StratumError
+from ..telemetry import ShareAccountant, share_key
 from ..utils.backoff import DecorrelatedJitterBackoff
 from .dispatcher import Dispatcher, Share
 from .job import Job, StratumJobParams
@@ -32,6 +38,69 @@ if TYPE_CHECKING:
     from .scheduler import AdaptiveBatchScheduler
 
 logger = logging.getLogger(__name__)
+
+
+def _submit_started(telemetry: Any) -> int:
+    """Mark one share as awaiting a verdict (``submits_inflight``, the
+    health model's pool signal); returns the round trip's start."""
+    telemetry.submits_inflight.inc()
+    return time.perf_counter_ns()
+
+
+def _record_submit(
+    telemetry: Any, t0_ns: int, share: Share, result: str,
+    accounting: Optional[ShareAccountant] = None,
+    difficulty: Optional[float] = None,
+) -> None:
+    """One verdict's telemetry, the same for all three sessions: the
+    ``pool_acks{result}`` counter and the in-flight gauge the health model
+    watches, the accountant weighing the verdict by the difficulty the
+    share was mined at, a flight-recorder event, and with telemetry on
+    the ``submit_rtt`` sample, the share's ``submit`` lifecycle hop with
+    an exemplar, the ``submit`` span and the ``pool_ack`` instant. Every
+    outcome lands here, so each :func:`_submit_started` is paired."""
+    telemetry.submits_inflight.dec()
+    telemetry.pool_acks.labels(result=result).inc()
+    if accounting is not None:
+        accounting.on_result(result, difficulty)
+    telemetry.flightrec.record(
+        "share", result=result, job_id=share.job_id,
+        nonce=f"{share.nonce:#010x}", block=share.is_block,
+    )
+    if not telemetry.enabled:
+        return
+    rtt_s = (time.perf_counter_ns() - t0_ns) / 1e9
+    telemetry.submit_rtt.observe(rtt_s)
+    lc = telemetry.lifecycle
+    if lc.enabled:
+        key = share_key(share.job_id, share.extranonce2, share.nonce)
+        trace = telemetry.tracer.current_trace()
+        lc.hop(key, "submit", trace=trace, result=result,
+               rtt_s=round(rtt_s, 6))
+        lc.exemplar(telemetry.submit_rtt.name, rtt_s, trace=trace, key=key,
+                    result=result)
+    telemetry.tracer.complete(
+        "submit", t0_ns, cat="share", job_id=share.job_id,
+        nonce=f"{share.nonce:#010x}", result=result,
+    )
+    telemetry.tracer.instant(
+        "pool_ack", cat="share", job_id=share.job_id, result=result
+    )
+
+
+def _submit_cancelled(telemetry: Any) -> None:
+    """A submit cut by the session's stop: no verdict, but it no longer
+    awaits one (the reference leaves ``submits_inflight`` raised)."""
+    telemetry.submits_inflight.dec()
+
+
+def _job_difficulty(dispatcher: Dispatcher) -> Optional[float]:
+    """The current job's share difficulty: what an accepted share of a
+    solo mode, which has no ``mining.set_difficulty``, is weighed by."""
+    job: Optional[Job] = getattr(dispatcher, "_job", None)
+    if job is None:
+        return None
+    return target_to_difficulty(job.share_target)
 
 
 def _is_stale_error(e: StratumError) -> bool:
@@ -105,6 +174,9 @@ class StratumMiner:
         #: replayed).
         self._last_params: Optional[StratumJobParams] = None
         self._last_difficulty: Optional[float] = None
+        #: every pool verdict, weighed by the difficulty in force; the
+        #: reporter ticks it and the health model reads its gauges.
+        self.accounting = ShareAccountant(self.dispatcher.stats)
         self.client = StratumClient(
             host, port, username, password,
             on_job=self._on_job, on_difficulty=self._on_difficulty,
@@ -130,6 +202,9 @@ class StratumMiner:
             version_mask=self.client.version_mask,
         )
         self.dispatcher.set_job(job)
+        # Seeded before any share: a session whose hits all fail
+        # verification must still grow its expected shares.
+        self.accounting.set_difficulty(self.client.difficulty)
 
     async def _on_version_mask(self) -> None:
         """BIP 310 mask change: re-install the job under the new mask."""
@@ -161,6 +236,9 @@ class StratumMiner:
         if delta > 0:
             self.dispatcher.stats.reconnects += delta
             self._client_reconnects_seen = self.client.reconnects
+            self.dispatcher.telemetry.flightrec.record(
+                "reconnect", total=self.dispatcher.stats.reconnects,
+            )
 
     async def _on_extranonce(self) -> None:
         # The current job's coinbase embeds the old extranonce1: rebuild it
@@ -172,24 +250,49 @@ class StratumMiner:
     # --------------------------------------------------------- shares → pool
     async def _on_share(self, share: Share) -> None:
         stats = self.dispatcher.stats
+        telemetry = self.dispatcher.telemetry
+        t0 = _submit_started(telemetry)
+        # The pool judges the share at the difficulty in force now; a
+        # retarget landing while the verdict is in flight must not reweigh
+        # it.
+        difficulty = self.client.difficulty
+
+        def record(result: str) -> None:
+            _record_submit(telemetry, t0, share, result,
+                           accounting=self.accounting, difficulty=difficulty)
+
         try:
             ok = await self.client.submit_share(share)
         except StratumError as e:
             if _is_stale_error(e):
                 stats.shares_stale += 1
+                record("stale")
                 logger.info("stale share for job %s", share.job_id)
             else:
                 stats.shares_rejected += 1
+                record("rejected")
                 logger.warning("share rejected: %s", e)
             return
-        except (ConnectionError, asyncio.TimeoutError) as e:
+        except ConnectionError as e:
             stats.shares_stale += 1
+            record("lost")
             logger.warning("share lost (job %s): %r", share.job_id, e)
             return
+        except asyncio.TimeoutError:
+            # The pool kept the verdict past the request timeout.
+            stats.shares_stale += 1
+            record("timeout")
+            logger.warning("share submit timed out (job %s)", share.job_id)
+            return
+        except asyncio.CancelledError:
+            _submit_cancelled(telemetry)
+            raise
         if ok:
             stats.shares_accepted += 1
+            record("accepted")
         else:
             stats.shares_rejected += 1
+            record("rejected")
 
     # -------------------------------------------------------------- lifecycle
     async def run(self) -> None:
@@ -241,6 +344,7 @@ class GetworkMiner:
         self.solves_accepted = 0
         self._stopping = False
         self._current_job_id: Optional[str] = None
+        self.accounting = ShareAccountant(self.dispatcher.stats)
         #: retry delays after a failed fetch, so a dead node is not polled
         #: at full cadence; a success resets them.
         self._poll_backoff = DecorrelatedJitterBackoff(
@@ -273,16 +377,30 @@ class GetworkMiner:
             stats.shares_stale += 1
             return
         self.solves_submitted += 1
+        telemetry = self.dispatcher.telemetry
+        t0 = _submit_started(telemetry)
+        difficulty = _job_difficulty(self.dispatcher)
+
+        def record(result: str) -> None:
+            _record_submit(telemetry, t0, share, result,
+                           accounting=self.accounting, difficulty=difficulty)
+
         try:
             ok = await self.client.submit(share.header80)
+        except asyncio.CancelledError:
+            _submit_cancelled(telemetry)
+            raise
         except Exception as e:  # noqa: BLE001 — logged; the session goes on
+            record("error")
             logger.error("getwork submit failed: %s", e)
             return
         if ok:
             self.solves_accepted += 1
             stats.shares_accepted += 1
+            record("accepted")
         else:
             stats.shares_rejected += 1
+            record("rejected")
 
     async def run(self) -> None:
         poll_task = asyncio.create_task(self._poll_loop(), name="getwork-poll")
@@ -343,6 +461,10 @@ class GbtMiner:
         self.reject_reasons: "Counter[str]" = Counter()
         self._current: Optional["GbtJob"] = None
         self._stopping = False
+        #: accepted blocks weighed by the block target's difficulty: far
+        #: below the confidence floor on any real run, so the drift rule
+        #: stays silent.
+        self.accounting = ShareAccountant(self.dispatcher.stats)
         self._poll_backoff = DecorrelatedJitterBackoff(
             poll_interval, max(poll_interval * 2, 60.0))
 
@@ -408,24 +530,39 @@ class GbtMiner:
         if not share.is_block:
             return  # solo mining: only block-target hits count
         self.blocks_submitted += 1
+        telemetry = self.dispatcher.telemetry
+        t0 = _submit_started(telemetry)
+        difficulty = _job_difficulty(self.dispatcher)
+
+        def record(result: str) -> None:
+            _record_submit(telemetry, t0, share, result,
+                           accounting=self.accounting, difficulty=difficulty)
+
         try:
             reason = await self.client.submit_block(gbt, share.extranonce2,
                                                     share.header80)
+        except asyncio.CancelledError:
+            _submit_cancelled(telemetry)
+            raise
         except Exception as e:  # noqa: BLE001 — logged; the session goes on
+            record("error")
             logger.error("submitblock failed: %s", e)
             return
         if reason is None:
             self.blocks_accepted += 1
             stats.shares_accepted += 1
+            record("accepted")
             logger.warning("block ACCEPTED (job %s)", share.job_id)
         elif _is_stale_reason(str(reason)):
             self.blocks_stale += 1
             stats.shares_stale += 1
+            record("stale")
             logger.info("block stale (job %s): %s", share.job_id, reason)
         else:
             self.blocks_rejected += 1
             self.reject_reasons[str(reason)] += 1
             stats.shares_rejected += 1
+            record("rejected")
             logger.error("block rejected: %s", reason)
 
     async def run(self) -> None:

@@ -7,7 +7,9 @@ from the measured inter-dispatch gap and throughput: it shrinks to the
 ``stale_latency_s`` bound on a job switch or a stall and grows
 geometrically toward the ``steady_latency_s`` bound. Device backends split
 any request into their compiled dispatch size, so a resize never changes
-what is launched.
+what is launched. Each decision sets the ``adaptive_batch_nonces`` gauge;
+each shrink counts ``sched_resizes{reason}`` and leaves a flight-recorder
+event.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from ..backends.base import ScanRequest, dispatch_granularity, iter_scan_stream
+from ..telemetry import TelemetryBound
 
 
-class AdaptiveBatchScheduler:
+class AdaptiveBatchScheduler(TelemetryBound):
     """Gap-driven per-dispatch nonce-range sizing. Sizes are powers of two
     between ``min_bits`` and ``max_bits``, rounded to a multiple of
     ``granularity`` (a device backend's dispatch size). Thread-safe: one
@@ -38,6 +41,7 @@ class AdaptiveBatchScheduler:
         gap_fraction: float = 0.02,
         growth_bits: float = 1.0,
         stall_gap_s: float = 1.0,
+        telemetry: Optional[Any] = None,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
         if not (0 < min_bits <= max_bits <= 32):
@@ -64,6 +68,8 @@ class AdaptiveBatchScheduler:
         #: throughput estimate's window.
         self._completions: "deque" = deque(maxlen=32)
         self._gap_ewma: Optional[float] = None
+        if telemetry is not None:
+            self.telemetry = telemetry
 
     def record_gap(self, gap_s: float) -> None:
         """One inter-dispatch gap from the dispatcher's busy clock."""
@@ -73,7 +79,9 @@ class AdaptiveBatchScheduler:
                 else 0.7 * self._gap_ewma + 0.3 * gap_s
             )
             if gap_s >= self.stall_gap_s:
-                self._shrink_locked()
+                # The source starved: work resuming after a stall is the
+                # work most likely to be superseded moments later.
+                self._shrink_locked("stall")
 
     def record_result(self, count: int, now: Optional[float] = None) -> None:
         """One completed dispatch of ``count`` nonces."""
@@ -87,7 +95,7 @@ class AdaptiveBatchScheduler:
     def on_job_switch(self) -> None:
         """A new job superseded the old one: shrink to the stale bound."""
         with self._lock:
-            self._shrink_locked()
+            self._shrink_locked("job_switch")
 
     def next_count(self) -> int:
         """The nonce count the next dispatch should carry."""
@@ -105,7 +113,11 @@ class AdaptiveBatchScheduler:
                 self._bits = min(self._bits + step, upper)
             elif self._bits > upper:
                 self._bits = max(self._bits - step, upper)
-            return self._quantize_locked()
+            count = self._quantize_locked()
+            tel = self.telemetry
+            if tel.enabled:
+                tel.batch_nonces.set(count)
+            return count
 
     def _rate_locked(self) -> Optional[float]:
         """Estimated nonces/s over the completion window; None until two
@@ -129,10 +141,16 @@ class AdaptiveBatchScheduler:
     def _clamp_bits(self, bits: float) -> float:
         return max(float(self.min_bits), min(bits, float(self.max_bits)))
 
-    def _shrink_locked(self) -> None:
+    def _shrink_locked(self, reason: str) -> None:
         target = self._clamp_bits(self._bits_for_time(self.stale_latency_s))
         if target < self._bits:
             self._bits = target
+            tel = self.telemetry
+            if tel.enabled:
+                tel.sched_resizes.labels(reason=reason).inc()
+            tel.flightrec.record(
+                "sched_resize", reason=reason, bits=round(target, 2),
+            )
 
     def _quantize_locked(self) -> int:
         # A granularity above the bound wins: the device cannot dispatch

@@ -14,6 +14,13 @@ request-parallel pipeline.
 drive it with CPU oracles); :func:`make_cuda_fanout` builds one
 ``CudaHasher`` or ``TileCudaHasher`` per device, each built and driven
 under ``torch.cuda.device(dev)``.
+
+Per-card telemetry, at the fan-out seam so any child gets the same
+labels: each request assigned counts ``chip_inflight{chip}`` up, each
+result collected counts it down and ``chip_dispatches{chip}`` up (the
+health model's per-card stall rule reads that pair), and a child's error
+leaves a ``chip_error`` flight-recorder event. The pump threads adopt
+the caller's trace id, so a card's ring spans join the caller's trace.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..backends.base import (
     StreamResult,
     iter_scan_stream,
 )
+from ..telemetry import TelemetryBound
 from .ranges import split_range
 
 logger = logging.getLogger(__name__)
@@ -63,7 +71,7 @@ class MultiChildError(RuntimeError):
             f"{len(self.errors)} fan-out children failed: {detail}")
 
 
-class FanoutHasher(Hasher):
+class FanoutHasher(TelemetryBound, Hasher):
     """Round-robins whole scan requests across N child hashers.
 
     ``scan`` splits one range into N contiguous slices swept concurrently,
@@ -176,6 +184,10 @@ class FanoutHasher(Hasher):
             for t in threads:
                 t.join()
         if errors:
+            for label, e in errors:
+                self.telemetry.flightrec.record(
+                    "chip_error", chip=label,
+                    error=f"{type(e).__name__}: {e}"[:200])
             if len(errors) == 1:
                 raise errors[0][1]
             raise MultiChildError(errors)
@@ -203,6 +215,13 @@ class FanoutHasher(Hasher):
         res_qs: List[thread_queue.SimpleQueue] = [
             thread_queue.SimpleQueue() for _ in range(self.n_children)]
         end = object()
+        tel = self.telemetry
+        chip_inflight = [tel.chip_inflight.labels(chip=label)
+                         for label in self.chip_labels]
+        chip_dispatches = [tel.chip_dispatches.labels(chip=label)
+                           for label in self.chip_labels]
+        # The trace id is thread-local: each pump re-enters the caller's.
+        inherited_trace = tel.tracer.current_trace()
 
         def pump(i: int) -> None:
             def feed() -> Iterator[Any]:
@@ -213,7 +232,7 @@ class FanoutHasher(Hasher):
                     yield req
 
             try:
-                with self._ctx(i):
+                with tel.tracer.context(inherited_trace), self._ctx(i):
                     for sres in iter_scan_stream(self.children[i], feed()):
                         res_qs[i].put(sres)
             except BaseException as e:  # noqa: BLE001 — reported in order
@@ -234,11 +253,18 @@ class FanoutHasher(Hasher):
         def collect_oldest() -> StreamResult:
             child = fifo.popleft()
             got = res_qs[child].get()
-            if got is end:
-                raise RuntimeError(
-                    f"fan-out child {child} ended its stream early")
-            if isinstance(got, BaseException):
+            chip_inflight[child].dec()
+            if got is end or isinstance(got, BaseException):
+                error = (f"{type(got).__name__}: {got}"[:200]
+                         if got is not end else "stream ended early")
+                tel.flightrec.record("chip_error",
+                                     chip=self.chip_labels[child],
+                                     error=error)
+                if got is end:
+                    raise RuntimeError(
+                        f"fan-out child {child} ended its stream early")
                 raise got
+            chip_dispatches[child].inc()
             return got
 
         try:
@@ -251,6 +277,7 @@ class FanoutHasher(Hasher):
                     continue
                 req_qs[next_child].put(req)
                 fifo.append(next_child)
+                chip_inflight[next_child].inc()
                 next_child = (next_child + 1) % self.n_children
                 while len(fifo) > self.stream_depth:
                     yield collect_oldest()
@@ -261,6 +288,10 @@ class FanoutHasher(Hasher):
         finally:
             for q in req_qs:
                 q.put(None)  # idempotent stop for abandoned streams
+            # Requests assigned and never collected give their in-flight
+            # count back.
+            while fifo:
+                chip_inflight[fifo.popleft()].dec()
 
     def close(self) -> None:
         for child in self.children:

@@ -25,6 +25,11 @@ quarantine_device`); :meth:`rebuild` shards over the survivors again, and
 is labelled by its position in the device list the hasher was built
 over, so a list that names one device twice still has distinct shards.
 Streams already open keep the path they started on.
+
+Telemetry: ``mesh_devices`` is the active topology's device count,
+``mesh_rebuilds{reason}`` counts the ladder's steps (quarantine, rebuild,
+restore), and every dispatch collected on the mesh counts
+``chip_dispatches{chip}`` once per shard, the series the fan-out emits.
 """
 
 from __future__ import annotations
@@ -131,12 +136,21 @@ class MeshCudaHasher(CudaHasher):
         if mask is not None:
             # Re-adopt the session's mask: the kernel's __init__ reset it.
             self.set_version_mask(mask)
+        self.telemetry.mesh_devices.set(self.n_devices)
 
     # ------------------------------------------------- constants cache
     def _consts_key(self, header76: bytes, target: int, mask: int) -> tuple:
         # The topology joins the key: constants built for one mesh never
         # serve another after a rebuild.
         return (header76, target, mask, self.topology)
+
+    # --------------------------------------------------------- telemetry
+    def _collect(self, out, jc, base, limit, found) -> None:
+        super()._collect(out, jc, base, limit, found)
+        # A dispatch collected: every shard swept its slice.
+        chip_dispatches = self.telemetry.chip_dispatches
+        for label in self.shard_labels:
+            chip_dispatches.labels(chip=label).inc()
 
     # ------------------------------------------------ degradation ladder
     def _survivors(self) -> List[str]:
@@ -176,15 +190,20 @@ class MeshCudaHasher(CudaHasher):
         # feeder's window grows to keep every survivor's ring full.
         self.dispatch_size = delegate.dispatch_size
         self.stream_depth = delegate.stream_depth
+        tel = self.telemetry
+        tel.mesh_rebuilds.labels(reason="quarantine").inc()
+        tel.mesh_devices.set(len(survivors))
         logger.warning(
             "cuda-mesh-native: device %s quarantined; per-device fan-out "
             "over %d survivors (topology %s)", label, len(survivors),
             self.topology)
 
-    def rebuild(self) -> None:
-        """Shard over the current survivors again: the shrunken mesh."""
+    def rebuild(self, reason: str = "rebuild") -> None:
+        """Shard over the current survivors again: the shrunken mesh.
+        ``reason`` labels the ``mesh_rebuilds`` count."""
         survivors = self._survivors()
         self._build([self._all_devices[int(s)] for s in survivors], survivors)
+        self.telemetry.mesh_rebuilds.labels(reason=reason).inc()
         logger.info("cuda-mesh-native: mesh rebuilt over topology %s",
                     self.topology)
 
@@ -195,7 +214,7 @@ class MeshCudaHasher(CudaHasher):
         if label not in self._failed_labels:
             return
         self._failed_labels.discard(label)
-        self.rebuild()
+        self.rebuild(reason="restore")
         logger.info("cuda-mesh-native: device %s restored; topology %s",
                     label, self.topology)
 

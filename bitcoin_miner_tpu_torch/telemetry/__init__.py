@@ -1,0 +1,66 @@
+"""Pipeline telemetry: metrics, spans, the flight recorder, share
+lifecycles, share accounting and health.
+
+Counterpart of ``bitcoin_miner_tpu/telemetry``, with the same metric
+names, label sets, buckets, span names and dump schemas:
+
+- :mod:`.metrics`: thread-safe labeled Counter/Gauge/Histogram families,
+  rendered in Prometheus exposition format;
+- :mod:`.tracing`: Chrome trace-event spans (``--trace-out``);
+- :mod:`.flightrec`: the bounded structured-event ring (``/flightrec``,
+  SIGUSR2, crashes);
+- :mod:`.lifecycle`: per-share causal records and latency exemplars
+  (``/lifecycle``);
+- :mod:`.pipeline`: the metric vocabulary and the :class:`PipelineTelemetry`
+  bundle every layer reports into;
+- :mod:`.shareacct`: expected-vs-observed share accounting;
+- :mod:`.health`: the rule engine behind ``/healthz``.
+"""
+
+from .flightrec import FlightRecorder, NullFlightRecorder  # noqa: F401
+from .health import ComponentHealth, HealthModel, HealthWatchdog  # noqa: F401
+from .lifecycle import (  # noqa: F401
+    NullShareLifecycleLedger,
+    ShareLifecycleLedger,
+    share_key,
+)
+from .metrics import (  # noqa: F401
+    DEFAULT_LATENCY_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricRegistry,
+)
+from .pipeline import (  # noqa: F401
+    GAP_BUCKETS,
+    METRIC_BATCH_NONCES,
+    METRIC_CHIP_DISPATCHES,
+    METRIC_CHIP_INFLIGHT,
+    METRIC_CONSTS_CACHE,
+    METRIC_DISPATCH_GAP,
+    METRIC_HEALTH,
+    METRIC_MESH_DEVICES,
+    METRIC_MESH_REBUILDS,
+    METRIC_POOL_ACKS,
+    METRIC_RING_COLLECT,
+    METRIC_RING_OCCUPANCY,
+    METRIC_RPC_ERRORS,
+    METRIC_RPC_RESPONSES,
+    METRIC_SCAN_BATCH,
+    METRIC_SCHED_RESIZES,
+    METRIC_SHARE_EFFICIENCY,
+    METRIC_SHARE_EXPECTED,
+    METRIC_SHARE_LOST,
+    METRIC_STALE_DROPS,
+    METRIC_STREAM_WINDOW,
+    METRIC_SUBMIT_RTT,
+    METRIC_SUBMITS_INFLIGHT,
+    NullTelemetry,
+    PipelineTelemetry,
+    TelemetryBound,
+    get_telemetry,
+    set_telemetry,
+    telemetry_disabled_by_env,
+)
+from .shareacct import ShareAccountant  # noqa: F401
+from .tracing import Tracer, merge_traces  # noqa: F401

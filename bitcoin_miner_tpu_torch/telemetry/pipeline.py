@@ -1,0 +1,354 @@
+"""The pipeline's metric vocabulary and the telemetry bundle.
+
+Counterpart of ``bitcoin_miner_tpu/telemetry/pipeline.py``: the same
+metric names, help strings, label sets and buckets, which dashboards and
+the reference's surfaces read. Only the families that this package emits
+(the dispatcher, the dispatch ring, the scheduler, the runners, the
+fan-out and the mesh-native ring, the health model and the share
+accountant) and those of the gRPC seam are registered; the pool
+frontend's, the multi-pool fabric's, the fleet's, the SLO engine's and
+the time-series store's come with their modules.
+
+``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
+:class:`Tracer`, a :class:`FlightRecorder` and a
+:class:`ShareLifecycleLedger`, with the families as attributes, so a
+call site reads ``tel.dispatch_gap.observe(dt)``. ``NullTelemetry`` is
+the compiled-out form, the same attributes with every operation a no-op,
+selected by ``TPU_MINER_TELEMETRY=0``: the control of the overhead
+measurement. Metrics are on by default; tracing only with a trace path.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional, Tuple
+
+from .flightrec import FlightRecorder, NullFlightRecorder
+from .lifecycle import NullShareLifecycleLedger, ShareLifecycleLedger
+from .metrics import DEFAULT_LATENCY_BUCKETS, MetricRegistry
+from .tracing import Tracer
+
+# ----------------------------------------------------------- metric names
+#: Device idle time between dispatches (the busy clock's idle intervals):
+#: ~0 while the ring stays full, a verify + submit leg when the pipeline
+#: serializes.
+METRIC_DISPATCH_GAP = "tpu_miner_dispatch_gap_seconds"
+#: One device scan batch, enqueue (or entry) to result in hand.
+METRIC_SCAN_BATCH = "tpu_miner_scan_batch_seconds"
+#: The ring's blocking wait for its oldest dispatch (on the tile path it
+#: includes the dispatch's ``rescan_steps`` launch and its wait).
+METRIC_RING_COLLECT = "tpu_miner_ring_collect_seconds"
+#: Share submit round trip (``mining.submit`` → pool ack), all verdicts.
+METRIC_SUBMIT_RTT = "tpu_miner_submit_rtt_seconds"
+#: Dispatches in flight in the dispatch rings.
+METRIC_RING_OCCUPANCY = "tpu_miner_ring_occupancy"
+#: Requests in flight on a ScanStream RPC (the gRPC seam's wire window).
+METRIC_STREAM_WINDOW = "tpu_miner_stream_window_inflight"
+#: Per-job constants LRU lookups, labeled result=hit|miss.
+METRIC_CONSTS_CACHE = "tpu_miner_consts_cache_lookups"
+#: Work dropped by a generation bump, labeled stage=item|result.
+METRIC_STALE_DROPS = "tpu_miner_stale_drops"
+#: The adaptive scheduler's current per-dispatch nonce count.
+METRIC_BATCH_NONCES = "tpu_miner_adaptive_batch_nonces"
+#: Scheduler shrinks, labeled reason=job_switch|stall.
+METRIC_SCHED_RESIZES = "tpu_miner_sched_resizes"
+#: Pool verdicts, labeled result=accepted|rejected|stale|lost|timeout|
+#: error: the health model's pool-progress signal.
+METRIC_POOL_ACKS = "tpu_miner_pool_acks"
+#: Shares awaiting a pool verdict.
+METRIC_SUBMITS_INFLIGHT = "tpu_miner_submits_inflight"
+#: gRPC scan responses received (the gRPC seam's progress signal).
+METRIC_RPC_RESPONSES = "tpu_miner_rpc_responses"
+#: gRPC failures, labeled kind=retry|stream_broken|unimplemented|mask_sync.
+METRIC_RPC_ERRORS = "tpu_miner_rpc_errors"
+#: Completed dispatches per card of a fan-out (and per shard of the
+#: mesh-native ring), labeled chip=...
+METRIC_CHIP_DISPATCHES = "tpu_miner_chip_dispatches"
+#: Requests assigned to a fan-out card and not yet collected, labeled
+#: chip=... Nonzero with chip_dispatches still = that card's ring stalled.
+METRIC_CHIP_INFLIGHT = "tpu_miner_chip_inflight"
+#: Health verdict per component, labeled component=device|ring|rpc|pool|
+#: shares|chip:<label>: 0 ok, 1 degraded, 2 stalled.
+METRIC_HEALTH = "tpu_miner_health"
+#: Difficulty-weighted accepted-share work / hashes swept (expectation 1).
+METRIC_SHARE_EFFICIENCY = "tpu_miner_share_efficiency"
+#: Shares the swept hashes should have produced at the current difficulty.
+METRIC_SHARE_EXPECTED = "tpu_miner_share_expected"
+#: Verified shares whose lifecycle record got no verdict within the loss
+#: deadline (swept by the health watchdog).
+METRIC_SHARE_LOST = "tpu_miner_share_lost"
+#: Devices in the mesh-native hasher's active topology.
+METRIC_MESH_DEVICES = "tpu_miner_mesh_devices"
+#: Mesh-native topology transitions, labeled reason=quarantine|rebuild|
+#: restore.
+METRIC_MESH_REBUILDS = "tpu_miner_mesh_rebuilds"
+
+#: Gaps run from ~10 µs (a full ring) to seconds (a slow pool): the
+#: default latency ladder covers that span.
+GAP_BUCKETS: Tuple[float, ...] = DEFAULT_LATENCY_BUCKETS
+
+#: The bundle's metric attributes, in registration order.
+BUNDLE_METRICS = (
+    "dispatch_gap", "scan_batch", "ring_collect", "submit_rtt",
+    "ring_occupancy", "stream_window", "consts_cache", "stale_drops",
+    "batch_nonces", "sched_resizes", "pool_acks", "submits_inflight",
+    "rpc_responses", "rpc_errors", "chip_dispatches", "chip_inflight",
+    "mesh_devices", "mesh_rebuilds", "health", "share_efficiency",
+    "share_expected", "share_lost",
+)
+
+
+class _NullMetric:
+    """No-op stand-in for every metric kind; ``labels`` returns itself so
+    labeled call sites need no branches."""
+
+    __slots__ = ()
+
+    def labels(self, *a, **k) -> "_NullMetric":
+        return self
+
+    def inc(self, amount: float = 1.0) -> None:
+        pass
+
+    def dec(self, amount: float = 1.0) -> None:
+        pass
+
+    def set(self, value: float) -> None:
+        pass
+
+    def observe(self, value: float) -> None:
+        pass
+
+    count = 0
+    sum = 0.0
+    mean = 0.0
+    min = 0.0
+    max = 0.0
+    value = 0.0
+
+    def quantile(self, q: float) -> float:
+        return 0.0
+
+
+_NULL_METRIC = _NullMetric()
+
+
+class PipelineTelemetry:
+    """Registry + tracer + flight recorder + lifecycle ledger, with the
+    pipeline's families registered as attributes."""
+
+    enabled = True
+
+    def __init__(
+        self,
+        registry: Optional[MetricRegistry] = None,
+        tracer: Optional[Tracer] = None,
+        trace_path: Optional[str] = None,
+    ) -> None:
+        self.registry = registry if registry is not None else MetricRegistry()
+        self.tracer = tracer if tracer is not None else Tracer(
+            enabled=trace_path is not None
+        )
+        self.trace_path = trace_path
+        if trace_path is not None:
+            self.tracer.enabled = True
+        r = self.registry
+        self.dispatch_gap = r.histogram(
+            METRIC_DISPATCH_GAP,
+            "Device idle time between dispatches (s)",
+            buckets=GAP_BUCKETS,
+        )
+        self.scan_batch = r.histogram(
+            METRIC_SCAN_BATCH, "One device scan batch, wall seconds",
+            buckets=GAP_BUCKETS,
+        )
+        self.ring_collect = r.histogram(
+            METRIC_RING_COLLECT,
+            "Blocking readback of the ring's oldest dispatch (s)",
+            buckets=GAP_BUCKETS,
+        )
+        self.submit_rtt = r.histogram(
+            METRIC_SUBMIT_RTT, "Share submit round-trip to the pool (s)",
+            buckets=GAP_BUCKETS,
+        )
+        self.ring_occupancy = r.gauge(
+            METRIC_RING_OCCUPANCY, "Dispatches in flight in the device ring"
+        )
+        self.stream_window = r.gauge(
+            METRIC_STREAM_WINDOW, "Requests in flight on the ScanStream RPC"
+        )
+        self.consts_cache = r.counter(
+            METRIC_CONSTS_CACHE,
+            "Per-job device-constant cache lookups",
+            labelnames=("result",),
+        )
+        self.stale_drops = r.counter(
+            METRIC_STALE_DROPS,
+            "Work discarded because a newer job superseded it",
+            labelnames=("stage",),
+        )
+        self.batch_nonces = r.gauge(
+            METRIC_BATCH_NONCES,
+            "Per-dispatch nonce range chosen by the scan scheduler",
+        )
+        self.sched_resizes = r.counter(
+            METRIC_SCHED_RESIZES,
+            "Adaptive-scheduler shrink events",
+            labelnames=("reason",),
+        )
+        self.pool_acks = r.counter(
+            METRIC_POOL_ACKS,
+            "Pool submit verdicts",
+            labelnames=("result",),
+        )
+        self.submits_inflight = r.gauge(
+            METRIC_SUBMITS_INFLIGHT,
+            "Shares currently awaiting a pool response",
+        )
+        self.rpc_responses = r.counter(
+            METRIC_RPC_RESPONSES,
+            "gRPC scan responses received (unary + stream)",
+        )
+        self.rpc_errors = r.counter(
+            METRIC_RPC_ERRORS,
+            "gRPC failures (retries, broken streams, fallbacks)",
+            labelnames=("kind",),
+        )
+        self.chip_dispatches = r.counter(
+            METRIC_CHIP_DISPATCHES,
+            "Completed dispatches per fan-out chip",
+            labelnames=("chip",),
+        )
+        self.chip_inflight = r.gauge(
+            METRIC_CHIP_INFLIGHT,
+            "Requests assigned but not yet collected, per fan-out chip",
+            labelnames=("chip",),
+        )
+        self.mesh_devices = r.gauge(
+            METRIC_MESH_DEVICES,
+            "Devices in the mesh-native hasher's active topology",
+        )
+        self.mesh_rebuilds = r.counter(
+            METRIC_MESH_REBUILDS,
+            "Mesh-native topology transitions (quarantine degradation, "
+            "mesh rebuild, device restore)",
+            labelnames=("reason",),
+        )
+        self.health = r.gauge(
+            METRIC_HEALTH,
+            "Component health verdict (0 ok, 1 degraded, 2 stalled)",
+            labelnames=("component",),
+        )
+        self.share_efficiency = r.gauge(
+            METRIC_SHARE_EFFICIENCY,
+            "Difficulty-weighted accepted-share work / hashes swept "
+            "(expectation 1.0)",
+        )
+        self.share_expected = r.gauge(
+            METRIC_SHARE_EXPECTED,
+            "Shares the swept hashes should have produced at the "
+            "current difficulty",
+        )
+        self.share_lost = r.counter(
+            METRIC_SHARE_LOST,
+            "Shares whose lifecycle record never reached a terminal "
+            "verdict within the loss deadline",
+        )
+        #: the black box every layer's events land in: always recording,
+        #: dumped on SIGUSR2, on a crash and at ``/flightrec``.
+        self.flightrec = FlightRecorder()
+        #: per-share causal records, served at ``/lifecycle`` and swept
+        #: for lost shares by the health watchdog.
+        self.lifecycle = ShareLifecycleLedger()
+
+    def span(self, name: str, cat: str = "pipeline", **args):
+        return self.tracer.span(name, cat=cat, **args)
+
+    def enable_tracing(self, path: Optional[str] = None) -> None:
+        self.tracer.enabled = True
+        if path is not None:
+            self.trace_path = path
+
+    def dump_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the trace to ``path`` (default: the configured
+        ``trace_path``); returns the path written, or None if neither was
+        set."""
+        path = path or self.trace_path
+        if path is None:
+            return None
+        self.tracer.dump(path)
+        return path
+
+
+class NullTelemetry(PipelineTelemetry):
+    """Telemetry compiled out: the same attributes, no work per call."""
+
+    enabled = False
+
+    def __init__(self) -> None:  # deliberately no super().__init__
+        self.registry = MetricRegistry()  # empty; renders to nothing
+        self.tracer = Tracer(enabled=False)
+        self.trace_path = None
+        self.flightrec = NullFlightRecorder()
+        self.lifecycle = NullShareLifecycleLedger()
+        for attr in BUNDLE_METRICS:
+            setattr(self, attr, _NULL_METRIC)
+
+    def enable_tracing(self, path: Optional[str] = None) -> None:
+        pass  # compiled out stays out; build a PipelineTelemetry instead
+
+    def dump_trace(self, path: Optional[str] = None) -> Optional[str]:
+        return None
+
+
+class TelemetryBound:
+    """Mixin: ``self.telemetry`` is the process default bundle at the
+    moment it is read, unless a bundle was installed on the object. So a
+    hasher built before ``cli.setup_telemetry`` swapped the default still
+    reports into the new one."""
+
+    _telemetry_override = None
+
+    @property
+    def telemetry(self) -> "PipelineTelemetry":
+        return self._telemetry_override or get_telemetry()
+
+    @telemetry.setter
+    def telemetry(self, value) -> None:
+        self._telemetry_override = value
+
+
+_default_lock = threading.Lock()
+_default: Optional[PipelineTelemetry] = None
+
+
+def telemetry_disabled_by_env() -> bool:
+    return os.environ.get("TPU_MINER_TELEMETRY", "1").lower() in (
+        "0", "off", "false", "no",
+    )
+
+
+def get_telemetry() -> PipelineTelemetry:
+    """The process default bundle, shared by the dispatcher, the rings and
+    the status server, so one ``/metrics`` scrape sees every layer. Built
+    on first use: ``NullTelemetry`` under ``TPU_MINER_TELEMETRY=0``."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = (
+                NullTelemetry() if telemetry_disabled_by_env()
+                else PipelineTelemetry()
+            )
+        return _default
+
+
+def set_telemetry(
+    telemetry: Optional[PipelineTelemetry],
+) -> Optional[PipelineTelemetry]:
+    """Install a default bundle (``--trace-out``, tests). None drops it:
+    the next :func:`get_telemetry` builds one from the environment."""
+    global _default
+    with _default_lock:
+        _default = telemetry
+        return telemetry

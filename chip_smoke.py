@@ -60,7 +60,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    extranonce2 only, the suggested difficulty, a resume from the file;
    ``stratum_session_failover``), and the genesis sweep as ``--bench
    --batch-3x --sublanes 24`` (86 dispatches of 3·2^24 nonces, the last
-   cut by its limit; ``genesis_sweep_batch3x``);
+   cut by its limit; ``genesis_sweep_batch3x``); the GBT session serves
+   ``/healthz``, which must answer 200 after the first block;
+7b. mines a Stratum session with its telemetry on, built by
+   ``cli.make_miner`` and run by ``cli.run_session`` as ``--pool URL
+   --workers 4 --status-port P --trace-out T --flightrec-out F
+   --health-interval 1`` (``stratum_session_telemetry``): ``/trace``,
+   ``/flightrec`` (with the job switch), ``/healthz`` (200, device and
+   ring ok) and ``/metrics`` (the busy clock's gap after the job ran out,
+   ring collects, constants-cache hits, ≥ 3 accepted verdicts) answer
+   mid-session, and the trace written at the stop holds one
+   ``device_dispatch`` and one ``ring_collect`` span per dispatch
+   collected, one ``submit`` span and ``pool_ack`` instant per verdict and
+   one ``cpu_verify`` span per verified hit; then sweeps the genesis nonce
+   space with telemetry off, on and tracing, twice each
+   (``telemetry_overhead``, rates recorded, not gated);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -98,7 +112,7 @@ With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
 
-Phases 3 to 7, 9's sweeps, session and ladder, and 10's probe run are the
+Phases 3 to 7b, 9's sweeps, session and ladder, and 10's probe run are the
 main path: the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. No tile hasher launches the
 hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
@@ -106,7 +120,11 @@ is one scan launch per shard (per dispatch on one card), with no launch
 after it: the scans' last blocks merge the hit buffers and take each
 shard's minimum, and no kernel of :data:`REMOVED_KERNELS` may be built or
 counted.
-Every phase prints a JSON line; the kernel table and the card follow, and
+Every phase's flight-recorder dump path (written on a crash or SIGUSR2
+only) and traces are in a temporary directory (``TMPDIR`` chooses where;
+the telemetry phases print it), never the command line's default dump
+path, a file the checkout tracks. Every phase prints a JSON line; the kernel table and the card
+follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
 prints no result.
@@ -117,11 +135,15 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import ctypes
+import functools
 import io
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -141,6 +163,58 @@ SHARDS_ON_ONE_CARD = 4
 PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
 #: Kernels folded into the scans' last blocks: none may be built or counted.
 REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
+#: ntime passes of the telemetry session's job: (NTIME_ROLL + 1) × 2^32
+#: nonces, ~10 s at the session's rate, outlast the 3 shares and the
+#: window; the job then runs out and the pool's next one comes
+#: JOB_PAUSE_S later, a real gap of the busy clock.
+NTIME_ROLL = 15
+JOB_PAUSE_S = 0.25
+
+
+@functools.cache
+def out_dir() -> str:
+    """The smoke's telemetry files: traces, and the flight recorder's dump
+    path of every phase (written on a crash or SIGUSR2 only)."""
+    return tempfile.mkdtemp(prefix="chip_smoke_")
+
+
+def cli_args(pkg, argv, flightrec_out: str = None):
+    """The command line's options for ``argv``, the flight recorder's
+    dump path in :func:`out_dir` (its default is a file the checkout
+    tracks)."""
+    path = flightrec_out or os.path.join(out_dir(), "flightrec.json")
+    return pkg.cli.build_parser().parse_args(
+        [*argv, "--flightrec-out", path])
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+async def http_get(port: int, path: str) -> tuple:
+    """(status code, body) of one GET to the status server."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), 30)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body
+
+
+def prom_samples(text: str) -> dict:
+    """Prometheus exposition text → {(name, ((label, value), ...)): value}."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, _, value = line.rpartition(" ")
+        name, _, labels = series.partition("{")
+        pairs = tuple(sorted(re.findall(r'(\w+)="([^"]*)"', labels)))
+        out[(name, pairs)] = float(value)
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -693,7 +767,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "tolerance": "exact (integers)", "refused": refused}
 
     def genesis_sweep():
-        args = pkg.cli.build_parser().parse_args(
+        args = cli_args(pkg,
             ["--bench", "--bench-nonces", str(1 << 32)])
         s.reset_counts()
         out = pkg.cli.bench(args)
@@ -715,7 +789,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "launches": launched(counts)}
 
     def genesis_sweep_vshare():
-        args = pkg.cli.build_parser().parse_args(
+        args = cli_args(pkg,
             ["--bench", "--vshare", "2", "--bench-nonces", str(1 << 32)])
         s.reset_counts()
         out = pkg.cli.bench(args)
@@ -742,7 +816,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "sibling_hits": siblings, "launches": launched(counts)}
 
     def cuda_backend_window_vshare():
-        args = pkg.cli.build_parser().parse_args(
+        args = cli_args(pkg,
             ["--bench", "--backend", "cuda", "--vshare", "2", "--batch-bits",
              "24", "--bench-nonces", str(1 << 26)])
         s.reset_counts()
@@ -810,7 +884,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         for variant in tile.VARIANTS[1:]:
             for k in (1, 2):
                 name = tile.tile_library(k, variant)
-                args = pkg.cli.build_parser().parse_args(
+                args = cli_args(pkg,
                     ["--bench", "--bench-nonces", str(1 << 32), "--variant",
                      variant, "--vshare", str(k)])
                 s.reset_counts()
@@ -925,11 +999,86 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         no_hitbuf_pair(counts)
         return {**result, "launches": launched(counts)}
 
+    def stratum_session_telemetry():
+        """The Stratum session with its telemetry surfaces on
+        (:func:`stratum_telemetry`): one device_dispatch and one
+        ring_collect span per dispatch collected (the tile kernel's
+        launches less those abandoned at the stop), and the card's idle
+        share two ways: from the busy clock, and from the window's
+        launches × the exact tile kernel's time, measured here."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(stratum_telemetry(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        abandoned = result["dispatches_abandoned"]
+        collected = counts["scan_tile"] - abandoned
+        spans = result["spans"]
+        assert spans["device_dispatch"] == spans["ring_collect"] == \
+            collected, (spans, counts["scan_tile"], abandoned)
+        exact = s.job(header, pkg.difficulty_to_target(1 / 256), 0, DISPATCH)
+        ms = s.time_ms(lambda: pkg.scan_tile(exact, n_steps=DISPATCH // 8192,
+                                             block=8192), 20)
+        busy = result["window_launches"] * ms / 1e3
+        return {**result, "scan_tile_launches": counts["scan_tile"],
+                "dispatches_collected": collected,
+                "scan_tile_exact_ms": ms,
+                "idle_share_launches": 1 - busy / result["window_seconds"],
+                "launches": launched(counts)}
+
+    def telemetry_overhead():
+        """The K=1 genesis sweep through ``cli.bench`` with telemetry off
+        (A: ``TPU_MINER_TELEMETRY=0``), as it comes (B: metrics on) and
+        tracing (C: ``--trace-out``), each twice in the order A B C A B C.
+        Rates are printed, not gated: sweeps spread ~2% between runs."""
+        trace = os.path.join(out_dir(), "telemetry_overhead_trace.json")
+        legs = {"A": ([], False), "B": ([], True),
+                "C": (["--trace-out", trace], True)}
+        runs = []
+        try:
+            for leg in "ABCABC":
+                extra, enabled = legs[leg]
+                if enabled:
+                    os.environ.pop("TPU_MINER_TELEMETRY", None)
+                else:
+                    os.environ["TPU_MINER_TELEMETRY"] = "0"
+                pkg.pipeline.set_telemetry(None)
+                args = cli_args(pkg, ["--bench", "--bench-nonces",
+                                      str(1 << 32), *extra])
+                s.reset_counts()
+                out = pkg.cli.bench(args)
+                counts = s.read_counts()
+                tel = pkg.pipeline.get_telemetry()
+                tel.flightrec.disarm()
+                assert out["verified"], out["nonces"]
+                assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
+                assert tel.enabled is enabled, leg
+                assert tel.ring_collect.count == (256 if enabled else 0)
+                if leg == "C":
+                    with open(trace) as f:
+                        names = [e["name"] for e in json.load(f)[
+                            "traceEvents"]]
+                    assert names.count("device_dispatch") == 256, len(names)
+                runs.append({"leg": leg, "mhs": out["mhs"],
+                             "sweep_seconds": out["seconds"]})
+        finally:
+            os.environ.pop("TPU_MINER_TELEMETRY", None)
+            pkg.pipeline.set_telemetry(None)
+
+        def mean(leg):
+            rates = [r["mhs"] for r in runs if r["leg"] == leg]
+            return sum(rates) / len(rates)
+
+        return {"runs": runs, "mhs_a": mean("A"), "mhs_b": mean("B"),
+                "mhs_c": mean("C"), "b_over_a": mean("B") / mean("A"),
+                "c_over_a": mean("C") / mean("A")}
+
     def genesis_sweep_batch3x():
         """The whole genesis sweep as ``--bench --batch-3x --sublanes 24``
         runs it: 3·2^24-nonce dispatches of 24576-nonce steps (24 rows of
         128 nonces × 8 tiles), the last one cut by its limit."""
-        args = pkg.cli.build_parser().parse_args(
+        args = cli_args(pkg,
             ["--bench", "--batch-3x", "--sublanes", "24", "--bench-nonces",
              str(1 << 32)])
         hasher = pkg.cli.make_hasher(args)
@@ -1071,7 +1220,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                     *([] if spec else ["--no-spec"]),
                     *(["--backend", "cuda"] if hitbuf else [])]
             s.reset_counts()
-            out = pkg.cli.bench(pkg.cli.build_parser().parse_args(argv))
+            out = pkg.cli.bench(cli_args(pkg, argv))
             counts = s.read_counts()
             assert out["verified"] and out["hashes"] == k * n, (name, out)
             kernels = {c: v for c, v in counts.items() if v and c.startswith(
@@ -1216,13 +1365,25 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return {"shards": len(s.shards), "runs": runs}
 
     def genesis_sweep_fanout():
-        hasher, out, counts = mesh_sweep(
-            lambda: pkg.make_cuda_fanout(batch_per_device=DISPATCH,
-                                         kernel="cuda-tile",
-                                         devices=s.shards), 1)
+        tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+        try:
+            hasher, out, counts = mesh_sweep(
+                lambda: pkg.make_cuda_fanout(batch_per_device=DISPATCH,
+                                             kernel="cuda-tile",
+                                             devices=s.shards), 1)
+        finally:
+            pkg.pipeline.set_telemetry(None)
         assert counts["scan_tile"] == (1 << 32) // DISPATCH, counts
         assert set(launched(counts)) <= {"scan_tile", "rescan_steps"}, counts
+        # Each request goes whole to one card: the per-card counts sum to
+        # the requests, and nothing stays in flight.
+        per_chip = {k[0]: c.value for k, c in tel.chip_dispatches.children()}
+        inflight = {k[0]: c.value for k, c in tel.chip_inflight.children()}
+        assert sum(per_chip.values()) == out["dispatches"], (per_chip, out)
+        assert set(per_chip) == set(hasher.chip_labels), per_chip
+        assert not any(inflight.values()), inflight
         return {"children": hasher.n_children,
+                "chip_dispatches": per_chip, "chip_inflight": inflight,
                 "stream_depth": hasher.stream_depth, "mhs": out["mhs"],
                 "mhs_vs_single_device": out["mhs"] / s.sweep_mhs[1],
                 "requests": out["dispatches"],
@@ -1594,7 +1755,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("gbt_session", gbt_session)
     s.phase("getwork_session", getwork_session)
     s.phase("stratum_session_failover", stratum_session_failover)
+    s.phase("stratum_session_telemetry", stratum_session_telemetry)
     s.phase("genesis_sweep_batch3x", genesis_sweep_batch3x)
+    s.phase("telemetry_overhead", telemetry_overhead)
     s.phase("lowest_vs_plain", lowest_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
@@ -1692,7 +1855,7 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
         merkle_branch=[pkg.sha256d(b"tx1"), pkg.sha256d(b"tx2")],
         version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C,
     ))
-    args = pkg.cli.build_parser().parse_args(
+    args = cli_args(pkg,
         ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
          "--workers", "4", "--vshare", str(vshare),
          *(["--variant", variant] if variant else []), *backend])
@@ -1781,18 +1944,23 @@ async def gbt(pkg) -> dict:
     block to the third tip: its rate counts the tile kernel's launches ×
     the batch, ``hashes_mhs`` the finished requests, and it holds two job
     switches. No block may be rejected for a reason other than a stale
-    tip, and there may be no hardware error."""
+    tip, and there may be no hardware error. The session runs as the
+    command line runs it (``cli.run_session``, ``--status-port P
+    --health-interval 1``), and ``/healthz`` must answer 200 once polled
+    after the first block."""
     node = pkg.FakeNode(nbits=pkg.REGTEST_NBITS, advance_tip=True)
     await node.start()
-    args = pkg.cli.build_parser().parse_args(
-        ["--gbt", node.url, "--workers", "8"])
+    port = free_port()
+    args = cli_args(pkg,
+        ["--gbt", node.url, "--workers", "8", "--status-port", str(port),
+         "--health-interval", "1"])
     miner = pkg.cli.make_gbt_miner(args)
     dispatcher = miner.dispatcher
     hasher = dispatcher.hasher
     assert isinstance(hasher, pkg.TileCudaHasher), hasher
     assert hasher.device.type == "cuda" and dispatcher.n_workers == 8
     stats = dispatcher.stats
-    task = asyncio.create_task(miner.run())
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
 
     def mark() -> tuple:
         launches = sum(c.value for c in pkg.csrc.counters()
@@ -1805,6 +1973,9 @@ async def gbt(pkg) -> dict:
         await until(task, lambda: miner.blocks_accepted >= 1, "a block",
                     stats.summary, 60)
         a = mark()
+        code, body = await http_get(port, "/healthz")
+        health = json.loads(body)
+        assert code == 200, health
         await until(task, lambda: miner.blocks_accepted >= 3
                     and len(node.tips) >= 3, "3 blocks on 3 tips",
                     stats.summary, 120)
@@ -1836,7 +2007,8 @@ async def gbt(pkg) -> dict:
             "seconds_per_tip": window / (b[3] - a[3]),
             "stop_seconds": stop_seconds,
             "mhs": (b[1] - a[1]) * hasher.batch_size / window / 1e6,
-            "hashes_mhs": (b[2] - a[2]) / window / 1e6}
+            "hashes_mhs": (b[2] - a[2]) / window / 1e6,
+            "healthz": health}
 
 
 async def getwork(pkg) -> dict:
@@ -1849,7 +2021,7 @@ async def getwork(pkg) -> dict:
     solve."""
     node = pkg.FakeNode(nbits=0x1D00FFFF, getwork_ntime_roll=600)
     await node.start()
-    args = pkg.cli.build_parser().parse_args(
+    args = cli_args(pkg,
         ["--getwork", node.url, "--workers", "4"])
     miner = pkg.cli.make_getwork_miner(args)
     dispatcher = miner.dispatcher
@@ -1931,7 +2103,7 @@ async def failover(pkg, suggest: float = 0.00390625) -> dict:
             f"stratum+tcp://127.0.0.1:{pool.port}", "--host-index", "1",
             "--n-hosts", "2", "--suggest-difficulty", str(suggest),
             "--checkpoint", path]
-    args = pkg.cli.build_parser().parse_args(argv)
+    args = cli_args(pkg, argv)
     miner = pkg.cli.make_miner(args)
     miner.client._backoff = pkg.DecorrelatedJitterBackoff(0.05, 0.2)
     dispatcher = miner.dispatcher
@@ -1998,6 +2170,162 @@ async def failover(pkg, suggest: float = 0.00390625) -> dict:
             "hashes_mhs": stats.hashes / seconds / 1e6}
 
 
+async def stratum_telemetry(pkg, window_s: float = SESSION_WINDOW_S) -> dict:
+    """A Stratum session as ``--pool URL --workers 4 --status-port P
+    --trace-out T --flightrec-out F --health-interval 1 --ntime-roll 15``
+    builds it (``cli.make_miner``, run by ``cli.run_session`` with its
+    reporter, health watchdog and status server), against the mock pool
+    at difficulty 1/256 with an extranonce2 of 0 bytes, on a fresh
+    telemetry bundle. After 3 accepted shares it scrapes ``/trace`` and
+    ``/flightrec`` (which must hold the job switch), mines a window of
+    ``window_s`` (rate, device rate and idle share from the busy clock,
+    ``/healthz`` 200 with device and ring ok), lets the job's 16 ntime
+    passes run out, and has the pool send the next job ``JOB_PAUSE_S``
+    after the miner went idle: the busy clock's gap. Then ``/metrics``
+    must show the gap, ring collects, constants-cache hits and ≥ 3
+    accepted verdicts. The trace file written at the stop is returned
+    counted by span name; the caller holds those against the launches."""
+    pool = pkg.MockStratumPool(difficulty=1 / 256, extranonce2_size=0)
+    await pool.start()
+
+    def pool_job(job_id: str):
+        return pkg.PoolJob(
+            job_id=job_id,
+            prevhash_internal=pkg.sha256d(b"chip smoke prev " +
+                                          job_id.encode()),
+            coinb1=bytes.fromhex("01000000") + b"\x11" * 30,
+            coinb2=b"\x22" * 30 + bytes.fromhex("00000000"),
+            merkle_branch=[pkg.sha256d(b"tx1")],
+            version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C)
+
+    await pool.announce_job(pool_job("telemetry-a"))
+    port = free_port()
+    trace_path = os.path.join(out_dir(),
+                              "stratum_session_telemetry_trace.json")
+    args = cli_args(pkg, [
+        "--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
+        "--workers", "4", "--ntime-roll", str(NTIME_ROLL),
+        "--status-port", str(port), "--trace-out", trace_path,
+        "--health-interval", "1"],
+        flightrec_out=os.path.join(
+            out_dir(), "stratum_session_telemetry_flightrec.json"))
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    miner = pkg.cli.make_miner(args)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and dispatcher.telemetry is tel
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+
+    def mark() -> tuple:
+        launches = sum(c.value for c in pkg.csrc.counters()
+                       if c.name == "scan_tile")
+        return (time.perf_counter(), launches, stats.hashes,
+                stats.busy_seconds())
+
+    out = {}
+    try:
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+        a = mark()
+        code, body = await http_get(port, "/trace")
+        assert code == 200 and "traceEvents" in json.loads(body)
+        code, body = await http_get(port, "/flightrec")
+        flightrec = json.loads(body)
+        assert code == 200, code
+        kinds = [e["kind"] for e in flightrec["events"]]
+        assert "job_switch" in kinds, kinds[:20]
+        await until(task, lambda: time.perf_counter() - a[0] >= window_s / 2,
+                    "half the window", stats.summary, window_s + 60)
+        code, body = await http_get(port, "/healthz")
+        health = json.loads(body)
+        assert code == 200, health
+        assert {health["components"][c]["state"]
+                for c in ("device", "ring")} == {"ok"}, health
+        await until(task, lambda: time.perf_counter() - a[0] >= window_s,
+                    "window", stats.summary, window_s + 60)
+        b = mark()
+        # The job's (NTIME_ROLL + 1) × 2^32 nonces run out: the busy clock
+        # goes idle, and the pool's next job ends the gap.
+        await until(task, lambda: stats._active_scans == 0,
+                    "the job to run out", stats.summary, 120)
+        idle_at = time.perf_counter()
+        await asyncio.sleep(JOB_PAUSE_S)
+        await pool.announce_job(pool_job("telemetry-b"))
+        await until(task, lambda: tel.dispatch_gap.count >= 1,
+                    "the busy clock's gap", stats.summary, 60)
+        gap_seen = time.perf_counter() - idle_at
+        await asyncio.sleep(1.0)
+        code, body = await http_get(port, "/metrics")
+        assert code == 200, code
+        samples = prom_samples(body.decode())
+        checks = {
+            "tpu_miner_dispatch_gap_seconds_count": samples[
+                ("tpu_miner_dispatch_gap_seconds_count", ())],
+            "tpu_miner_ring_collect_seconds_count": samples[
+                ("tpu_miner_ring_collect_seconds_count", ())],
+            "consts_cache_hit": samples[(
+                "tpu_miner_consts_cache_lookups_total",
+                (("result", "hit"),))],
+            "pool_acks_accepted": samples[(
+                "tpu_miner_pool_acks_total", (("result", "accepted"),))],
+        }
+        assert checks["tpu_miner_dispatch_gap_seconds_count"] > 0, checks
+        assert checks["tpu_miner_ring_collect_seconds_count"] > 0, checks
+        assert checks["consts_cache_hit"] > 0, checks
+        assert checks["pool_acks_accepted"] >= 3, checks
+        out["scraped"] = checks
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+        tel.flightrec.disarm()
+    task.result()
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    with open(trace_path) as f:
+        trace = json.load(f)
+    assert trace["traceEvents"] and all(
+        e["ph"] in ("X", "i", "C", "M") for e in trace["traceEvents"])
+    spans: dict = {}
+    for e in trace["traceEvents"]:
+        key = e["name"]
+        if e["name"] == "pool_ack" and e["args"].get("result") == "accepted":
+            spans["pool_ack_accepted"] = spans.get("pool_ack_accepted", 0) + 1
+        spans[key] = spans.get(key, 0) + 1
+    verdicts = sum(c.value for _, c in tel.pool_acks.children())
+    assert spans["submit"] == spans["pool_ack"] == verdicts, (spans, verdicts)
+    assert spans["pool_ack_accepted"] == stats.shares_accepted, spans
+    assert spans["cpu_verify"] == stats.shares_found + stats.hw_errors, spans
+    window = b[0] - a[0]
+    busy = b[3] - a[3]
+    return {**out,
+            "accepted": stats.shares_accepted,
+            "pool_validated": sum(sh.accepted for sh in pool.shares),
+            "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
+            "verdicts": verdicts, "spans": spans,
+            "dispatches_abandoned": hasher.dispatches_abandoned,
+            "window_seconds": window, "window_launches": b[1] - a[1],
+            "mhs": (b[1] - a[1]) * hasher.batch_size / window / 1e6,
+            "device_mhs_busy_clock": (b[2] - a[2]) / busy / 1e6,
+            "idle_share_busy_clock": 1 - busy / window,
+            "gap_seconds_after_idle": gap_seen,
+            "dispatch_gap_count": tel.dispatch_gap.count,
+            "dispatch_gap_max_s": tel.dispatch_gap.max,
+            "ring_collect_ms": {
+                "count": tel.ring_collect.count,
+                "mean": tel.ring_collect.mean * 1e3,
+                "p50": tel.ring_collect.quantile(0.5) * 1e3,
+                "p99": tel.ring_collect.quantile(0.99) * 1e3},
+            "scan_batch_ms_p50": tel.scan_batch.quantile(0.5) * 1e3,
+            "submit_rtt_ms_p50": tel.submit_rtt.quantile(0.5) * 1e3,
+            "submit_rtt_ms_p99": tel.submit_rtt.quantile(0.99) * 1e3,
+            "trace": trace_path, "trace_events": len(trace["traceEvents"]),
+            "trace_dropped": trace["otherData"].get("dropped_events", 0)}
+
+
 async def until(task, done, what: str, summary, seconds: float) -> None:
     """Wait for ``done()``; fail if the session's task ends first or
     ``seconds`` pass."""
@@ -2042,6 +2370,7 @@ class _Package:
         from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
         from bitcoin_miner_tpu_torch.probes import sass
+        from bitcoin_miner_tpu_torch.telemetry import pipeline
         from bitcoin_miner_tpu_torch.testing.fake_node import (
             REGTEST_NBITS,
             FakeNode,
@@ -2092,6 +2421,7 @@ class _Package:
         self.make_cuda_fanout = make_cuda_fanout
         self.int_probe, self.probe_cli, self.sass = int_probe, probe_cli, sass
         self.pipe_bound_ms = sha256_torch.pipe_bound_ms
+        self.pipeline = pipeline
 
 
 def main() -> int:

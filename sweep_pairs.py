@@ -33,6 +33,13 @@ checkout's ``chip_smoke.py`` builds and prints ptxas' registers, spills
 and shared memory per kernel, and the SASS per pipe of each hit-buffer
 library's nonce loop. One JSON line.
 
+``python3 sweep_pairs.py ROOT --telemetry N`` (a checkout with the
+telemetry package) sweeps the genesis nonces through ``cli.bench`` with
+telemetry off (A, ``TPU_MINER_TELEMETRY=0``), metrics on (B, the
+default) and tracing (C, ``--trace-out``), in N rounds whose leg order
+rotates (A B C, B C A, C A B, ...) after one warm-up sweep. One JSON
+line: every rate, and per leg the median and quartiles.
+
 To compare a commit with its parent, unpack the parent beside the
 checkout and run parent, change, change, parent in one call.
 """
@@ -211,6 +218,51 @@ def ptxas(root: str) -> dict:
             "ptxas": chip_smoke.ptxas_table(logs), "hitbuf_loops": loops}
 
 
+def telemetry_legs(root: str, rounds: int) -> dict:
+    """Genesis sweep rates with telemetry off, on and tracing, in
+    rotating order; the trace and the flight recorder's dump path in a
+    temporary directory."""
+    import tempfile
+
+    from bitcoin_miner_tpu_torch import cli
+    from bitcoin_miner_tpu_torch.telemetry import pipeline
+
+    out = tempfile.mkdtemp(prefix="sweep_pairs_")
+    base = ["--bench", "--bench-nonces", str(1 << 32), "--flightrec-out",
+            os.path.join(out, "flightrec.json")]
+    legs = {"A": [], "B": [],
+            "C": ["--trace-out", os.path.join(out, "trace.json")]}
+
+    def sweep(leg: str) -> float:
+        if leg == "A":
+            os.environ["TPU_MINER_TELEMETRY"] = "0"
+        else:
+            os.environ.pop("TPU_MINER_TELEMETRY", None)
+        pipeline.set_telemetry(None)
+        result = cli.bench(cli.build_parser().parse_args(base + legs[leg]))
+        pipeline.get_telemetry().flightrec.disarm()
+        if not result["verified"]:
+            raise SystemExit(f"genesis nonce not found: {result}")
+        return round(result["mhs"], 1)
+
+    rates: dict = {leg: [] for leg in legs}
+    try:
+        sweep("B")  # warm-up
+        for r in range(rounds):
+            for leg in "ABC"[r % 3:] + "ABC"[:r % 3]:
+                rates[leg].append(sweep(leg))
+    finally:
+        os.environ.pop("TPU_MINER_TELEMETRY", None)
+        pipeline.set_telemetry(None)
+    median = {leg: statistics.median(v) for leg, v in rates.items()}
+    return {"root": root, "card": card(), "rounds": rounds, "mhs": rates,
+            "median": median,
+            "quartiles": {leg: statistics.quantiles(v, n=4)
+                          for leg, v in rates.items()},
+            "b_over_a": median["B"] / median["A"],
+            "c_over_a": median["C"] / median["A"]}
+
+
 def main() -> int:
     root = os.path.abspath(sys.argv[1])
     sys.path.insert(0, root)
@@ -221,6 +273,11 @@ def main() -> int:
     if sys.argv[2:] == ["--easy"]:
         csrc.build(["scan_tile", "scan_hitbuf"])
         print(json.dumps(easy_scans(sys.argv[1])), flush=True)
+        return 0
+    if sys.argv[2:3] == ["--telemetry"]:
+        csrc.build(["scan_tile", "scan_hitbuf"])
+        print(json.dumps(telemetry_legs(sys.argv[1], int(sys.argv[3]))),
+              flush=True)
         return 0
     if sys.argv[2:] in (["--fused"], ["--ptxas"]):
         run = fused if sys.argv[2] == "--fused" else ptxas
