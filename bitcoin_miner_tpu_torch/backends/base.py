@@ -13,6 +13,9 @@ Backends register by name:
                        (``parallel/fanout.py``)
     cuda-mesh-native — the sharded scan behind one ring, with a degradation
                        ladder (``parallel/meshring.py``)
+    cuda-fleet       — one hit-buffer hasher per device under the fleet
+                       supervisor (``parallel/supervisor.py``)
+    grpc-local       — a served worker over gRPC (``rpc/hasher_service.py``)
 
 The dispatcher re-verifies every device hit on a CPU hasher before it
 becomes a share.
@@ -22,7 +25,8 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Tuple
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Tuple)
 
 MAX_NONCE = 1 << 32
 
@@ -39,13 +43,19 @@ class ScanResult:
     as (version, nonce) pairs. They stay out of ``nonces``/``total_hits``,
     which describe the caller's own header: a consumer that has not opted
     into version rolling must never submit one against it. Empty for every
-    one-chain backend. ``version_total_hits`` is their uncapped count."""
+    one-chain backend. ``version_total_hits`` is their uncapped count.
+
+    ``reserved_version_bits``: the roll bits the backend reserved for this
+    scan's sibling chains, where it says (the gRPC seam echoes it, so a
+    client's cached mask → reserved mapping follows a worker restarted
+    with another configuration); None otherwise."""
 
     nonces: List[int] = field(default_factory=list)
     total_hits: int = 0
     hashes_done: int = 0
     version_hits: List[Tuple[int, int]] = field(default_factory=list)
     version_total_hits: int = 0
+    reserved_version_bits: Optional[int] = None
 
     @property
     def truncated(self) -> bool:
@@ -168,6 +178,9 @@ class Hasher(ABC):
         digest = self.sha256d(header80)
         return int.from_bytes(digest, "little") <= target
 
+    def close(self) -> None:
+        """Release what the backend holds (a channel); nothing by default."""
+
     def _check_range(self, header76: bytes, nonce_start: int, count: int) -> None:
         if len(header76) != 76:
             raise ValueError(f"header76 must be 76 bytes, got {len(header76)}")
@@ -183,7 +196,7 @@ _REGISTRY: Dict[str, Callable[..., Hasher]] = {}
 
 #: The backends ``backends/cuda.py`` registers.
 CUDA_BACKENDS = ("cuda", "cuda-tile", "cuda-mesh", "cuda-tile-mesh",
-                 "cuda-fanout", "cuda-mesh-native")
+                 "cuda-fanout", "cuda-mesh-native", "cuda-fleet")
 
 
 def register_hasher(name: str, factory: Callable[..., Hasher]) -> None:
@@ -202,10 +215,13 @@ def get_hasher(name: str, **kwargs: Any) -> Hasher:
             from . import cpu  # noqa: F401
         elif name in CUDA_BACKENDS:
             from . import cuda  # noqa: F401
+        elif name == "grpc-local":
+            from ..rpc import hasher_service  # noqa: F401
     try:
         factory = _REGISTRY[name]
     except KeyError:
-        known = sorted(set(available_hashers()) | {"cpu", *CUDA_BACKENDS})
+        known = sorted(set(available_hashers())
+                       | {"cpu", "grpc-local", *CUDA_BACKENDS})
         raise ValueError(
             f"unknown hasher {name!r}; available: {known}"
         ) from None

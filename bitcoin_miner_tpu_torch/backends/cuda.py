@@ -921,9 +921,19 @@ def _make_mesh_native(**kwargs) -> Hasher:
     return MeshCudaHasher(**kwargs)
 
 
+def _make_fleet(**kwargs) -> Hasher:
+    """Registry entry for the supervised per-device fleet
+    (``parallel/supervisor.py``; every card by default): ``kwargs`` go to
+    ``make_cuda_fleet``."""
+    from ..parallel.supervisor import make_cuda_fleet
+
+    return make_cuda_fleet(**kwargs)
+
+
 register_hasher("cuda", CudaHasher)
 register_hasher("cuda-tile", TileCudaHasher)
 register_hasher("cuda-mesh", ShardedCudaHasher)
 register_hasher("cuda-tile-mesh", ShardedTileCudaHasher)
 register_hasher("cuda-fanout", _make_fanout)
 register_hasher("cuda-mesh-native", _make_mesh_native)
+register_hasher("cuda-fleet", _make_fleet)

@@ -7,21 +7,28 @@ Modes:
   --gbt  http://HOST:PORT          solo mining via getblocktemplate
   --getwork http://HOST:PORT       getwork polling
   --bench                          offline sweep of the genesis header
+  --serve-hasher HOST:PORT         serve the backend as a gRPC hasher
+                                   worker (``rpc/hasher_service.py``)
 
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
 hit-buffer kernel), their sharded forms over several cards ``cuda-tile-mesh``
 and ``cuda-mesh``, ``cuda-mesh-native`` (the sharded scan behind one
 dispatch ring, ``--mesh-kernel cuda|cuda-tile``), ``cuda-fanout`` (whole
-requests to one hasher per card, ``--fanout-kernel cuda|cuda-tile``) and
-``cpu`` (the hashlib oracle). ``--mesh-devices N`` takes the first N
-cards for the multi-device backends (default: all). ``--device cpu``
+requests to one hasher per card, ``--fanout-kernel cuda|cuda-tile``),
+``cuda-fleet`` (one hit-buffer hasher per card under the fleet supervisor:
+a dead card is quarantined and its requests reclaimed), ``grpc`` (a served
+worker, ``--grpc-target HOST:PORT``) and ``cpu`` (the hashlib oracle).
+``--worker HOST:PORT``, repeated, mines on a supervised fleet of served
+workers. The gRPC paths need ``grpcio``. ``--mesh-devices N`` takes the
+first N cards for the multi-device backends (default: all). ``--device cpu``
 runs the CUDA backends' plain PyTorch versions instead of the kernels,
 on one device; without it they need a card. ``--vshare k`` hashes every
 nonce against k version-rolled sibling headers (overt AsicBoost) on the
 CUDA backends. ``--variant``, ``--cgroup``, ``--interleave``,
 ``--sublanes`` and ``--inner-tiles`` choose the tile kernel's layout and
 step wherever the tile kernel runs; the other backends refuse them.
-``--unroll`` and ``--no-spec`` choose the kernels' compile form.
+``--unroll`` and ``--no-spec`` choose the kernels' compile form;
+``--inner-bits`` the hit-buffer kernel's step.
 ``--batch-3x`` makes the dispatch 3·2^batch-bits nonces, which tile
 heights such as ``--sublanes 24`` divide.
 
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import importlib.util
 import logging
 import signal
 import sys
@@ -76,12 +84,16 @@ logger = logging.getLogger("tpu_miner_torch")
 #: log2 of the nonces per device dispatch when ``--batch-bits`` is not given.
 DEFAULT_BATCH_BITS = 24
 
+#: log2 of the hit-buffer kernel's inner step when ``--inner-bits`` is not
+#: given (``CudaHasher``'s default step).
+DEFAULT_INNER_BITS = 18
+
 #: seconds between health-watchdog evaluations when not given.
 DEFAULT_HEALTH_INTERVAL = 5.0
 
 #: ``--backend`` choices, the default first.
 BACKENDS = ("cuda-tile", "cuda", "cuda-tile-mesh", "cuda-mesh",
-            "cuda-mesh-native", "cuda-fanout", "cpu")
+            "cuda-mesh-native", "cuda-fanout", "cuda-fleet", "grpc", "cpu")
 
 
 
@@ -101,17 +113,35 @@ def build_parser() -> argparse.ArgumentParser:
     mode.add_argument("--bench", action="store_true",
                       help="offline sweep around the genesis nonce at the "
                            "difficulty-1 target")
+    mode.add_argument("--serve-hasher", metavar="HOST:PORT",
+                      help="serve --backend as a gRPC hasher worker, which "
+                           "a miner drives with --backend grpc "
+                           "--grpc-target or --worker; records spans for "
+                           "the miner's --trace-out (needs grpcio)")
     p.add_argument("--user", default="tpu-miner", help="pool/RPC username")
     p.add_argument("--password", default="x", help="pool/RPC password")
     p.add_argument("--backend", default="cuda-tile", choices=BACKENDS,
                    help="hasher backend (default: %(default)s)")
+    p.add_argument("--grpc-target", default=None, metavar="HOST:PORT",
+                   help="--backend grpc: the served worker")
+    p.add_argument("--worker", action="append", default=None,
+                   metavar="HOST:PORT",
+                   help="repeatable: a served worker (--serve-hasher); any "
+                        "--worker mines on the supervised fleet of them "
+                        "(parallel/supervisor.py): a worker unavailable "
+                        "for 10 s is quarantined, its requests reclaimed "
+                        "by the others with no nonce lost or duplicated, "
+                        "and half-open probed back in. --backend stays at "
+                        "its default or grpc. The reference's @STATUSPORT "
+                        "suffix (the observatory's federation) is not "
+                        "ported")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the cuda backends run: the card, or their "
                         "plain PyTorch versions on the CPU (one device)")
     p.add_argument("--mesh-devices", type=int, default=None,
                    help="multi-device backends (cuda-mesh, cuda-tile-mesh, "
-                        "cuda-mesh-native, cuda-fanout): the first N cards "
-                        "(default: every card)")
+                        "cuda-mesh-native, cuda-fanout, cuda-fleet): the "
+                        "first N cards (default: every card)")
     p.add_argument("--mesh-kernel", default=None, choices=MESH_KERNELS,
                    help="cuda-mesh-native: the per-shard kernel, the "
                         "hit-buffer scan (cuda) or the tile scan "
@@ -129,6 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "partial evaluation of the padding, length and IV "
                         "words (applies at --unroll 64); with --vshare > 1 "
                         "the hit-buffer kernel refuses it")
+    p.add_argument("--inner-bits", type=int, default=None,
+                   help="hit-buffer kernel (--backend cuda, cuda-mesh, "
+                        "cuda-fleet, --mesh-kernel/--fanout-kernel cuda): "
+                        "log2 of the nonces per inner step, capped at "
+                        f"--batch-bits; default {DEFAULT_INNER_BITS}")
     p.add_argument("--vshare", type=int, default=1,
                    help="cuda backends: k version-rolled midstate chains "
                         "sharing one chunk-2 schedule per nonce (overt "
@@ -248,21 +283,28 @@ TILE_OPTIONS = (("variant", "baseline"), ("cgroup", 0), ("interleave", 1),
 
 #: The backends that run on several devices.
 MULTI_DEVICE_BACKENDS = ("cuda-mesh", "cuda-tile-mesh", "cuda-mesh-native",
-                         "cuda-fanout")
+                         "cuda-fanout", "cuda-fleet")
 
-#: The hit-buffer kernel's largest inner step (``CudaHasher``'s default).
-INNER_BITS = 18
+#: The options of a local device, each with its value when not given:
+#: a served worker's own options govern what it runs, so ``--backend
+#: grpc`` and ``--worker`` refuse them.
+LOCAL_DEVICE_OPTIONS = (*((flag, None) for flag, _ in TILE_OPTIONS),
+                        ("mesh_kernel", None),
+                        ("fanout_kernel", None), ("mesh_devices", None),
+                        ("unroll", None), ("no_spec", False),
+                        ("inner_bits", None), ("vshare", 1),
+                        ("device", "cuda"))
 
 
 def _kernel_of(args: argparse.Namespace) -> str:
     """The scan kernel the options run: ``cuda-tile`` (the tile kernel),
-    ``cuda`` (the hit-buffer kernel) or ``cpu``."""
+    ``cuda`` (the hit-buffer kernel), ``cpu``, or ``grpc`` (none here)."""
     if args.backend == "cuda-mesh-native":
         return args.mesh_kernel or "cuda"
     if args.backend == "cuda-fanout":
         return args.fanout_kernel or "cuda"
-    return {"cuda-tile-mesh": "cuda-tile", "cuda-mesh": "cuda"}.get(
-        args.backend, args.backend)
+    return {"cuda-tile-mesh": "cuda-tile", "cuda-mesh": "cuda",
+            "cuda-fleet": "cuda"}.get(args.backend, args.backend)
 
 
 def _refuse(flag: str, val, where: str, backend: str) -> None:
@@ -270,11 +312,60 @@ def _refuse(flag: str, val, where: str, backend: str) -> None:
                      f"{where}; --backend {backend} ignores it")
 
 
+def _hasher_service():
+    """``rpc/hasher_service``, imported only by the gRPC paths."""
+    if importlib.util.find_spec("grpc") is None:
+        raise SystemExit("grpcio is not installed: --serve-hasher, "
+                         "--backend grpc and --worker need it")
+    from .rpc import hasher_service
+
+    return hasher_service
+
+
+def _remote_hasher(args: argparse.Namespace) -> Hasher:
+    """``--backend grpc`` or ``--worker``: a served worker's own options
+    govern what it runs, so every local-device option is refused."""
+    workers = [w.strip() for w in args.worker or () if w.strip()]
+    if workers:
+        if args.backend not in ("cuda-tile", "grpc"):
+            raise SystemExit(f"--worker builds a supervised gRPC fleet; it "
+                             f"cannot combine with --backend {args.backend}")
+        if args.grpc_target:
+            raise SystemExit(
+                "--grpc-target is the single-worker (unsupervised) path; "
+                "with --worker, list every worker as its own --worker flag")
+    for flag, default in LOCAL_DEVICE_OPTIONS:
+        val = getattr(args, flag)
+        if val != default:
+            _refuse(flag, val, "a local hasher (a served worker's own "
+                    "options govern it)", "grpc")
+    service = _hasher_service()
+    if workers:
+        from .parallel.supervisor import make_grpc_fleet
+
+        try:
+            return make_grpc_fleet(workers)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    if not args.grpc_target:
+        raise SystemExit("--backend grpc requires --grpc-target HOST:PORT")
+    return service.GrpcHasher(args.grpc_target)
+
+
 def make_hasher(args: argparse.Namespace) -> Hasher:
     # A run must not be labelled with a geometry that never ran: options
     # of a kernel or backend that does not run are refused (an explicit
     # interleave of 1 describes what runs, and passes).
+    if args.worker or args.backend == "grpc":
+        return _remote_hasher(args)
+    if args.grpc_target:
+        _refuse("grpc_target", args.grpc_target, "--backend grpc",
+                args.backend)
     kernel = _kernel_of(args)
+    if args.inner_bits is not None and kernel != "cuda":
+        _refuse("inner_bits", args.inner_bits, "the hit-buffer kernel "
+                "(--backend cuda, cuda-mesh, cuda-fleet, or --mesh-kernel/"
+                "--fanout-kernel cuda)", args.backend)
     if kernel != "cuda-tile":
         for flag, default in TILE_OPTIONS:
             val = getattr(args, flag)
@@ -322,7 +413,11 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
             raise SystemExit(
                 f"--cgroup must be between 1 and --vshare ({args.vshare})")
     else:
-        kwargs["inner_size"] = 1 << min(bits, INNER_BITS)
+        inner_bits = (DEFAULT_INNER_BITS if args.inner_bits is None
+                      else args.inner_bits)
+        if inner_bits < 0:
+            raise SystemExit("--inner-bits must be >= 0")
+        kwargs["inner_size"] = 1 << min(bits, inner_bits)
     if args.backend not in MULTI_DEVICE_BACKENDS:
         return get_hasher(args.backend, batch_size=batch,
                           device=args.device, **kwargs)
@@ -398,7 +493,7 @@ def bench(args: argparse.Namespace) -> dict:
     hasher = make_hasher(args)
     out = run_bench(hasher, args.bench_nonces,
                     scheduler=make_scheduler(args, hasher))
-    _dump_trace(telemetry)
+    _dump_trace(telemetry, hasher)
     return out
 
 
@@ -448,8 +543,29 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
     return model, watchdog
 
 
-def _dump_trace(telemetry: PipelineTelemetry) -> None:
-    """Write the ``--trace-out`` file, if tracing was asked for."""
+def _dump_trace(telemetry: PipelineTelemetry,
+                hasher: Optional[Hasher] = None) -> None:
+    """Write the ``--trace-out`` file, if tracing was asked for. With a
+    served worker as the hasher, its span buffer (``CollectTrace``) is
+    merged in first, so the file shows both sides of the wire under one
+    trace id."""
+    collect = getattr(hasher, "collect_trace", None)
+    if telemetry.trace_path is not None and collect is not None:
+        remote = collect()
+        if remote is not None and remote.get("traceEvents"):
+            from .telemetry import merge_traces
+            from .telemetry.tracing import atomic_json_dump
+
+            target = getattr(hasher, "target", "remote")
+            atomic_json_dump(
+                merge_traces(telemetry.tracer.trace_dict(), remote,
+                             label=f"remote-hasher {target}"),
+                telemetry.trace_path)
+            logger.info("pipeline trace written to %s (merged %d remote "
+                        "events from %s; open in Perfetto)",
+                        telemetry.trace_path, len(remote["traceEvents"]),
+                        target)
+            return
     path = telemetry.dump_trace()
     if path is not None:
         logger.info("pipeline trace written to %s (open in Perfetto)", path)
@@ -504,7 +620,7 @@ async def run_session(miner, args: argparse.Namespace) -> None:
         if watchdog is not None:
             watchdog.stop()
         logger.info("stopped; final: %s", stats.summary())
-        _dump_trace(telemetry)
+        _dump_trace(telemetry, dispatcher.hasher)
 
 
 #: The session options, each with the modes that take it.
@@ -514,8 +630,10 @@ SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
                  ("suggest_difficulty", ("--pool",)),
                  ("tls_no_verify", ("--pool",)),
                  ("allow_redirect", ("--pool",)),
-                 ("status_port", ("--pool", "--gbt", "--getwork")),
-                 ("health_interval", ("--pool", "--gbt", "--getwork")))
+                 ("status_port", ("--pool", "--gbt", "--getwork",
+                                  "--serve-hasher")),
+                 ("health_interval", ("--pool", "--gbt", "--getwork",
+                                      "--serve-hasher")))
 
 #: The options every session mode takes.
 LIVE_FLAGS = ("status_port", "health_interval")
@@ -654,6 +772,60 @@ def make_getwork_miner(args: argparse.Namespace) -> "GetworkMiner":
     )
 
 
+def cmd_serve_hasher(args: argparse.Namespace) -> int:
+    """``--serve-hasher HOST:PORT``: serve ``make_hasher(args)`` until
+    SIGTERM or Ctrl-C. The worker records spans by default (a bounded
+    buffer that each ``CollectTrace`` drains), so a miner's ``--trace-out``
+    takes them without a flag here; ``TPU_MINER_TELEMETRY=0`` still
+    compiles them out. ``--status-port`` serves the worker's ``/healthz``,
+    ``/metrics``, ``/trace`` and ``/flightrec`` from its own thread (the
+    gRPC server is synchronous). The reference's served worker also runs
+    a local observatory (the SLO engine and its time series), which is not
+    ported: ``/healthz`` has no ``slo`` component."""
+    _refuse_session_flags(args, "--serve-hasher", LIVE_FLAGS)
+    service = _hasher_service()
+    telemetry = setup_telemetry(args)
+    telemetry.enable_tracing()
+    server, port = service.serve(make_hasher(args), args.serve_hasher)
+    if not port:
+        server.stop(grace=0)
+        raise SystemExit(f"cannot serve --serve-hasher {args.serve_hasher}")
+    logger.info("hasher service listening on %d (ctrl-c to stop)", port)
+    stop_status = watchdog = None
+    if args.status_port is not None:
+        from .miner.dispatcher import MinerStats
+        from .utils.status import StatusServer, serve_status_in_thread
+
+        stats = MinerStats(telemetry=telemetry)
+        health, watchdog = make_health(args, telemetry, stats)
+        status_server = StatusServer(
+            stats, args.status_port, registry=telemetry.registry,
+            telemetry=telemetry, health=health)
+        try:
+            stop_status = serve_status_in_thread(status_server)
+        except (OSError, OverflowError, ValueError) as e:
+            server.stop(grace=0)
+            raise SystemExit(
+                f"cannot serve --status-port {args.status_port}: {e}")
+        logger.info("status endpoint on http://127.0.0.1:%d/",
+                    status_server.port)
+    # SIGTERM stops the server as Ctrl-C does, and the trace is written.
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: server.stop(grace=1.0))
+    except (ValueError, OSError):  # not the main thread
+        pass
+    try:
+        server.wait_for_termination()
+    except KeyboardInterrupt:
+        server.stop(grace=1.0)
+    if watchdog is not None:
+        watchdog.stop()
+    if stop_status is not None:
+        stop_status()
+    _dump_trace(telemetry)
+    return 0
+
+
 def cmd_session(miner, args: argparse.Namespace) -> int:
     try:
         asyncio.run(run_session(miner, args))
@@ -671,6 +843,8 @@ def main(argv: Optional[list] = None) -> int:
     )
     if args.bench:
         return cmd_bench(args)
+    if args.serve_hasher:
+        return cmd_serve_hasher(args)
     if args.gbt:
         return cmd_session(make_gbt_miner(args), args)
     if args.getwork:

@@ -43,6 +43,7 @@ from ..backends.base import (
     STREAM_FLUSH,
     ScanRequest,
     ScanResult,
+    dispatch_granularity,
     iter_scan_stream,
 )
 from ..core.target import hash_to_int
@@ -337,6 +338,28 @@ class Dispatcher:
             return self.scheduler.next_count()
         return self.batch_size
 
+    def _refresh_stream_depth(self) -> int:
+        """The feeder window of one streaming session. It re-reads
+        ``hasher.stream_depth``, which a ``GrpcHasher`` grows when the
+        ScanStream handshake reveals a deeper served ring: a window sized
+        from the older value would deadlock against it. A deeper window
+        leaves more work outstanding, so the resume lag is re-derived
+        (grow-only: a shorter lag could skip space). The same handshake
+        carries the served dispatch grid, which the adaptive scheduler's
+        quantization follows."""
+        if self.scheduler is not None:
+            grid = dispatch_granularity(self.hasher)
+            if grid > 1 and grid != self.scheduler.granularity:
+                self.scheduler.set_granularity(grid)
+        depth = max(self.stream_depth,
+                    getattr(self.hasher, "stream_depth", 2))
+        if depth != self.stream_depth:
+            self.stream_depth = depth
+            lag = -(-(self._queue_depth + self.n_workers * (2 + depth))
+                    // self.n_workers)
+            self._resume_lag_strides = max(self._resume_lag_strides, lag)
+        return depth
+
     # ------------------------------------------------------------ main loop
     async def run(self, on_share: OnShare) -> None:
         """Run the producer and N workers until :meth:`stop`; they are
@@ -495,15 +518,18 @@ class Dispatcher:
     async def _stream_session(self, wid: int, on_share: OnShare) -> bool:
         """One life of a worker's streaming pipeline: a feeder coroutine
         slices queued items into requests, at most ``stream_depth + 1``
-        ahead of verification; a pump thread drives ``scan_stream`` over
-        them; the consumer verifies and submits results as they return.
-        Returns True when the pump died on a backend error."""
+        ahead of verification (the depth re-read per session, and widened
+        live for a backend that negotiates it); a pump thread drives
+        ``scan_stream`` over them; the consumer verifies and submits
+        results as they return. Returns True when the pump died on a
+        backend error."""
         loop = asyncio.get_running_loop()
         queue = self._queue
         assert queue is not None  # run() builds it before spawning us
         req_q: "thread_queue.SimpleQueue" = thread_queue.SimpleQueue()
         res_q: asyncio.Queue = asyncio.Queue()
-        slots = asyncio.Semaphore(self.stream_depth + 1)
+        session_depth = self._refresh_stream_depth()
+        slots = asyncio.Semaphore(session_depth + 1)
         # In-flight requests, so teardown can rebalance the busy clock.
         outstanding = [0]
         pump_error: List[BaseException] = []
@@ -573,7 +599,36 @@ class Dispatcher:
                         )
                     queue.task_done()
 
+        async def widen() -> None:
+            # The ring-depth handshake lands once the pump has opened the
+            # stream, after the semaphore was sized: against a deeper
+            # served ring the feeder would park with session_depth + 1
+            # requests out while the ring holds its first result until
+            # served_depth + 1 arrive. Poll for the whole session (with
+            # wait_for_ready the worker may connect minutes in), fast
+            # while the handshake is expected, then slowly, and widen
+            # the live semaphore when the depth grows.
+            seen = session_depth
+            interval, elapsed = 0.25, 0.0
+            while True:
+                await asyncio.sleep(interval)
+                elapsed += interval
+                if elapsed > 6.0:
+                    interval = 2.0
+                new = self._refresh_stream_depth()
+                if new > seen:
+                    for _ in range(new - seen):
+                        slots.release()
+                    seen = new
+
         feeder = asyncio.create_task(feed(), name=f"stream-feed-{wid}")
+        # Only a negotiating backend (GrpcHasher, a fleet of them) grows
+        # its depth after construction; for a local card the widener
+        # would poll for nothing.
+        widener = (
+            asyncio.create_task(widen(), name=f"stream-widen-{wid}")
+            if getattr(self.hasher, "negotiates_stream_depth", False)
+            else None)
         try:
             while not self._stopping:
                 sres = await res_q.get()
@@ -606,8 +661,12 @@ class Dispatcher:
                                      item.job.job_id)
         finally:
             feeder.cancel()
+            if widener is not None:
+                widener.cancel()
             req_q.put(None)  # stop the pump; it drains and exits
-            await asyncio.gather(feeder, return_exceptions=True)
+            await asyncio.gather(
+                *[t for t in (feeder, widener) if t is not None],
+                return_exceptions=True)
             for _ in range(outstanding[0]):
                 self.stats.scan_finished()
             # Wait for the pump to finish the dispatches its ring holds: a

@@ -119,6 +119,17 @@ class AdaptiveBatchScheduler(TelemetryBound):
                 tel.batch_nonces.set(count)
             return count
 
+    def set_granularity(self, granularity: int) -> None:
+        """Move the quantization grid after construction: a ``GrpcHasher``
+        learns the served worker's dispatch size only from the ScanStream
+        handshake, after the scheduler was built, and a request below that
+        grid would compute the whole remote dispatch but count only its
+        own nonces."""
+        if granularity < 1:
+            raise ValueError("granularity must be >= 1")
+        with self._lock:
+            self.granularity = granularity
+
     def _rate_locked(self) -> Optional[float]:
         """Estimated nonces/s over the completion window; None until two
         completions exist."""

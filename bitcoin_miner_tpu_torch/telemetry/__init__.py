@@ -32,12 +32,15 @@ from .metrics import (  # noqa: F401
     MetricRegistry,
 )
 from .pipeline import (  # noqa: F401
+    FLEET_CHILD_LEVELS,
     GAP_BUCKETS,
     METRIC_BATCH_NONCES,
     METRIC_CHIP_DISPATCHES,
     METRIC_CHIP_INFLIGHT,
     METRIC_CONSTS_CACHE,
     METRIC_DISPATCH_GAP,
+    METRIC_FLEET_CHILD_STATE,
+    METRIC_FLEET_RECLAIMS,
     METRIC_HEALTH,
     METRIC_MESH_DEVICES,
     METRIC_MESH_REBUILDS,

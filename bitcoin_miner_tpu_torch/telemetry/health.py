@@ -19,12 +19,15 @@ component     signals
               reject-only ack windows
 ``shares``    ``share_efficiency`` below the drift bound once
               ``share_expected`` clears the confidence floor
+``fleet``     the fleet supervisor's ``fleet_child_state`` gauges: any
+              child degraded, probing or quarantined degrades it, all
+              children quarantined stall it (nothing left to hash with)
 ``chip:<n>``  a fan-out card's ``chip_inflight`` > 0 with its
               ``chip_dispatches`` still
 ============  =====================================================
 
-The reference's ``frontend``, ``frontend_shard``, ``pools``, ``fleet``,
-``slo`` and ``share_loss`` rules come with the modules that feed them:
+The reference's ``frontend``, ``frontend_shard``, ``pools``, ``slo`` and
+``share_loss`` rules come with the modules that feed them:
 their inputs are absent here, and an absent input is no component, as in
 the reference.
 
@@ -48,6 +51,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from .pipeline import FLEET_CHILD_LEVELS
 from .shareacct import DRIFT_DEGRADED_BELOW, MIN_EXPECTED_SHARES
 
 logger = logging.getLogger(__name__)
@@ -181,6 +185,9 @@ class HealthModel:
             "share_expected": getattr(tel.share_expected, "value", 0.0),
             "share_efficiency": getattr(
                 tel.share_efficiency, "value", 0.0
+            ),
+            "fleet_children": self._children_by_label(
+                tel.fleet_child_state
             ),
         }
 
@@ -317,6 +324,34 @@ class HealthModel:
                 )
             else:
                 report["shares"] = ComponentHealth("shares", OK)
+
+        # fleet: the supervisor's per-child gauges (absent or empty: no
+        # supervisor, no component). The supervisor reclaims and rejoins
+        # within a tick; this is the operator's view: any child off active
+        # costs capacity, and all quarantined leaves nothing to hash with.
+        fleet: Dict[str, float] = snap.get("fleet_children", {})
+        if fleet:
+            gone = sorted(
+                k for k, v in fleet.items()
+                if v >= FLEET_CHILD_LEVELS["quarantined"]
+            )
+            impaired = sorted(
+                k for k, v in fleet.items()
+                if v >= FLEET_CHILD_LEVELS["degraded"]
+            )
+            if len(gone) == len(fleet):
+                report["fleet"] = ComponentHealth(
+                    "fleet", STALLED,
+                    f"all {len(fleet)} fleet children quarantined",
+                )
+            elif impaired:
+                report["fleet"] = ComponentHealth(
+                    "fleet", DEGRADED,
+                    f"fleet children impaired: {', '.join(impaired)} "
+                    f"({len(fleet) - len(impaired)} active)",
+                )
+            else:
+                report["fleet"] = ComponentHealth("fleet", OK)
 
         # per fan-out card: a child ring holding requests without
         # completing any is a wedged card; the others keep mining.

@@ -5,7 +5,7 @@ LRU of per-share records keyed by the share's work identity
 (:func:`share_key`), each stamped with the trace id in force when it was
 born, holding its hops::
 
-    hit (job, generation, scheduler sizing) → submit (verdict, rtt)
+    hit (job, generation, scheduler sizing, fleet child) → submit (verdict, rtt)
 
 fed by the dispatcher's verify gate and the runners' ``_record_submit``,
 the one point every pool verdict passes. A record whose last hop is not
@@ -60,6 +60,7 @@ class ShareLifecycleLedger:
         capacity: int = 256,
         loss_deadline_s: float = 60.0,
         exemplars_per_metric: int = 8,
+        attribution_window: int = 128,
         clock: Callable[[], float] = time.monotonic,
     ) -> None:
         if capacity < 1:
@@ -79,6 +80,12 @@ class ShareLifecycleLedger:
         #: anchor without a per-share broadcast hop.
         self._jobs: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
         self._jobs_cap = 16
+        #: recent completed dispatches (nonce_start, count, child): the
+        #: fleet supervisor notes each completion, so a hit is attributed
+        #: to the child that scanned its range.
+        self._dispatches: Deque[Dict[str, Any]] = deque(
+            maxlen=attribution_window
+        )
         #: metric name → bounded deque of exemplar dicts.
         self._exemplars: Dict[str, Deque[Dict[str, Any]]] = {}
         self._exemplars_cap = exemplars_per_metric
@@ -99,19 +106,55 @@ class ShareLifecycleLedger:
             while len(self._jobs) > self._jobs_cap:
                 self._jobs.popitem(last=False)
 
+    def note_dispatch(
+        self, *, nonce_start: int, count: int, child: str, **fields: Any
+    ) -> None:
+        """One completed scan dispatch with the child that ran it: the
+        attribution :meth:`found` reads (the fleet supervisor)."""
+        with self._lock:
+            self._dispatches.append({
+                "nonce_start": nonce_start, "count": count,
+                "child": child, **fields,
+            })
+
+    def _attribution(
+        self, nonce: int, job_id: Optional[str] = None,
+    ) -> Optional[Dict[str, Any]]:
+        # The newest match wins: a reclaimed range is scanned again. Nonce
+        # spaces restart per job, so where both sides carry a job id they
+        # must agree, or a hit of the old job verified after a switch
+        # would name the child of the new job's same range; an entry
+        # without one (the blocking path) matches any. Under the lock:
+        # iterating the deque while a pump thread appends would raise.
+        with self._lock:
+            for entry in reversed(self._dispatches):
+                start = entry["nonce_start"]
+                if not (start <= nonce < start + entry["count"]):
+                    continue
+                entry_job = entry.get("job_id")
+                if (job_id is not None and entry_job is not None
+                        and entry_job != job_id):
+                    continue
+                return entry
+            return None
+
     def found(
         self, key: str, *, job_id: str, nonce: int,
         trace: Optional[str] = None, **fields: Any,
     ) -> None:
         """Open a record for a verified hit (the dispatcher's oracle
-        gate), with the job-broadcast anchor folded in. (The reference
-        also names the fleet child that scanned the nonce; that comes
-        with the fleet supervisor.)"""
+        gate), with the job-broadcast anchor folded in and, where a fleet
+        supervisor noted the covering dispatch, the child that scanned the
+        nonce."""
         hop: Dict[str, Any] = {"job_id": job_id, **fields}
         with self._lock:
             job = self._jobs.get(job_id)
             if job is not None:
                 hop["job_age_s"] = round(self._clock() - job["t"], 6)
+        attribution = self._attribution(nonce, job_id=job_id)
+        if attribution is not None:
+            hop["child"] = attribution["child"]
+            hop["dispatch_nonces"] = attribution["count"]
         self.hop(key, "hit", trace=trace, **hop)
 
     def hop(
@@ -226,6 +269,9 @@ class NullShareLifecycleLedger(ShareLifecycleLedger):
         super().__init__(capacity=1)
 
     def note_job(self, job_id: str, **fields: Any) -> None:
+        pass
+
+    def note_dispatch(self, **fields: Any) -> None:  # type: ignore[override]
         pass
 
     def found(self, key: str, **fields: Any) -> None:  # type: ignore[override]

@@ -4,10 +4,10 @@ Counterpart of ``bitcoin_miner_tpu/telemetry/pipeline.py``: the same
 metric names, help strings, label sets and buckets, which dashboards and
 the reference's surfaces read. Only the families that this package emits
 (the dispatcher, the dispatch ring, the scheduler, the runners, the
-fan-out and the mesh-native ring, the health model and the share
-accountant) and those of the gRPC seam are registered; the pool
-frontend's, the multi-pool fabric's, the fleet's, the SLO engine's and
-the time-series store's come with their modules.
+fan-out and the mesh-native ring, the fleet supervisor, the health model
+and the share accountant) and those of the gRPC seam are registered; the
+pool frontend's, the multi-pool fabric's, the SLO engine's and the
+time-series store's come with their modules.
 
 ``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
 :class:`Tracer`, a :class:`FlightRecorder` and a
@@ -84,6 +84,27 @@ METRIC_MESH_DEVICES = "tpu_miner_mesh_devices"
 #: restore.
 METRIC_MESH_REBUILDS = "tpu_miner_mesh_rebuilds"
 
+#: Per-child state of the fleet supervisor's health machine
+#: (``parallel/supervisor.py``), labeled child=<label>, valued by
+#: :data:`FLEET_CHILD_LEVELS` (active 0 … quarantined 3). The health
+#: model's ``fleet`` component reads the children: any child off active
+#: degrades it, all quarantined stalls it.
+METRIC_FLEET_CHILD_STATE = "tpu_miner_fleet_child_state"
+#: In-flight requests reclaimed from a failed or hung child and sent whole
+#: to a survivor in the same generation, labeled
+#: reason=error|hang|probe_failed.
+METRIC_FLEET_RECLAIMS = "tpu_miner_fleet_reclaims"
+
+#: A child's state → the ``fleet_child_state`` gauge value: one definition
+#: for the supervisor, which sets the gauge, and the health model, which
+#: classifies from it.
+FLEET_CHILD_LEVELS = {
+    "active": 0.0,
+    "degraded": 1.0,
+    "probing": 2.0,
+    "quarantined": 3.0,
+}
+
 #: Gaps run from ~10 µs (a full ring) to seconds (a slow pool): the
 #: default latency ladder covers that span.
 GAP_BUCKETS: Tuple[float, ...] = DEFAULT_LATENCY_BUCKETS
@@ -94,8 +115,8 @@ BUNDLE_METRICS = (
     "ring_occupancy", "stream_window", "consts_cache", "stale_drops",
     "batch_nonces", "sched_resizes", "pool_acks", "submits_inflight",
     "rpc_responses", "rpc_errors", "chip_dispatches", "chip_inflight",
-    "mesh_devices", "mesh_rebuilds", "health", "share_efficiency",
-    "share_expected", "share_lost",
+    "mesh_devices", "mesh_rebuilds", "fleet_child_state", "fleet_reclaims",
+    "health", "share_efficiency", "share_expected", "share_lost",
 )
 
 
@@ -233,6 +254,18 @@ class PipelineTelemetry:
             METRIC_MESH_REBUILDS,
             "Mesh-native topology transitions (quarantine degradation, "
             "mesh rebuild, device restore)",
+            labelnames=("reason",),
+        )
+        self.fleet_child_state = r.gauge(
+            METRIC_FLEET_CHILD_STATE,
+            "Fleet-supervisor child FSM state "
+            "(0 active, 1 degraded, 2 probing, 3 quarantined)",
+            labelnames=("child",),
+        )
+        self.fleet_reclaims = r.counter(
+            METRIC_FLEET_RECLAIMS,
+            "In-flight requests reclaimed from a failed child and "
+            "re-dispatched to a survivor",
             labelnames=("reason",),
         )
         self.health = r.gauge(

@@ -205,6 +205,23 @@ class Tracer:
         with self._lock:
             events = list(self._events)
             dropped = self.dropped_events
+        return self._envelope(events, dropped)
+
+    def drain(self) -> dict:
+        """:meth:`trace_dict` with an atomic take-and-reset of the buffer:
+        what ``CollectTrace`` serves. A long-lived served worker keeps
+        recording into its bounded buffer, and each collect hands over the
+        spans so far and frees the bound for the next window: no event is
+        lost between the copy and the reset, and none is served twice."""
+        with self._lock:
+            events = self._events
+            self._events = []
+            self._seen_tids.clear()
+            dropped = self.dropped_events
+            self.dropped_events = 0
+        return self._envelope(events, dropped)
+
+    def _envelope(self, events: List[dict], dropped: int) -> dict:
         other = {
             "trace_id": self.trace_id,
             "epoch_unix_s": self._epoch_unix_s,

@@ -136,6 +136,7 @@ import asyncio
 import contextlib
 import ctypes
 import functools
+import importlib.util
 import io
 import json
 import os
@@ -160,6 +161,12 @@ SMEM_BYTES_PER_CLOCK = 128  # shared memory per SM and clock: 32 banks x 4 B
 #: The compile forms driven: (unroll, spec); below 64 spec does not apply.
 FORMS = ((8, True), (16, True), (32, True), (64, False))
 SHARDS_ON_ONE_CARD = 4
+#: fleet_sweep_reclaim: children on the one card, nonces per dispatch (the
+#: CLI's default) and nonces swept (64 requests: room for a death, a probe
+#: and a rejoin).
+FLEET_CHILDREN = 3
+FLEET_DISPATCH = DISPATCH
+FLEET_SWEEP = 1 << 30
 PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
 #: Kernels folded into the scans' last blocks: none may be built or counted.
 REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
@@ -393,11 +400,18 @@ class Smoke:
 
     def read_counts(self) -> dict:
         """Every kernel's launches since :meth:`reset_counts`, added to the
-        main path's. No counter of a removed kernel may exist."""
+        main path's."""
         self.note_launches()
-        counts = {c.name: c.value for c in self.pkg.csrc.counters()}
+        return self.add_counts(
+            {c.name: c.value for c in self.pkg.csrc.counters()})
+
+    def add_counts(self, counts: dict) -> dict:
+        """Add ``counts`` (kernel → launches: this process's, or a served
+        worker's from :meth:`Worker.launch_counts`) to the main path's. No
+        counter of a removed kernel may exist."""
         gone = [name for name in counts if name.startswith(REMOVED_KERNELS)]
         assert not gone, f"counters of removed kernels: {gone}"
+        self.seen.update(name for name, n in counts.items() if n)
         for name, n in counts.items():
             self.launches[name] = self.launches.get(name, 0) + n
         return counts
@@ -839,6 +853,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         # One launch per dispatch, and nothing after it.
         assert launched(counts) == {"scan_hitbuf": (1 << 26) // DISPATCH}, (
             counts)
+        s.sweep_mhs["cuda_backend_window"] = out["mhs"]
         return {"backend": "cuda", "mhs": out["mhs"],
                 "dispatches": out["dispatches"], "hits": out["nonces"],
                 "launches": launched(counts)}
@@ -846,6 +861,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     def stratum_session():
         s.reset_counts()
         result = asyncio.run(asyncio.wait_for(stratum(pkg), 300))
+        s.sweep_mhs["stratum_session"] = result["mhs"]
         counts = s.read_counts()
         assert counts["scan_tile"] > 0, "scan_tile never launched"
         assert not any(n for name, n in counts.items() if "_k" in name), (
@@ -1026,6 +1042,153 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "scan_tile_exact_ms": ms,
                 "idle_share_launches": 1 - busy / result["window_seconds"],
                 "launches": launched(counts)}
+
+    def fleet_sweep_reclaim():
+        """``cuda-fleet`` (``make_cuda_fleet``) over the one card named
+        :data:`FLEET_CHILDREN` times, hit-buffer children of 2^24-nonce
+        dispatches, sweeps 2^30 nonces around the genesis nonce. Child 1
+        is wrapped in ``ChaosHasher`` and dies after its first scan; once
+        it is quarantined it is revived, and the request source waits out
+        its cooldown (that pause is left out of the rate), so the next
+        assignment probes it back in. Every range must come back once,
+        the hashes must equal the range, the genesis nonce must be found
+        once, and the child must walk quarantined → probing → degraded.
+        The card's idle share is estimated as the stratum sessions' is:
+        the launches × one child's scan time, measured here, against the
+        sweep's time less the probe pause."""
+        fleet = pkg.make_cuda_fleet(devices=[s.dev] * FLEET_CHILDREN,
+                                    batch_per_device=FLEET_DISPATCH,
+                                    quarantine_base_s=0.05,
+                                    quarantine_cap_s=0.2)
+        chaos = pkg.ChaosHasher(fleet.children[1],
+                                label=fleet.chip_labels[1])
+        fleet.children[1] = chaos
+        chaos.die_after_scans = 1
+        st = fleet.states[1]
+        start = GENESIS_NONCE - FLEET_SWEEP // 2
+        n_requests = FLEET_SWEEP // FLEET_DISPATCH
+        paused = [0.0]
+        revived = []
+
+        def requests():
+            for i in range(n_requests):
+                if not revived and st.state == "quarantined":
+                    chaos.revive()
+                    revived.append(chaos.scans_done)
+                    t = time.perf_counter()
+                    time.sleep(max(0.0, st.rejoin_at - time.monotonic()))
+                    paused[0] += time.perf_counter() - t
+                yield pkg.ScanRequest(
+                    header76=genesis76,
+                    nonce_start=start + i * FLEET_DISPATCH,
+                    count=FLEET_DISPATCH, target=diff1, tag=i)
+
+        s.reset_counts()
+        t0 = time.perf_counter()
+        out = list(fleet.scan_stream(requests()))
+        seconds = time.perf_counter() - t0
+        counts = s.read_counts()
+        assert [r.request.tag for r in out] == list(range(n_requests)), (
+            "results out of order")
+        hashes = sum(r.result.hashes_done for r in out)
+        assert hashes == FLEET_SWEEP, hashes
+        hits = sorted(n for r in out for n in r.result.nonces)
+        assert hits.count(GENESIS_NONCE) == 1, hits
+        for n in hits:
+            assert int.from_bytes(pkg.sha256d(
+                genesis76 + n.to_bytes(4, "little")), "little") <= diff1
+        trail = [e["state"] for e in fleet.telemetry.flightrec.snapshot()
+                 if e["kind"] == "fleet_child" and e["child"] == st.label]
+        walk = ["quarantined", "probing", "degraded"]
+        assert [x for x in trail if x in walk][:3] == walk, trail
+        assert revived and chaos.scans_done > revived[0], (
+            "the revived child scanned nothing", trail)
+        assert fleet.reclaims > 0, fleet.snapshot()
+        assert set(launched(counts)) == {"scan_hitbuf"}, counts
+        mined = seconds - paused[0]
+        mhs = hashes / mined / 1e6
+        child = fleet.children[0]
+        parts = s.hitbuf_parts(s.job(genesis76, diff1, start,
+                                     FLEET_DISPATCH))
+        ms = s.time_ms(lambda: pkg.scan_batch(
+            *parts, word7=True, inner_size=child.inner_size,
+            n_steps=FLEET_DISPATCH // child.inner_size,
+            max_hits=child.max_hits), 20)
+        return {"children": FLEET_CHILDREN, "dispatch": FLEET_DISPATCH,
+                "nonces": FLEET_SWEEP, "hashes": hashes, "hits": hits,
+                "reclaims": fleet.reclaims, "child_trail": trail,
+                "child_scans_after_revive": chaos.scans_done - revived[0],
+                "fleet": fleet.snapshot(), "sweep_seconds": seconds,
+                "probe_pause_seconds": paused[0], "mhs": mhs,
+                "mhs_vs_genesis_sweep": mhs / s.sweep_mhs[1],
+                "mhs_vs_cuda_backend_window":
+                    mhs / s.sweep_mhs["cuda_backend_window"],
+                "scan_hitbuf_ms": ms,
+                "idle_share_launches":
+                    1 - counts["scan_hitbuf"] * ms / 1e3 / mined,
+                "launches": launched(counts)}
+
+    def served_hasher_session():
+        """:func:`served_stratum` on a worker serving the default
+        ``cuda-tile`` backend (``--status-port``): the shares, the
+        negotiated ring depth and dispatch grid against the served
+        hasher's, the merged trace, and the rate against
+        ``stratum_session``'s."""
+        service = pkg.hasher_service()
+        status_port = free_port()
+        worker = Worker("--status-port", str(status_port),
+                        "--health-interval", "1")
+        try:
+            worker.wait_ready()
+            handshake = worker.handshake(service)
+            s.reset_counts()
+            result = asyncio.run(asyncio.wait_for(
+                served_stratum(pkg, worker, status_port), 300))
+            local = s.read_counts()
+        finally:
+            rc = worker.stop()
+        assert rc == 0, (rc, worker.log_tail())
+        counts = s.add_counts(worker.launch_counts())
+        assert not launched(local), f"the client launched {local}"
+        assert counts.get("scan_tile", 0) > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        served = {"ring_depth": pkg.TileCudaHasher.stream_depth,
+                  "dispatch_size": DISPATCH}
+        assert handshake == served, (handshake, served)
+        assert result["client_dispatch_size"] == DISPATCH, result
+        assert result["scheduler_granularity"] == DISPATCH, result
+        assert result["client_stream_window"] > handshake["ring_depth"]
+        assert result["feeder_depth"] >= handshake["ring_depth"], result
+        return {**result, "handshake": handshake, "worker_exit": rc,
+                "worker_launches": launched(counts),
+                "mhs_vs_stratum_session":
+                    result["mhs"] / s.sweep_mhs["stratum_session"]}
+
+    def grpc_fleet_session():
+        """:func:`fleet_stratum` over two served workers on the card; the
+        survivor is stopped with SIGTERM after it and must exit 0, having
+        launched the tile kernel and no hit-buffer scan. The killed
+        worker's launches are lost with it."""
+        pkg.hasher_service()
+        workers = [Worker(), Worker()]
+        try:
+            for w in workers:
+                w.wait_ready()
+            s.reset_counts()
+            result = asyncio.run(asyncio.wait_for(
+                fleet_stratum(pkg, workers, free_port()), 300))
+            local = s.read_counts()
+        finally:
+            rcs = [w.stop() for w in workers]
+        assert rcs[0] == 0, (rcs, workers[0].log_tail())
+        counts = s.add_counts(workers[0].launch_counts())
+        assert not launched(local), f"the client launched {local}"
+        assert counts.get("scan_tile", 0) > 0, counts
+        no_hitbuf_pair(counts)
+        return {**result, "workers": [w.target for w in workers],
+                "worker_exits": rcs,
+                "survivor_launches": launched(counts)}
 
     def telemetry_overhead():
         """The K=1 genesis sweep through ``cli.bench`` with telemetry off
@@ -1758,6 +1921,14 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("stratum_session_telemetry", stratum_session_telemetry)
     s.phase("genesis_sweep_batch3x", genesis_sweep_batch3x)
     s.phase("telemetry_overhead", telemetry_overhead)
+    s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
+    for name, fn in (("served_hasher_session", served_hasher_session),
+                     ("grpc_fleet_session", grpc_fleet_session)):
+        if importlib.util.find_spec("grpc") is None:
+            emit({"phase": name, "ran": False,
+                  "why": "grpcio is not installed"})
+        else:
+            s.phase(name, fn)
     s.phase("lowest_vs_plain", lowest_vs_plain)
     s.phase("forms_vs_plain", forms_vs_plain)
     s.phase("genesis_sweep_forms", genesis_sweep_forms)
@@ -1845,16 +2016,7 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
     ``cli.make_miner`` builds the session; with one (a mesh over a device
     list the command line cannot name), the session is built as
     ``make_miner`` builds it, on that hasher."""
-    pool = pkg.MockStratumPool(difficulty=1 / 256, version_mask=pool_mask)
-    await pool.start()
-    await pool.announce_job(pkg.PoolJob(
-        job_id="smoke",
-        prevhash_internal=pkg.sha256d(b"chip smoke prev"),
-        coinb1=bytes.fromhex("01000000") + b"\x11" * 30,
-        coinb2=b"\x22" * 30 + bytes.fromhex("00000000"),
-        merkle_branch=[pkg.sha256d(b"tx1"), pkg.sha256d(b"tx2")],
-        version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C,
-    ))
+    pool = await smoke_pool(pkg, pool_mask)
     args = cli_args(pkg,
         ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
          "--workers", "4", "--vshare", str(vshare),
@@ -1933,6 +2095,243 @@ async def stratum(pkg, vshare: int = 1, pool_mask: int = 0,
             "mhs": (b[1] - a[1]) / window / 1e6,
             "mhs_finished_requests": (b[2] - a[2]) / window / 1e6,
             "window_shares_per_s": (b[3] - a[3]) / window}
+
+
+async def smoke_pool(pkg, pool_mask: int = 0):
+    """The package's validating mock pool at difficulty 1/256, granting
+    ``pool_mask``, with the smoke's job announced."""
+    pool = pkg.MockStratumPool(difficulty=1 / 256, version_mask=pool_mask)
+    await pool.start()
+    await pool.announce_job(pkg.PoolJob(
+        job_id="smoke",
+        prevhash_internal=pkg.sha256d(b"chip smoke prev"),
+        coinb1=bytes.fromhex("01000000") + b"\x11" * 30,
+        coinb2=b"\x22" * 30 + bytes.fromhex("00000000"),
+        merkle_branch=[pkg.sha256d(b"tx1"), pkg.sha256d(b"tx2")],
+        version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C,
+    ))
+    return pool
+
+
+class Worker:
+    """A served hasher worker, ``python -m bitcoin_miner_tpu_torch
+    --serve-hasher 127.0.0.1:PORT [options]``, in a process of its own on
+    the card, started through :func:`serve_worker` so that its kernel
+    launches are counted; its log, launch counts and flight-recorder dump
+    path in :func:`out_dir`."""
+
+    def __init__(self, *options: str) -> None:
+        self.port = free_port()
+        self.target = f"127.0.0.1:{self.port}"
+        self.log_path = os.path.join(out_dir(), f"worker-{self.port}.log")
+        self.counts_path = os.path.join(out_dir(),
+                                        f"worker-{self.port}-launches.json")
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-worker",
+                 self.counts_path,
+                 "--serve-hasher", self.target, "--flightrec-out",
+                 os.path.join(out_dir(), f"worker-{self.port}-fr.json"),
+                 *options],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log, stderr=subprocess.STDOUT)
+
+    def log_tail(self) -> str:
+        with open(self.log_path) as log:
+            return "".join(log.readlines()[-12:])
+
+    def wait_ready(self, seconds: float = 120.0) -> None:
+        """Until the worker accepts a connection (it binds once its hasher
+        is built on the card)."""
+        import grpc
+
+        deadline = time.perf_counter() + seconds
+        with grpc.insecure_channel(self.target) as channel:
+            ready = grpc.channel_ready_future(channel)
+            while True:
+                if self.proc.poll() is not None:
+                    raise RuntimeError(f"worker {self.target} exited "
+                                       f"{self.proc.returncode}: "
+                                       f"{self.log_tail()}")
+                try:
+                    ready.result(timeout=1.0)
+                    return
+                except grpc.FutureTimeoutError:
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError(f"worker {self.target} not ready")
+
+    def handshake(self, service) -> dict:
+        """The ring depth and dispatch grid the worker advertises in a
+        ScanStream's initial metadata (a stream that sends no request)."""
+        import grpc
+
+        with grpc.insecure_channel(self.target) as channel:
+            call = channel.stream_stream(f"/{service.SERVICE}/ScanStream")(
+                iter(()))
+            metadata = dict(call.initial_metadata())
+            call.cancel()
+        return {"ring_depth": int(metadata[service.RING_DEPTH_METADATA_KEY]),
+                "dispatch_size": int(
+                    metadata[service.DISPATCH_SIZE_METADATA_KEY])}
+
+    def launch_counts(self) -> dict:
+        """The worker's launches per kernel, written at its clean stop."""
+        with open(self.counts_path) as f:
+            return json.load(f)
+
+    def stop(self, sig=None) -> int:
+        """SIGTERM (its clean stop) or ``sig``; the exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM if sig is None else sig)
+        try:
+            return self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait(timeout=30)
+
+
+async def served_stratum(pkg, worker: Worker, status_port: int) -> dict:
+    """A Stratum session as ``--pool URL --workers 4 --backend grpc
+    --grpc-target WORKER --trace-out T`` builds it and ``cli.run_session``
+    runs it, against the mock pool at difficulty 1/256, on a served worker
+    (``--status-port status_port``). After 3 accepted shares it mines a
+    :data:`SESSION_WINDOW_S` window whose rate counts the worker's
+    collected dispatches (its ``scan_batch`` count, scraped from its
+    ``/metrics``) × 2^24. At the stop the trace file is written with the
+    worker's spans merged in (``CollectTrace``)."""
+    pool = await smoke_pool(pkg)
+    trace_path = os.path.join(out_dir(), "served_session_trace.json")
+    args = cli_args(pkg,
+        ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
+         "--workers", "4", "--backend", "grpc", "--grpc-target",
+         worker.target, "--trace-out", trace_path])
+    pkg.pipeline.set_telemetry(None)  # a fresh bundle: this session's spans
+    miner = pkg.cli.make_miner(args)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert hasher.name == "grpc" and dispatcher.scheduler is not None
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+
+    async def mark() -> tuple:
+        code, body = await http_get(status_port, "/metrics")
+        assert code == 200, body[:200]
+        batches = prom_samples(body.decode())[
+            ("tpu_miner_scan_batch_seconds_count", ())]
+        return time.perf_counter(), batches, stats.hashes
+
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+        a = await mark()
+        await asyncio.sleep(SESSION_WINDOW_S)
+        b = await mark()
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    client_id = dispatcher.telemetry.tracer.trace_id
+    spans: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") in ("X", "i"):
+            assert e["args"]["trace"] == client_id, e
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    assert spans.get("serve_scan") and spans.get("device_dispatch"), spans
+    window = b[0] - a[0]
+    return {"accepted": stats.shares_accepted,
+            "pool_validated": sum(sh.accepted for sh in pool.shares),
+            "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
+            "warmup_seconds": a[0] - t0, "window_seconds": window,
+            "window_dispatches": b[1] - a[1],
+            "mhs": (b[1] - a[1]) * DISPATCH / window / 1e6,
+            "mhs_finished_requests": (b[2] - a[2]) / window / 1e6,
+            "client_stream_depth": hasher.stream_depth,
+            "client_stream_window": hasher.stream_window,
+            "client_dispatch_size": getattr(hasher, "dispatch_size", None),
+            "scheduler_granularity": dispatcher.scheduler.granularity,
+            "feeder_depth": dispatcher.stream_depth,
+            "trace_id": client_id, "trace_spans": spans,
+            "merged": trace["otherData"].get("merged")}
+
+
+async def fleet_stratum(pkg, workers: list, status_port: int) -> dict:
+    """A Stratum session as ``--pool URL --workers 4 --worker A --worker B
+    --status-port P --health-interval 1`` builds it and
+    ``cli.run_session`` runs it, against the mock pool at difficulty
+    1/256. After 3 accepted shares worker B is killed (SIGKILL): its
+    requests are reclaimed by A once B has been unreachable for the
+    fleet's 10 s, and the session mines 3 more shares on A alone. Then
+    ``/healthz`` must read the ``fleet`` component degraded, with the
+    status 200 (no component stalled)."""
+    import signal
+
+    pool = await smoke_pool(pkg)
+    args = cli_args(pkg,
+        ["--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
+         "--workers", "4", "--status-port", str(status_port),
+         "--health-interval", "1",
+         *(opt for w in workers for opt in ("--worker", w.target))])
+    pkg.pipeline.set_telemetry(None)
+    miner = pkg.cli.make_miner(args)
+    dispatcher = miner.dispatcher
+    fleet = dispatcher.hasher
+    assert fleet.name == "grpc-fleet" and fleet.n_children == len(workers)
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+    survivor, dead = fleet.states
+    health = code = None
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+        before = (stats.shares_accepted, stats.batches)
+        t_kill = time.perf_counter()
+        workers[1].stop(signal.SIGKILL)
+        await until(task, lambda: dead.state == "quarantined"
+                    and fleet.reclaims > 0, "the dead worker's reclaim",
+                    stats.summary, 60)
+        t_reclaim = time.perf_counter()
+        await until(task, lambda: stats.shares_accepted >= before[0] + 3,
+                    "3 shares after the kill", stats.summary, 120)
+        deadline = time.perf_counter() + 60
+        while True:
+            code, body = await http_get(status_port, "/healthz")
+            health = json.loads(body)
+            fleet_health = health["components"].get("fleet", {})
+            if code == 200 and fleet_health.get("state") == "degraded":
+                break
+            assert time.perf_counter() < deadline, (code, health)
+            await asyncio.sleep(0.5)
+        after = (stats.shares_accepted, stats.batches)
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    # The survivor's stream never broke: it was never quarantined, and
+    # nothing it held was reclaimed.
+    assert survivor.quarantines == 0 and survivor.reclaimed_from == 0, (
+        fleet.snapshot())
+    return {"accepted": stats.shares_accepted,
+            "pool_validated": sum(sh.accepted for sh in pool.shares),
+            "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
+            "accepted_after_kill": after[0] - before[0],
+            "batches_after_kill": after[1] - before[1],
+            "seconds_to_first_shares": t_kill - t0,
+            "seconds_kill_to_reclaim": t_reclaim - t_kill,
+            "reclaims": fleet.reclaims, "fleet": fleet.snapshot(),
+            "healthz_code": code, "healthz_fleet": health["components"]["fleet"],
+            "healthz_status": health["status"]}
 
 
 async def gbt(pkg) -> dict:
@@ -2355,7 +2754,10 @@ class _Package:
             difficulty_to_target,
             nbits_to_target,
         )
-        from bitcoin_miner_tpu_torch.backends.base import dispatch_granularity
+        from bitcoin_miner_tpu_torch.backends.base import (
+            ScanRequest,
+            dispatch_granularity,
+        )
         from bitcoin_miner_tpu_torch.miner.job import Job, StratumJobParams
         from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
         from bitcoin_miner_tpu_torch.miner.scheduler import scheduler_for
@@ -2368,6 +2770,10 @@ class _Package:
         from bitcoin_miner_tpu_torch.parallel import mesh
         from bitcoin_miner_tpu_torch.parallel.fanout import make_cuda_fanout
         from bitcoin_miner_tpu_torch.parallel.meshring import MeshCudaHasher
+        from bitcoin_miner_tpu_torch.parallel.supervisor import (
+            make_cuda_fleet,
+        )
+        from bitcoin_miner_tpu_torch.testing.chaos_hasher import ChaosHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
         from bitcoin_miner_tpu_torch.probes import sass
         from bitcoin_miner_tpu_torch.telemetry import pipeline
@@ -2422,6 +2828,31 @@ class _Package:
         self.int_probe, self.probe_cli, self.sass = int_probe, probe_cli, sass
         self.pipe_bound_ms = sha256_torch.pipe_bound_ms
         self.pipeline = pipeline
+        self.ScanRequest = ScanRequest
+        self.make_cuda_fleet, self.ChaosHasher = make_cuda_fleet, ChaosHasher
+
+    @staticmethod
+    def hasher_service():
+        """``rpc.hasher_service``, which needs grpcio: imported only by
+        the phases that serve a worker."""
+        from bitcoin_miner_tpu_torch.rpc import hasher_service
+
+        return hasher_service
+
+
+def serve_worker(pkg, counts_path: str, argv: list) -> int:
+    """``chip_smoke.py --serve-worker COUNTS ARGS``: the process that a
+    :class:`Worker` runs. It is ``python -m bitcoin_miner_tpu_torch ARGS``
+    (``cli.main``) with every launch counter at 0; once SIGTERM has stopped
+    the server, it writes the launches it made to COUNTS as one JSON
+    object. A served worker's kernels launch in its own process, where the
+    smoke's counters do not see them."""
+    for c in pkg.csrc.counters():
+        c.reset()
+    rc = pkg.cli.main(argv)
+    with open(counts_path, "w") as f:
+        json.dump({c.name: c.value for c in pkg.csrc.counters()}, f)
+    return rc
 
 
 def main() -> int:
@@ -2440,6 +2871,8 @@ def main() -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--serve-worker"]:
+        return serve_worker(pkg, sys.argv[2], sys.argv[3:])
     return run(torch, pkg, mesh_only="--mesh-only" in sys.argv[1:])
 
 

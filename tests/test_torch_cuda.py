@@ -519,3 +519,57 @@ def test_lowest_ticket_words_are_reused(cuda):
     for i in (0, 1):
         for j, g in enumerate(got[i]):
             assert _equal(g, want[j % len(cases)])
+
+
+def test_cuda_fleet_sweep_with_a_killed_child_matches_plain(cuda):
+    """``cuda-fleet`` over the card named three times, child 1 (wrapped in
+    ``ChaosHasher``) dying after its first scan: its requests are
+    reclaimed, and every request's result equals the plain hit-buffer
+    hasher's over the same range."""
+    from bitcoin_miner_tpu_torch.backends.base import ScanRequest
+    from bitcoin_miner_tpu_torch.parallel.supervisor import make_cuda_fleet
+    from bitcoin_miner_tpu_torch.testing.chaos_hasher import ChaosHasher
+
+    n = 1 << 16
+    fleet = make_cuda_fleet(devices=[cuda] * 3, batch_per_device=n,
+                            inner_size=n, quarantine_base_s=0.05,
+                            quarantine_cap_s=0.2)
+    fleet.children[1] = ChaosHasher(fleet.children[1], label="1")
+    fleet.children[1].die_after_scans = 1
+    reqs = [ScanRequest(header76=bytes(76), nonce_start=5 + i * n, count=n,
+                        target=EASY, tag=i) for i in range(16)]
+    out = list(fleet.scan_stream(iter(reqs)))
+    assert [r.request.tag for r in out] == list(range(16))
+    assert fleet.reclaims >= 1
+    plain = CudaHasher(batch_size=n, inner_size=n, device="cpu")
+    for r in out:
+        assert r.result == plain.scan(bytes(76), r.request.nonce_start, n,
+                                      EASY)
+
+
+def test_served_tile_hasher_matches_the_local_one(cuda):
+    """A ``TileCudaHasher`` on the card served over loopback gRPC gives
+    the local hasher's ``ScanResult``, unary and streamed."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        pytest.skip("grpcio is not installed")
+    from bitcoin_miner_tpu_torch.backends.base import ScanRequest
+    from bitcoin_miner_tpu_torch.rpc.hasher_service import GrpcHasher, serve
+
+    local = TileCudaHasher(batch_size=1 << 20, device="cuda")
+    server, port = serve(TileCudaHasher(batch_size=1 << 20, device="cuda"))
+    client = GrpcHasher(f"127.0.0.1:{port}")
+    try:
+        cases = [(GENESIS76, GENESIS_NONCE - 3_000_000, 1 << 22, DIFF1),
+                 (bytes(76), 5, (1 << 20) + 4096, EASY)]
+        for case in cases:
+            assert client.scan(*case) == local.scan(*case)
+        got = list(client.scan_stream(iter(
+            [ScanRequest(*case, tag=i) for i, case in enumerate(cases)])))
+        assert [r.request.tag for r in got] == [0, 1]
+        for r, case in zip(got, cases):
+            assert r.result == local.scan(*case)
+    finally:
+        client.close()
+        server.stop(grace=None)

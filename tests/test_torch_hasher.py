@@ -192,6 +192,8 @@ class TestConstruction:
             TileCudaHasher()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             get_hasher("cuda")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            get_hasher("cuda-fleet")
 
     def test_version_mask_keeps_every_bit_for_the_host(self, port):
         assert port.set_version_mask(0x1FFFE000) == 0
@@ -205,3 +207,59 @@ class TestConstruction:
         first = h._job_constants(_header(40), DIFF1)
         assert h._job_constants(_header(40), DIFF1) is first
         assert first.word7 and not h._job_constants(_header(40), EASY).word7
+
+
+class TestInnerBits:
+    """``--inner-bits``: the hit-buffer kernel's step, as the reference's
+    command line sets its XLA backends' (``inner = 1 << min(batch bits,
+    inner bits)``)."""
+
+    @staticmethod
+    def _args(*argv):
+        from bitcoin_miner_tpu_torch import cli
+
+        return cli, cli.build_parser().parse_args(
+            ["--bench", "--device", "cpu", "--batch-bits", "12", *argv])
+
+    @pytest.mark.parametrize("bits", [9, 11])
+    def test_scan_result_matches_the_reference_at_the_same_inner_size(
+            self, bits):
+        from bitcoin_miner_tpu.backends.tpu import TpuHasher
+
+        cli, args = self._args("--backend", "cuda", "--inner-bits", str(bits))
+        port = cli.make_hasher(args)
+        assert isinstance(port, CudaHasher) and port.inner_size == 1 << bits
+        ref = TpuHasher(batch_size=1 << 12, inner_size=1 << bits, unroll=8)
+        # ~2^-6 per nonce (capped: which hits are kept), then ~2^-10.
+        for target, capped in ((EASY, True),
+                               (difficulty_to_target(1 / (1 << 22)), False)):
+            got = port.scan(GENESIS76, 777, 3 * 4096 - 100, target)
+            want = ref.scan(GENESIS76, 777, 3 * 4096 - 100, target)
+            assert _fields(got) == _fields(want)
+            assert want.truncated is capped and want.nonces
+
+    def test_default_and_cap(self):
+        cli, args = self._args("--backend", "cuda")
+        assert cli.make_hasher(args).inner_size == 1 << 12  # capped
+        cli, args = self._args("--backend", "cuda", "--batch-bits", "20")
+        assert cli.make_hasher(args).inner_size == 1 << cli.DEFAULT_INNER_BITS
+        cli, args = self._args("--backend", "cuda-mesh", "--inner-bits", "10")
+        assert cli.make_hasher(args).inner_size == 1 << 10
+
+    @pytest.mark.parametrize("argv", [
+        ["--inner-bits", "10"],  # the default cuda-tile
+        ["--backend", "cuda-tile-mesh", "--inner-bits", "10"],
+        ["--backend", "cuda-fanout", "--fanout-kernel", "cuda-tile",
+         "--inner-bits", "10"],
+        ["--backend", "cpu", "--inner-bits", "10"],
+    ])
+    def test_refused_where_the_hit_buffer_kernel_does_not_run(self, argv):
+        cli, args = self._args(*argv)
+        with pytest.raises(SystemExit, match="--inner-bits 10 applies only "
+                                             "to the hit-buffer kernel"):
+            cli.make_hasher(args)
+
+    def test_negative_refused(self):
+        cli, args = self._args("--backend", "cuda", "--inner-bits", "-1")
+        with pytest.raises(SystemExit, match=">= 0"):
+            cli.make_hasher(args)

@@ -286,6 +286,29 @@ def test_tracer_events_match_reference(seed):
     validate_chrome_trace(port.trace_dict())
 
 
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_tracer_drain_matches_reference(seed):
+    """``drain`` (what ``CollectTrace`` serves): the buffer so far, its
+    dropped count, then an empty buffer whose next events start afresh
+    (thread metadata again), as the reference's does."""
+    drained = []
+    for module in (ref_tracing, port_tracing):
+        t = module.Tracer(enabled=True, max_events=30)
+        _trace_ops(t, seed)
+        first = t.drain()
+        empty = t.drain()
+        t.instant("after", cat="job")
+        second = t.drain()
+        drained.append([
+            (_shape(d["traceEvents"], t.trace_id),
+             {k: v for k, v in d["otherData"].items()
+              if k not in ("trace_id", "epoch_unix_s", "pid")})
+            for d in (first, empty, second)])
+        assert t.events() == [] and t.dropped_events == 0
+    assert drained[1] == drained[0]
+    assert drained[1][0][1]["dropped_events"] > 0
+
+
 def test_tracer_bound_and_disabled_match_reference():
     for module in (ref_tracing, port_tracing):
         t = module.Tracer(enabled=True, max_events=5)
