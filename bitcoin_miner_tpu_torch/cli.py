@@ -34,11 +34,21 @@ heights such as ``--sublanes 24`` divide.
 
 Telemetry (``telemetry/``): metrics are on unless
 ``TPU_MINER_TELEMETRY=0``; ``--status-port`` serves them with the health
-verdict, the span buffer, the flight recorder and the share lifecycles
+verdict, the span buffer, the flight recorder, the share lifecycles, the
+SLO report and range queries over the time-series store
 (``utils/status.py``); ``--trace-out PATH`` records spans and writes
-them at exit; ``--health-interval`` paces the health watchdog. The miner
-writes no other files than ``--checkpoint PATH`` (``--pool``, ``--gbt``),
-``--trace-out`` and, on a crash or SIGUSR2 only, ``--flightrec-out``.
+them at exit; ``--health-interval`` paces the health watchdog, which
+also ticks the SLO engine (``--slo-fast-window``, ``--slo-slow-window``,
+``--slo-objectives``), and the observatory's collector, which samples
+the registry into the store and scrapes ``--federate`` members and the
+``--worker HOST:PORT@STATUSPORT`` workers. The miner writes no other
+files than ``--checkpoint PATH`` (``--pool``, ``--gbt``), ``--trace-out``,
+on a crash or SIGUSR2 only ``--flightrec-out``, and on an SLO breach an
+incident bundle under ``--incident-dir``.
+
+Subcommands, given first: ``perf`` (the perf ledger, ``perf_cli.py``),
+``slo`` (the objective table, or a live ``/slo`` report) and ``top``
+(the dashboard over ``/query``).
 """
 
 from __future__ import annotations
@@ -69,10 +79,19 @@ from .miner.scheduler import (
     stream_sweep,
 )
 from .telemetry import (
+    DEFAULT_OBJECTIVES,
     HealthModel,
     HealthWatchdog,
+    IncidentCapture,
+    Observatory,
     PipelineTelemetry,
+    ScrapeFederator,
+    ScrapeTarget,
+    SloConfigError,
+    SloEngine,
+    TimeSeriesStore,
     get_telemetry,
+    load_objectives,
     set_telemetry,
 )
 
@@ -90,6 +109,12 @@ DEFAULT_INNER_BITS = 18
 
 #: seconds between health-watchdog evaluations when not given.
 DEFAULT_HEALTH_INTERVAL = 5.0
+
+#: the SLO engine's fast and slow burn windows (seconds) and the incident
+#: bundles' root when not given (the reference's defaults).
+DEFAULT_SLO_FAST_WINDOW = 60.0
+DEFAULT_SLO_SLOW_WINDOW = 300.0
+DEFAULT_INCIDENT_DIR = "tpu-miner-incidents"
 
 #: ``--backend`` choices, the default first.
 BACKENDS = ("cuda-tile", "cuda", "cuda-tile-mesh", "cuda-mesh",
@@ -125,16 +150,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grpc-target", default=None, metavar="HOST:PORT",
                    help="--backend grpc: the served worker")
     p.add_argument("--worker", action="append", default=None,
-                   metavar="HOST:PORT",
+                   metavar="HOST:PORT[@STATUSPORT]",
                    help="repeatable: a served worker (--serve-hasher); any "
                         "--worker mines on the supervised fleet of them "
                         "(parallel/supervisor.py): a worker unavailable "
                         "for 10 s is quarantined, its requests reclaimed "
                         "by the others with no nonce lost or duplicated, "
                         "and half-open probed back in. --backend stays at "
-                        "its default or grpc. The reference's @STATUSPORT "
-                        "suffix (the observatory's federation) is not "
-                        "ported")
+                        "its default or grpc. @STATUSPORT names the "
+                        "worker's --status-port: the observatory scrapes "
+                        "its /metrics into this process's /query under "
+                        "worker=HOST:PORT")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the cuda backends run: the card, or their "
                         "plain PyTorch versions on the CPU (one device)")
@@ -251,7 +277,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the metric registry as JSON, /healthz answers "
                         "200/503 from the health model, /trace serves the "
                         "span buffer, /flightrec the flight recorder, "
-                        "/lifecycle the share lifecycles")
+                        "/lifecycle the share lifecycles, /slo the SLO "
+                        "report, /query?name=&prefix=&window_s=&tier= "
+                        "(other parameters match labels) the time-series "
+                        "store")
     p.add_argument("--trace-out", metavar="PATH", default=None,
                    help="record the share pipeline (job notify, feeder "
                         "slices, device dispatches, ring collects, CPU "
@@ -268,11 +297,41 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--pool, --gbt, --getwork: seconds between "
                         "health-watchdog evaluations (the /healthz rule "
                         "engine; 0 runs no watchdog and /healthz "
-                        f"evaluates per request); default "
-                        f"{DEFAULT_HEALTH_INTERVAL:g}. The reference's "
-                        "--slo-*, --incident-dir and --federate flags "
-                        "(SLO engine, incident capture, federation) are "
-                        "not ported to this package yet")
+                        "evaluates per request); default "
+                        f"{DEFAULT_HEALTH_INTERVAL:g}. The watchdog also "
+                        "ticks the SLO engine and the lost-share sweep, "
+                        "and the observatory collects at the same pace "
+                        "(none at 0)")
+    p.add_argument("--slo-fast-window", type=float, default=None,
+                   metavar="SECONDS",
+                   help="the SLO engine's fast burn window, which the "
+                        "breach trigger reads (telemetry/slo.py); default "
+                        f"{DEFAULT_SLO_FAST_WINDOW:g}")
+    p.add_argument("--slo-slow-window", type=float, default=None,
+                   metavar="SECONDS",
+                   help="the SLO engine's slow (confirming) burn window, "
+                        ">= the fast one; default "
+                        f"{DEFAULT_SLO_SLOW_WINDOW:g}")
+    p.add_argument("--slo-objectives", metavar="FILE", default=None,
+                   help="objectives (tpu-miner-slo-objectives/1 JSON) in "
+                        "place of the built-in DEFAULT_OBJECTIVES, "
+                        "validated at start; `slo --objectives FILE` "
+                        "prints the same file's table")
+    p.add_argument("--incident-dir", metavar="DIR", default=None,
+                   help="root of the incident bundles an SLO breach "
+                        "captures (flight recorder, trace, metrics, "
+                        "telemetry, lifecycles, the SLO report and its "
+                        "history under one tpu-miner-incident/1 manifest "
+                        "keyed to a row of DIR/incident_ledger.jsonl); "
+                        "an empty string captures none; default "
+                        f"{DEFAULT_INCIDENT_DIR}")
+    p.add_argument("--federate", action="append", default=None,
+                   metavar="NAME=URL",
+                   help="repeatable: a /metrics endpoint the observatory "
+                        "scrapes into the time-series store under process "
+                        "label NAME (e.g. worker-1=http://127.0.0.1:18988/"
+                        "metrics); --worker HOST:PORT@STATUSPORT workers "
+                        "are found without it")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -490,10 +549,13 @@ def bench(args: argparse.Namespace) -> dict:
     after the sweep)."""
     _refuse_session_flags(args, "--bench", ())
     telemetry = setup_telemetry(args)
-    hasher = make_hasher(args)
-    out = run_bench(hasher, args.bench_nonces,
-                    scheduler=make_scheduler(args, hasher))
-    _dump_trace(telemetry, hasher)
+    try:
+        hasher = make_hasher(args)
+        out = run_bench(hasher, args.bench_nonces,
+                        scheduler=make_scheduler(args, hasher))
+        _dump_trace(telemetry, hasher)
+    finally:
+        telemetry.flightrec.disarm()
     return out
 
 
@@ -512,13 +574,17 @@ def cmd_bench(args: argparse.Namespace) -> int:
     return 0 if out["verified"] else 2
 
 
-def setup_telemetry(args: argparse.Namespace) -> PipelineTelemetry:
+def setup_telemetry(args: argparse.Namespace,
+                    arm: bool = True) -> PipelineTelemetry:
     """The process default telemetry bundle, tracing on with
     ``--trace-out`` (which also overrides ``TPU_MINER_TELEMETRY=0``: the
-    flag is the stronger signal), and the flight recorder armed to dump
-    to ``--flightrec-out`` on a crash or SIGUSR2. Runs before the hasher
-    and the dispatcher are built, since the dispatcher keeps the bundle
-    it finds."""
+    flag is the stronger signal), and with ``arm`` the flight recorder
+    armed to dump to ``--flightrec-out`` on a crash or SIGUSR2 until the
+    command that armed it ends. Runs before the hasher and the dispatcher
+    are built, since the dispatcher keeps the bundle it finds. A session's
+    builder passes ``arm=False``: :func:`run_session` arms the recorder
+    for as long as the session runs, so a miner that is built and never
+    run leaves no interpreter-global hook behind."""
     telemetry = get_telemetry()
     if args.trace_out:
         if not telemetry.enabled:
@@ -526,21 +592,92 @@ def setup_telemetry(args: argparse.Namespace) -> PipelineTelemetry:
                 PipelineTelemetry(trace_path=args.trace_out))
         else:
             telemetry.enable_tracing(args.trace_out)
-    if args.flightrec_out:
+    if arm and args.flightrec_out:
         telemetry.flightrec.arm(args.flightrec_out)
     return telemetry
 
 
+def _health_interval(args: argparse.Namespace) -> float:
+    return (DEFAULT_HEALTH_INTERVAL if args.health_interval is None
+            else args.health_interval)
+
+
 def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
-                stats) -> Tuple[HealthModel, Optional[HealthWatchdog]]:
-    """The health model over ``telemetry`` and ``stats``, and its watchdog
-    thread, started, every ``--health-interval`` seconds (none at 0)."""
-    interval = (DEFAULT_HEALTH_INTERVAL if args.health_interval is None
-                else args.health_interval)
-    model = HealthModel(telemetry, stats=stats)
+                stats) -> Tuple[HealthModel, Optional[HealthWatchdog],
+                                SloEngine]:
+    """The health model over ``telemetry`` and ``stats``, its watchdog
+    thread, started, every ``--health-interval`` seconds (none at 0), and
+    the SLO engine the watchdog ticks. The engine and the observatory
+    share one time-series store, sized as the reference sizes it: SLO
+    ticks land in distinct slots, both burn windows stay resolvable, and
+    a series goes stale after three collections. An SLO breach captures
+    an incident bundle under ``--incident-dir`` (none with "")."""
+    interval = _health_interval(args)
+    fast = (DEFAULT_SLO_FAST_WINDOW if args.slo_fast_window is None
+            else args.slo_fast_window)
+    slow = (DEFAULT_SLO_SLOW_WINDOW if args.slo_slow_window is None
+            else args.slo_slow_window)
+    objectives = DEFAULT_OBJECTIVES
+    if args.slo_objectives:
+        try:
+            objectives = load_objectives(args.slo_objectives)
+        except SloConfigError as e:
+            raise SystemExit(f"bad --slo-objectives file: {e}")
+    if fast <= 0 or slow < fast:
+        raise SystemExit("--slo-fast-window must be > 0 and "
+                         "--slo-slow-window >= it "
+                         f"(got {fast:g}/{slow:g})")
+    store = TimeSeriesStore(
+        interval_s=min(1.0, fast / 8.0),
+        retention_s=max(900.0, slow + fast),
+        stale_after_s=max(15.0, 3.0 * interval) if interval else 15.0,
+    )
+    slo = SloEngine(telemetry, objectives, fast_window_s=fast,
+                    slow_window_s=slow, store=store)
+    model = HealthModel(telemetry, stats=stats, slo=slo)
+    incident_dir = (DEFAULT_INCIDENT_DIR if args.incident_dir is None
+                    else args.incident_dir)
+    if incident_dir:
+        slo.on_breach = IncidentCapture(
+            telemetry, incident_dir, stats=stats, health=model, slo=slo,
+        ).on_breach
     watchdog = (HealthWatchdog(model, interval=interval).start()
                 if interval > 0 else None)
-    return model, watchdog
+    return model, watchdog, slo
+
+
+def make_observatory(args: argparse.Namespace,
+                     telemetry: PipelineTelemetry, slo: SloEngine,
+                     hasher: Optional[Hasher] = None
+                     ) -> Optional[Observatory]:
+    """The observatory's collector, started, over the SLO engine's store:
+    every ``--health-interval`` seconds it samples this process's
+    registry, scrapes the ``--federate`` members and, where ``hasher`` is
+    a fleet, each ``--worker HOST:PORT@STATUSPORT`` worker (labels
+    ``process=worker-HOST:PORT``, ``worker=HOST:PORT``), and evaluates the
+    recording rules. None at an interval of 0, which runs no thread. (The
+    reference also discovers pool-frontend shards; this package has no
+    frontend.)"""
+    interval = _health_interval(args)
+    if interval <= 0:
+        return None
+    federator = ScrapeFederator(slo.store, telemetry=telemetry)
+    for spec in args.federate or ():
+        name, sep, url = spec.partition("=")
+        if not sep or not name or not url:
+            raise SystemExit(
+                f"bad --federate {spec!r}: want NAME=URL "
+                "(e.g. worker-1=http://127.0.0.1:18988/metrics)")
+        federator.add_target(ScrapeTarget.make(name, url))
+    fleet_targets = getattr(hasher, "scrape_targets", None)
+    if callable(fleet_targets):
+        def workers(get=fleet_targets):
+            return [ScrapeTarget.make(f"worker-{label}", url,
+                                      {"worker": label})
+                    for label, url in get()]
+        federator.add_source(workers)
+    return Observatory(slo.store, telemetry, federator=federator,
+                       interval_s=interval).start()
 
 
 def _dump_trace(telemetry: PipelineTelemetry,
@@ -573,28 +710,41 @@ def _dump_trace(telemetry: PipelineTelemetry,
 
 async def run_session(miner, args: argparse.Namespace) -> None:
     """Run a session until it stops, with its reporter line, its health
-    watchdog, the ``--status-port`` server and SIGTERM stopping it as
-    Ctrl-C does; at the end the ``--trace-out`` file is written."""
+    watchdog (which ticks the SLO engine), the observatory's collector,
+    the ``--status-port`` server, the flight recorder armed to
+    ``--flightrec-out`` and SIGTERM stopping it as Ctrl-C does; at the end
+    the threads are stopped, the ``--trace-out`` file is written and the
+    flight recorder is disarmed."""
     dispatcher = miner.dispatcher
     telemetry, stats = dispatcher.telemetry, dispatcher.stats
     from .utils.reporting import StatsReporter
     from .utils.status import StatusServer
 
-    health, watchdog = make_health(args, telemetry, stats)
-    # The line shows health only while the watchdog keeps its report
-    # fresh; /healthz evaluates per request without one.
-    reporter = StatsReporter(
-        stats, args.report_interval, telemetry=telemetry,
-        health=health if watchdog is not None else None,
-        accounting=getattr(miner, "accounting", None))
-    report_task = asyncio.create_task(reporter.run())
+    health, watchdog, slo = make_health(args, telemetry, stats)
+    observatory = None
+    report_task = None
     status_server = None
     loop = asyncio.get_running_loop()
+    if args.flightrec_out:
+        telemetry.flightrec.arm(args.flightrec_out)
     try:
+        observatory = make_observatory(args, telemetry, slo,
+                                       hasher=dispatcher.hasher)
+        # The line shows health and the SLO summary only while the
+        # watchdog keeps them fresh; /healthz evaluates per request
+        # without one.
+        reporter = StatsReporter(
+            stats, args.report_interval, telemetry=telemetry,
+            health=health if watchdog is not None else None,
+            accounting=getattr(miner, "accounting", None),
+            slo=slo if watchdog is not None else None,
+            observatory=observatory)
+        report_task = asyncio.create_task(reporter.run())
         if args.status_port is not None:
             status_server = StatusServer(
                 stats, args.status_port, registry=telemetry.registry,
-                telemetry=telemetry, health=health)
+                telemetry=telemetry, health=health, slo=slo,
+                tsdb=slo.store)
             try:
                 await status_server.start()
             except (OSError, OverflowError, ValueError) as e:
@@ -613,15 +763,25 @@ async def run_session(miner, args: argparse.Namespace) -> None:
             loop.remove_signal_handler(signal.SIGTERM)
         except (NotImplementedError, RuntimeError, ValueError):
             pass
-        report_task.cancel()
-        await asyncio.gather(report_task, return_exceptions=True)
+        if report_task is not None:
+            report_task.cancel()
+            await asyncio.gather(report_task, return_exceptions=True)
         if status_server is not None:
             await status_server.stop()
+        if observatory is not None:
+            observatory.stop()
         if watchdog is not None:
             watchdog.stop()
         logger.info("stopped; final: %s", stats.summary())
         _dump_trace(telemetry, dispatcher.hasher)
+        telemetry.flightrec.disarm()
 
+
+#: The options every session mode takes: the status server, the health
+#: watchdog and the observatory.
+LIVE_FLAGS = ("status_port", "health_interval", "slo_fast_window",
+              "slo_slow_window", "slo_objectives", "incident_dir",
+              "federate")
 
 #: The session options, each with the modes that take it.
 SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
@@ -630,13 +790,8 @@ SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
                  ("suggest_difficulty", ("--pool",)),
                  ("tls_no_verify", ("--pool",)),
                  ("allow_redirect", ("--pool",)),
-                 ("status_port", ("--pool", "--gbt", "--getwork",
-                                  "--serve-hasher")),
-                 ("health_interval", ("--pool", "--gbt", "--getwork",
-                                      "--serve-hasher")))
-
-#: The options every session mode takes.
-LIVE_FLAGS = ("status_port", "health_interval")
+                 *((flag, ("--pool", "--gbt", "--getwork", "--serve-hasher"))
+                   for flag in LIVE_FLAGS))
 
 
 def _refuse_session_flags(args: argparse.Namespace, mode: str,
@@ -714,7 +869,7 @@ def make_miner(args: argparse.Namespace) -> "StratumMiner":
         raise SystemExit(str(e))
     if args.suggest_difficulty is not None and args.suggest_difficulty <= 0:
         raise SystemExit("--suggest-difficulty must be > 0")
-    setup_telemetry(args)
+    setup_telemetry(args, arm=False)
     hasher = make_hasher(args)
     (host, port), failover = endpoints[0], endpoints[1:]
     miner = StratumMiner(
@@ -741,7 +896,7 @@ def make_gbt_miner(args: argparse.Namespace) -> "GbtMiner":
     from .miner.runner import GbtMiner
 
     _refuse_session_flags(args, "--gbt", ("checkpoint", *LIVE_FLAGS))
-    setup_telemetry(args)
+    setup_telemetry(args, arm=False)
     hasher = make_hasher(args)
     miner = GbtMiner(
         args.gbt, args.user, args.password, hasher=hasher,
@@ -760,7 +915,7 @@ def make_getwork_miner(args: argparse.Namespace) -> "GetworkMiner":
     from .miner.runner import GetworkMiner
 
     _refuse_session_flags(args, "--getwork", ("ntime_roll", *LIVE_FLAGS))
-    setup_telemetry(args)
+    setup_telemetry(args, arm=False)
     hasher = make_hasher(args)
     return GetworkMiner(
         args.getwork, args.user, args.password, hasher=hasher,
@@ -778,10 +933,12 @@ def cmd_serve_hasher(args: argparse.Namespace) -> int:
     buffer that each ``CollectTrace`` drains), so a miner's ``--trace-out``
     takes them without a flag here; ``TPU_MINER_TELEMETRY=0`` still
     compiles them out. ``--status-port`` serves the worker's ``/healthz``,
-    ``/metrics``, ``/trace`` and ``/flightrec`` from its own thread (the
-    gRPC server is synchronous). The reference's served worker also runs
-    a local observatory (the SLO engine and its time series), which is not
-    ported: ``/healthz`` has no ``slo`` component."""
+    ``/metrics``, ``/trace``, ``/flightrec``, ``/slo`` and ``/query`` from
+    its own thread (the gRPC server is synchronous), with a local
+    observatory: a leaf whose ``/query`` serves the worker's own history
+    and whose ``/metrics`` a miner's federator scrapes when it names the
+    port as ``--worker HOST:PORT@STATUSPORT``. Its threads stop, and its
+    flight recorder is disarmed, with the server."""
     _refuse_session_flags(args, "--serve-hasher", LIVE_FLAGS)
     service = _hasher_service()
     telemetry = setup_telemetry(args)
@@ -791,37 +948,45 @@ def cmd_serve_hasher(args: argparse.Namespace) -> int:
         server.stop(grace=0)
         raise SystemExit(f"cannot serve --serve-hasher {args.serve_hasher}")
     logger.info("hasher service listening on %d (ctrl-c to stop)", port)
-    stop_status = watchdog = None
-    if args.status_port is not None:
-        from .miner.dispatcher import MinerStats
-        from .utils.status import StatusServer, serve_status_in_thread
+    stop_status = watchdog = observatory = None
+    try:
+        if args.status_port is not None:
+            from .miner.dispatcher import MinerStats
+            from .utils.status import StatusServer, serve_status_in_thread
 
-        stats = MinerStats(telemetry=telemetry)
-        health, watchdog = make_health(args, telemetry, stats)
-        status_server = StatusServer(
-            stats, args.status_port, registry=telemetry.registry,
-            telemetry=telemetry, health=health)
+            stats = MinerStats(telemetry=telemetry)
+            health, watchdog, slo = make_health(args, telemetry, stats)
+            observatory = make_observatory(args, telemetry, slo)
+            status_server = StatusServer(
+                stats, args.status_port, registry=telemetry.registry,
+                telemetry=telemetry, health=health, slo=slo,
+                tsdb=slo.store)
+            try:
+                stop_status = serve_status_in_thread(status_server)
+            except (OSError, OverflowError, ValueError) as e:
+                raise SystemExit(
+                    f"cannot serve --status-port {args.status_port}: {e}")
+            logger.info("status endpoint on http://127.0.0.1:%d/",
+                        status_server.port)
+        # SIGTERM stops the server as Ctrl-C does, and the trace is
+        # written.
         try:
-            stop_status = serve_status_in_thread(status_server)
-        except (OSError, OverflowError, ValueError) as e:
-            server.stop(grace=0)
-            raise SystemExit(
-                f"cannot serve --status-port {args.status_port}: {e}")
-        logger.info("status endpoint on http://127.0.0.1:%d/",
-                    status_server.port)
-    # SIGTERM stops the server as Ctrl-C does, and the trace is written.
-    try:
-        signal.signal(signal.SIGTERM, lambda *_: server.stop(grace=1.0))
-    except (ValueError, OSError):  # not the main thread
-        pass
-    try:
-        server.wait_for_termination()
-    except KeyboardInterrupt:
+            signal.signal(signal.SIGTERM, lambda *_: server.stop(grace=1.0))
+        except (ValueError, OSError):  # not the main thread
+            pass
+        try:
+            server.wait_for_termination()
+        except KeyboardInterrupt:
+            pass
+    finally:
         server.stop(grace=1.0)
-    if watchdog is not None:
-        watchdog.stop()
-    if stop_status is not None:
-        stop_status()
+        if observatory is not None:
+            observatory.stop()
+        if watchdog is not None:
+            watchdog.stop()
+        if stop_status is not None:
+            stop_status()
+        telemetry.flightrec.disarm()
     _dump_trace(telemetry)
     return 0
 
@@ -834,8 +999,24 @@ def cmd_session(miner, args: argparse.Namespace) -> int:
     return 0
 
 
+#: Subcommands, given as the first argument: each operates on evidence
+#: files or a status surface, not a backend, so no mining flag applies.
+SUBCOMMANDS = {
+    "perf": ("perf_cli", "main"),
+    "slo": ("telemetry.slo", "main"),
+    "top": ("telemetry.dashboard", "top_main"),
+}
+
+
 def main(argv: Optional[list] = None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in SUBCOMMANDS:
+        import importlib
+
+        module, func = SUBCOMMANDS[argv[0]]
+        return getattr(importlib.import_module(f".{module}", __package__),
+                       func)(argv[1:])
+    args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname).1s %(name)s: %(message)s",

@@ -19,6 +19,9 @@ A single-threaded event loop owns all bookkeeping:
 - the resume position of each job, one linear index over (ntime offset,
   version variant, extranonce2 stride), is kept in memory and, with a
   ``checkpoint``, on disk;
+- :meth:`Dispatcher.sweep` is the synchronous path (no event loop): one
+  range through the same ring, re-verified the same way (the perf proxy
+  battery's inner loop);
 - it reports into a telemetry bundle (``telemetry/pipeline.py``; the
   process default unless one is given): the busy clock's
   ``dispatch_gap``, stale drops, the ``job_notify``, ``feeder_slice``,
@@ -805,6 +808,67 @@ class Dispatcher:
                 if item.job.version_mask else None
             ),
         )
+
+    # ----------------------------------------------------- synchronous path
+    def sweep(
+        self,
+        job: Job,
+        extranonce2: bytes = b"",
+        nonce_start: int = 0,
+        nonce_count: int = NONCE_SPACE,
+        max_shares: Optional[int] = None,
+    ) -> List[Share]:
+        """Scan one range without an event loop, verify its hits and
+        return the shares (at most ``max_shares``). The range is sliced
+        into requests of the scheduler's size (else ``batch_size``) and
+        driven through the hasher's ``scan_stream``, so a ring stays full
+        across the sweep. A request is busy from the moment the ring pulls
+        it until its result returns, so overlapped dispatches keep one
+        busy interval; a sweep cut by ``max_shares`` closes the stream
+        (the ring gives back what it held) and the busy interval of every
+        dispatch still outstanding."""
+        job = _with_generation(job, self._generation)
+        header76 = job.header76(extranonce2)
+        shares: List[Share] = []
+        item_gen = self._generation
+        outstanding = [0]
+
+        def requests() -> Iterator[ScanRequest]:
+            off = 0
+            while off < nonce_count:
+                count = min(self._next_dispatch_count(), nonce_count - off)
+                self.stats.scan_started()
+                outstanding[0] += 1
+                yield ScanRequest(
+                    header76=header76, nonce_start=nonce_start + off,
+                    count=count, target=job.share_target)
+                off += count
+
+        stream = iter_scan_stream(self.hasher, requests())
+        try:
+            for sres in stream:
+                self.stats.scan_finished()
+                outstanding[0] -= 1
+                result = sres.result
+                self.stats.hashes += result.hashes_done
+                self.stats.batches += 1
+                if self.scheduler is not None:
+                    # nonces, not hashes_done (× vshare)
+                    self.scheduler.record_result(sres.request.count)
+                item = WorkItem(
+                    item_gen, job, extranonce2, header76,
+                    sres.request.nonce_start, sres.request.count,
+                    ntime=job.ntime)
+                # Every hit of the result is verified before a cut, so
+                # shares_found and hw_errors count the whole result.
+                shares.extend(self._shares_from_result(item, result))
+                if max_shares is not None and len(shares) >= max_shares:
+                    return shares[:max_shares]
+        finally:
+            stream.close()
+            for _ in range(outstanding[0]):
+                self.stats.scan_finished()
+        return shares
 
 
 def _with_generation(job: Job, generation: int) -> Job:

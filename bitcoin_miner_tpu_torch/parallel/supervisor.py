@@ -526,6 +526,22 @@ class FleetSupervisor(TelemetryBound, Hasher):
         for child in self.children:
             child.close()
 
+    def scrape_targets(self) -> List[Tuple[str, str]]:
+        """(child label, ``/metrics`` URL) of every child that declared
+        a status port (``--worker HOST:PORT@STATUSPORT``): the discovery
+        source the observatory's scrape federator polls. Local children
+        have no status port; their metrics are in this process's
+        registry already."""
+        out: List[Tuple[str, str]] = []
+        for i, child in enumerate(self.children):
+            port = getattr(child, "status_port", None)
+            if not port:
+                continue
+            label = self.chip_labels[i]
+            host = label.rsplit(":", 1)[0] or "127.0.0.1"
+            out.append((label, f"http://{host}:{port}/metrics"))
+        return out
+
     def snapshot(self) -> Dict[str, Any]:
         """Each child's state and counters (status, debugging)."""
         return {
@@ -829,9 +845,12 @@ def make_grpc_fleet(
     **kwargs: Any,
 ) -> FleetSupervisor:
     """A supervised fleet of served workers, one ``GrpcHasher`` per
-    ``--worker HOST:PORT``. Each child gets ``max_unavailable_s``, so a
-    worker unavailable past it is quarantined (and later probed) instead
-    of retried forever. The transport deadline is shorter than the hang
+    ``--worker HOST:PORT[@STATUSPORT]``; the suffix names the worker's
+    ``--status-port``, which :meth:`FleetSupervisor.scrape_targets` hands
+    the observatory's federator (the channel sees HOST:PORT only). Each
+    child gets ``max_unavailable_s``, so a worker unavailable past it is
+    quarantined (and later probed) instead of retried forever. The
+    transport deadline is shorter than the hang
     bound: a dead connection is cheap to detect, and each second holds
     back the dead child's requests, while a connected but wedged worker
     deserves patience."""
@@ -839,19 +858,22 @@ def make_grpc_fleet(
 
     if not targets:
         raise ValueError("make_grpc_fleet needs at least one target")
-    for target in targets:
-        if "@" in target:
-            # The reference's @STATUSPORT names the worker's status port
-            # for the observatory's federation, which is not ported.
+    parsed: List[Tuple[str, int]] = []
+    for spec in targets:
+        target, _, status = spec.partition("@")
+        try:
+            parsed.append((target, int(status) if status else 0))
+        except ValueError:
             raise ValueError(
-                f"--worker {target}: the @STATUSPORT suffix feeds the fleet "
-                "observatory's federation, which this package does not have "
-                "yet; give HOST:PORT")
+                f"bad --worker target {spec!r}: status port {status!r} is "
+                "not an integer (want HOST:PORT[@STATUSPORT])") from None
     children: List[Hasher] = []
-    for target in targets:
+    for target, status_port in parsed:
         child = GrpcHasher(target)
         child.max_unavailable_s = max_unavailable_s
         child.chip_label = target  # type: ignore[attr-defined]
+        if status_port:
+            child.status_port = status_port  # type: ignore[attr-defined]
         children.append(child)
     fleet = FleetSupervisor(children, stall_after_s=stall_after_s, **kwargs)
     fleet.name = "grpc-fleet"

@@ -14,7 +14,13 @@ names, label sets, buckets, span names and dump schemas:
 - :mod:`.pipeline`: the metric vocabulary and the :class:`PipelineTelemetry`
   bundle every layer reports into;
 - :mod:`.shareacct`: expected-vs-observed share accounting;
-- :mod:`.health`: the rule engine behind ``/healthz``.
+- :mod:`.health`: the rule engine behind ``/healthz``;
+- :mod:`.tsdb`: the embedded time-series store, the scrape federator and
+  the observatory's collector (``/query``);
+- :mod:`.slo`: the SLO engine (``/slo``) and breach-triggered incident
+  bundles;
+- :mod:`.perfledger`: the append-only perf ledger and its gates;
+- :mod:`.dashboard`: the ``top`` dashboard over ``/query``.
 """
 
 from .flightrec import FlightRecorder, NullFlightRecorder  # noqa: F401
@@ -39,9 +45,11 @@ from .pipeline import (  # noqa: F401
     METRIC_CHIP_INFLIGHT,
     METRIC_CONSTS_CACHE,
     METRIC_DISPATCH_GAP,
+    METRIC_FEDERATE_SCRAPES,
     METRIC_FLEET_CHILD_STATE,
     METRIC_FLEET_RECLAIMS,
     METRIC_HEALTH,
+    METRIC_INCIDENTS,
     METRIC_MESH_DEVICES,
     METRIC_MESH_REBUILDS,
     METRIC_POOL_ACKS,
@@ -54,10 +62,13 @@ from .pipeline import (  # noqa: F401
     METRIC_SHARE_EFFICIENCY,
     METRIC_SHARE_EXPECTED,
     METRIC_SHARE_LOST,
+    METRIC_SLO_BURN,
+    METRIC_SLO_SLOT_BURN,
     METRIC_STALE_DROPS,
     METRIC_STREAM_WINDOW,
     METRIC_SUBMIT_RTT,
     METRIC_SUBMITS_INFLIGHT,
+    METRIC_TSDB_SERIES,
     NullTelemetry,
     PipelineTelemetry,
     TelemetryBound,
@@ -66,4 +77,23 @@ from .pipeline import (  # noqa: F401
     telemetry_disabled_by_env,
 )
 from .shareacct import ShareAccountant  # noqa: F401
+from .slo import (  # noqa: F401
+    DEFAULT_OBJECTIVES,
+    IncidentCapture,
+    SloConfigError,
+    SloEngine,
+    SloObjective,
+    load_objectives,
+    parse_objectives,
+)
 from .tracing import Tracer, merge_traces  # noqa: F401
+from .tsdb import (  # noqa: F401
+    Observatory,
+    RecordingRule,
+    RegistrySampler,
+    ScrapeFederator,
+    ScrapeTarget,
+    TimeSeriesStore,
+    parse_exposition,
+    parse_query_payload,
+)

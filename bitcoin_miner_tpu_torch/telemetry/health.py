@@ -5,31 +5,38 @@ of the components this package has: a small rule engine over the metrics
 the pipeline already emits that classifies each component ``ok`` /
 ``degraded`` / ``stalled`` with a machine-readable reason:
 
-============  =====================================================
-component     signals
-============  =====================================================
-``device``    completed batches (``MinerStats.batches`` or the
-              ``scan_batch`` count) against work in flight (the busy
-              clock, ``ring_occupancy``); the recent ``dispatch_gap``
-              mean
-``ring``      ``ring_occupancy`` > 0 with ``ring_collect`` still
-``rpc``       ``stream_window`` > 0 with ``rpc_responses`` still;
-              ``rpc_errors`` growth
-``pool``      ``submits_inflight`` > 0 with ``pool_acks`` still;
-              reject-only ack windows
-``shares``    ``share_efficiency`` below the drift bound once
-              ``share_expected`` clears the confidence floor
-``fleet``     the fleet supervisor's ``fleet_child_state`` gauges: any
-              child degraded, probing or quarantined degrades it, all
-              children quarantined stall it (nothing left to hash with)
-``chip:<n>``  a fan-out card's ``chip_inflight`` > 0 with its
-              ``chip_dispatches`` still
-============  =====================================================
+==============  =====================================================
+component       signals
+==============  =====================================================
+``device``      completed batches (``MinerStats.batches`` or the
+                ``scan_batch`` count) against work in flight (the busy
+                clock, ``ring_occupancy``); the recent ``dispatch_gap``
+                mean
+``ring``        ``ring_occupancy`` > 0 with ``ring_collect`` still
+``rpc``         ``stream_window`` > 0 with ``rpc_responses`` still;
+                ``rpc_errors`` growth
+``pool``        ``submits_inflight`` > 0 with ``pool_acks`` still;
+                reject-only ack windows
+``shares``      ``share_efficiency`` below the drift bound once
+                ``share_expected`` clears the confidence floor
+``fleet``       the fleet supervisor's ``fleet_child_state`` gauges: any
+                child degraded, probing or quarantined degrades it, all
+                children quarantined stall it (nothing left to hash with)
+``slo``         the SLO engine's objective states (``telemetry/slo.py``):
+                any objective at fast burn or in breach degrades it;
+                burn never stalls (503 stays the stall rules')
+``share_loss``  the lost-share burst: the fast window's loss rate over
+                the slow window's base rate, from ``slo.share_lost`` in
+                the engine's store, which :meth:`HealthModel.sample`'s
+                loss sweep fills
+``chip:<n>``    a fan-out card's ``chip_inflight`` > 0 with its
+                ``chip_dispatches`` still
+==============  =====================================================
 
-The reference's ``frontend``, ``frontend_shard``, ``pools``, ``slo`` and
-``share_loss`` rules come with the modules that feed them:
-their inputs are absent here, and an absent input is no component, as in
-the reference.
+The reference's ``frontend``, ``frontend_shard`` and ``pools`` rules come
+with the modules that feed them: their inputs are absent here, and an
+absent input is no component, as in the reference. The ``slo`` and
+``share_loss`` components exist only with an SLO engine (``slo=``).
 
 The stall rules share one shape: work is pending but the component's
 progress counter stopped. A slow component keeps making progress (ok or
@@ -87,9 +94,15 @@ class HealthModel:
         stall_after_s: float = 10.0,
         degraded_gap_s: float = 2.0,
         clock: Callable[[], float] = time.monotonic,
+        slo: Optional[Any] = None,
     ) -> None:
         self._telemetry = telemetry
         self.stats = stats
+        #: optional SLO engine (``telemetry/slo.py``). The watchdog that
+        #: drives this model also ticks the engine: every live sample
+        #: evaluates the objectives, and their states ride the snapshot
+        #: into the ``slo`` rule.
+        self.slo = slo
         #: seconds a component may hold work without progress before it
         #: is stalled.
         self.stall_after_s = stall_after_s
@@ -100,6 +113,11 @@ class HealthModel:
         #: definition, beside the estimator.
         self.share_min_expected = MIN_EXPECTED_SHARES
         self.share_eff_low = DRIFT_DEGRADED_BELOW
+        #: the lost-share burst rule: a fast-window loss rate above this
+        #: multiple of the slow window's base rate degrades ...
+        self.loss_rate_multiple = 3.0
+        #: ... once the fast window lost at least this many shares.
+        self.loss_min_events = 3.0
         self._clock = clock
         self._lock = threading.Lock()
         #: per-signal (value, time of last change).
@@ -164,7 +182,36 @@ class HealthModel:
                     3,
                 ),
             )
+        slo_states = None
+        share_loss = None
+        if self.slo is not None:
+            try:
+                self.slo.evaluate()
+            except Exception:  # noqa: BLE001 — a burn-math bug must not
+                # blind the stall rules that share this watchdog
+                logger.exception("SLO evaluation failed")
+            slo_states = self.slo.states()
+            # The loss sweep above fed slo.share_lost into the engine's
+            # store: its reset-aware windowed increases, anchored to the
+            # latest evaluation tick, give the burst rule its rates.
+            store = self.slo.store
+            latest = store.latest("slo.tick")
+            if latest is not None:
+                tick_t = latest[0]
+                fast_s = self.slo.fast_window_s
+                slow_s = self.slo.slow_window_s
+                fast_inc, _ = store.windowed_increase(
+                    "slo.share_lost", None, tick_t - fast_s, tick_t)
+                slow_inc, _ = store.windowed_increase(
+                    "slo.share_lost", None, tick_t - slow_s, tick_t)
+                share_loss = {
+                    "fast_lost": fast_inc or 0.0,
+                    "fast_rate": (fast_inc or 0.0) / fast_s,
+                    "base_rate": (slow_inc or 0.0) / slow_s,
+                }
         return {
+            "slo": slo_states,
+            "share_loss": share_loss,
             "batches": (
                 stats.batches if stats is not None
                 else getattr(tel.scan_batch, "count", 0)
@@ -352,6 +399,52 @@ class HealthModel:
                 )
             else:
                 report["fleet"] = ComponentHealth("fleet", OK)
+
+        # slo: the objective states (absent or None: no engine, no
+        # component; all no_data: no evidence yet, no component). Burn
+        # degrades by design: the engine predicts budget exhaustion, it
+        # never proves a wedge, so 503 stays the stall rules'.
+        slo_states = snap.get("slo")
+        if slo_states:
+            evaluated = [
+                s for s in slo_states if s.get("state") != "no_data"
+            ]
+            burning = sorted(
+                s["name"] for s in slo_states
+                if s.get("state") in ("fast_burn", "breach")
+            )
+            if burning:
+                worst = max(
+                    (s.get("burn_fast") or 0.0) for s in slo_states
+                    if s["name"] in burning
+                )
+                report["slo"] = ComponentHealth(
+                    "slo", DEGRADED,
+                    f"error budget burning: {', '.join(burning)} "
+                    f"(fast burn up to {worst:.1f}x)",
+                )
+            elif evaluated:
+                report["slo"] = ComponentHealth("slo", OK)
+
+        # share_loss: the fast window's loss rate against the slow
+        # window's base rate. A steady trickle is what the shares rule
+        # prices in; several times the base rate is a submit path losing
+        # work now. Absent (no engine, no tick yet): no component.
+        loss: Dict[str, float] = snap.get("share_loss") or {}
+        if loss:
+            fast_lost = loss.get("fast_lost", 0.0)
+            fast_rate = loss.get("fast_rate", 0.0)
+            base_rate = loss.get("base_rate", 0.0)
+            if (fast_lost >= self.loss_min_events
+                    and fast_rate > self.loss_rate_multiple * base_rate):
+                report["share_loss"] = ComponentHealth(
+                    "share_loss", DEGRADED,
+                    f"{fast_lost:.0f} shares lost in the fast window "
+                    f"({fast_rate:.3g}/s vs {base_rate:.3g}/s base "
+                    f"rate)",
+                )
+            else:
+                report["share_loss"] = ComponentHealth("share_loss", OK)
 
         # per fan-out card: a child ring holding requests without
         # completing any is a wedged card; the others keep mining.

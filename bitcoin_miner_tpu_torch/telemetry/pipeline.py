@@ -4,10 +4,10 @@ Counterpart of ``bitcoin_miner_tpu/telemetry/pipeline.py``: the same
 metric names, help strings, label sets and buckets, which dashboards and
 the reference's surfaces read. Only the families that this package emits
 (the dispatcher, the dispatch ring, the scheduler, the runners, the
-fan-out and the mesh-native ring, the fleet supervisor, the health model
-and the share accountant) and those of the gRPC seam are registered; the
-pool frontend's, the multi-pool fabric's, the SLO engine's and the
-time-series store's come with their modules.
+fan-out and the mesh-native ring, the fleet supervisor, the health model,
+the share accountant, the SLO engine, the incident capture and the
+time-series store) and those of the gRPC seam are registered; the pool
+frontend's and the multi-pool fabric's come with their modules.
 
 ``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
 :class:`Tracer`, a :class:`FlightRecorder` and a
@@ -95,6 +95,26 @@ METRIC_FLEET_CHILD_STATE = "tpu_miner_fleet_child_state"
 #: reason=error|hang|probe_failed.
 METRIC_FLEET_RECLAIMS = "tpu_miner_fleet_reclaims"
 
+#: Fast-window error-budget burn per SLO objective (``telemetry/slo.py``),
+#: labeled objective=<name>: 1.0 burns exactly at the sustainable rate,
+#: the engine's breach_burn (the slow window confirming) is the incident
+#: trigger.
+METRIC_SLO_BURN = "tpu_miner_slo_burn"
+#: Per-pool-slot burn of slot-scoped objectives, labeled (objective,
+#: pool); only a multi-pool fabric has slots.
+METRIC_SLO_SLOT_BURN = "tpu_miner_slo_slot_burn"
+#: Incident bundles captured, labeled objective=<breaching objective or
+#: "manual">.
+METRIC_INCIDENTS = "tpu_miner_incidents"
+#: Labeled series held by the embedded time-series store
+#: (``telemetry/tsdb.py``): local samples and what the federator ingests.
+#: A plateau at the store's max_series bound means series are dropped.
+METRIC_TSDB_SERIES = "tpu_miner_tsdb_series"
+#: Federation scrapes of fleet members, labeled (target=<process label>,
+#: result=ok|error): an error streak is a dead member, whose series go
+#: stale.
+METRIC_FEDERATE_SCRAPES = "tpu_miner_federate_scrapes"
+
 #: A child's state → the ``fleet_child_state`` gauge value: one definition
 #: for the supervisor, which sets the gauge, and the health model, which
 #: classifies from it.
@@ -117,6 +137,8 @@ BUNDLE_METRICS = (
     "rpc_responses", "rpc_errors", "chip_dispatches", "chip_inflight",
     "mesh_devices", "mesh_rebuilds", "fleet_child_state", "fleet_reclaims",
     "health", "share_efficiency", "share_expected", "share_lost",
+    "slo_burn", "slo_slot_burn", "incidents", "tsdb_series",
+    "federate_scrapes",
 )
 
 
@@ -287,6 +309,31 @@ class PipelineTelemetry:
             METRIC_SHARE_LOST,
             "Shares whose lifecycle record never reached a terminal "
             "verdict within the loss deadline",
+        )
+        self.slo_burn = r.gauge(
+            METRIC_SLO_BURN,
+            "Fast-window error-budget burn rate per SLO objective",
+            labelnames=("objective",),
+        )
+        self.slo_slot_burn = r.gauge(
+            METRIC_SLO_SLOT_BURN,
+            "Per-pool-slot error-budget burn for slot-scoped SLO "
+            "objectives",
+            labelnames=("objective", "pool"),
+        )
+        self.incidents = r.counter(
+            METRIC_INCIDENTS,
+            "Incident bundles auto-captured on an SLO breach",
+            labelnames=("objective",),
+        )
+        self.tsdb_series = r.gauge(
+            METRIC_TSDB_SERIES,
+            "Labeled series held by the embedded time-series store",
+        )
+        self.federate_scrapes = r.counter(
+            METRIC_FEDERATE_SCRAPES,
+            "Federation scrape attempts against fleet members",
+            labelnames=("target", "result"),
         )
         #: the black box every layer's events land in: always recording,
         #: dumped on SIGUSR2, on a crash and at ``/flightrec``.

@@ -5,7 +5,9 @@ Counterpart of ``bitcoin_miner_tpu/utils/reporting.py``: a windowed MH/s
 the busy clock's device rate and the share counters; with a telemetry
 bundle the dispatch-gap p50/p95/p99 and submit-RTT p95 from the
 histograms ``/metrics`` exports; the share accountant's confident
-efficiency; and the health model's cached verdict.
+efficiency; the SLO engine's worst burning objective (``slo ok`` when
+none burns); the time-series store's ``tsdb N series``; and the health
+model's cached verdict.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ class StatsReporter:
     def __init__(
         self, stats: MinerStats, interval: float = 10.0,
         telemetry: Optional[Any] = None, health: Optional[Any] = None,
-        accounting: Optional[Any] = None,
+        accounting: Optional[Any] = None, slo: Optional[Any] = None,
+        observatory: Optional[Any] = None,
     ) -> None:
         self.stats = stats
         self.interval = interval
@@ -37,6 +40,12 @@ class StatsReporter:
         #: share accountant: ticking it keeps its gauges fresh through a
         #: shareless stretch; the line shows the ratio once confident.
         self.accounting = accounting
+        #: SLO engine: the line carries its cached summary, so a log shows
+        #: the budget burning before any health transition.
+        self.slo = slo
+        #: the observatory: its store's series count shows the collection
+        #: plane is alive, and how wide a fleet it sees.
+        self.observatory = observatory
         self._last_hashes = 0
         self._last_t = time.monotonic()
 
@@ -75,6 +84,12 @@ class StatsReporter:
             eff = self.accounting.tick()
             if eff is not None:
                 line += f" | share eff {eff:.2f}"
+        for source in (self.slo, self.observatory):
+            # Cached reads only: the watchdog and the observatory's thread
+            # are the ones that evaluate and collect.
+            fragment = source.summary() if source is not None else None
+            if fragment is not None:
+                line += f" | {fragment}"
         if self.health is not None:
             # The watchdog's cached report: the reporter never evaluates.
             line += f" | health {self.health.summary()}"

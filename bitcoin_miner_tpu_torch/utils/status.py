@@ -13,10 +13,15 @@ HTTP server with one request per connection ("Connection: close"):
 - ``/trace``: the span buffer as Chrome trace-event JSON;
 - ``/flightrec``: the flight recorder's dump;
 - ``/lifecycle``: the share-lifecycle ledger;
+- ``/slo``: the SLO engine's cached report (``tpu-miner-slo/1``);
+- ``/query``: a range query over the time-series store
+  (``tpu-miner-query/1``): ``name``, ``prefix``, ``window_s`` and ``tier``
+  select, every other parameter is a label to match; a bad parameter is
+  a 400 naming it;
 - any other path: :func:`stats_snapshot` as JSON.
 
-The reference's ``/slo`` and ``/query`` routes, its pool-fabric and shard
-payloads come with those modules. A request line or header over the
+The reference's pool-fabric and shard payloads come with those modules.
+A request line or header over the
 reader's 64 KiB limit gets no answer and an orderly close: the server
 half-closes, then reads and drops what the client sent (bounded in bytes
 and time) before closing, so the client reads an empty response, not a
@@ -29,7 +34,8 @@ import asyncio
 import json
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+import urllib.parse
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..miner.dispatcher import MinerStats
 
@@ -59,8 +65,12 @@ _HELP = {
 
 _REASONS = {
     200: b"OK",
+    400: b"Bad Request",
     503: b"Service Unavailable",
 }
+
+#: ``/query`` parameters that are not label selectors.
+_QUERY_PARAMS = frozenset({"name", "prefix", "window_s", "tier"})
 
 
 def prometheus_text(stats: MinerStats, registry: Optional[Any] = None,
@@ -106,7 +116,8 @@ def stats_snapshot(stats: MinerStats) -> Dict[str, Any]:
 class StatusServer:
     """Serves the routes above; ``/telemetry`` needs a registry,
     ``/healthz`` a health model, ``/trace``, ``/flightrec`` and
-    ``/lifecycle`` a telemetry bundle (without one, the path answers the
+    ``/lifecycle`` a telemetry bundle, ``/slo`` an SLO engine and
+    ``/query`` a time-series store (without one, the path answers the
     snapshot)."""
 
     #: seconds a client gets to deliver its request line and headers
@@ -118,7 +129,8 @@ class StatusServer:
     def __init__(
         self, stats: MinerStats, port: int, host: str = "127.0.0.1",
         registry: Optional[Any] = None, telemetry: Optional[Any] = None,
-        health: Optional[Any] = None,
+        health: Optional[Any] = None, slo: Optional[Any] = None,
+        tsdb: Optional[Any] = None,
     ) -> None:
         self.stats = stats
         self.host = host
@@ -126,6 +138,8 @@ class StatusServer:
         self.registry = registry
         self.telemetry = telemetry
         self.health = health
+        self.slo = slo
+        self.tsdb = tsdb
         self._server: Optional[asyncio.AbstractServer] = None
 
     async def start(self) -> None:
@@ -172,9 +186,44 @@ class StatusServer:
                 return
             left -= len(chunk)
 
+    def _query_payload(self, query_string: str) -> Tuple[int, bytes]:
+        """(status, body) of a ``/query`` request against the store. It
+        runs in the executor: the store takes a lock, and the payload can
+        be large. A bad parameter gets a 400 body naming it."""
+        params = urllib.parse.parse_qs(query_string)
+
+        def one(key: str) -> Optional[str]:
+            values = params.get(key)
+            return values[-1] if values else None
+
+        window_s: Optional[float] = None
+        raw_window = one("window_s")
+        if raw_window is not None:
+            try:
+                window_s = float(raw_window)
+            except ValueError:
+                return 400, json.dumps(
+                    {"error": f"window_s must be a number "
+                              f"(got {raw_window!r})"}).encode()
+            if window_s <= 0:
+                return 400, json.dumps(
+                    {"error": "window_s must be > 0"}).encode()
+        labels = {key: values[-1] for key, values in params.items()
+                  if key not in _QUERY_PARAMS and values}
+        try:
+            payload = self.tsdb.query(
+                name=one("name"), prefix=one("prefix"),
+                labels=labels or None, window_s=window_s,
+                tier=one("tier") or "fine")
+        except ValueError as e:
+            return 400, json.dumps({"error": str(e)}).encode()
+        return 200, json.dumps(payload).encode()
+
     def _route(self, path: str) -> Optional[bytes]:
         """The JSON body of a telemetry route, or None for the snapshot."""
         tel = self.telemetry
+        if path == "/slo" and self.slo is not None:
+            return json.dumps(self.slo.report_dict(), default=str).encode()
         if path == "/telemetry" and self.registry is not None:
             return json.dumps(self.registry.snapshot(), default=str).encode()
         if tel is None:
@@ -204,10 +253,13 @@ class StatusServer:
             parts = request_line.split()
             raw_path = parts[1].decode("ascii", "replace") \
                 if len(parts) > 1 else "/"
-            path = raw_path.partition("?")[0]
+            path, _, query_string = raw_path.partition("?")
             status = 200
             ctype = b"application/json"
-            if path == "/metrics":
+            if path == "/query" and self.tsdb is not None:
+                status, body = await asyncio.get_running_loop()\
+                    .run_in_executor(None, self._query_payload, query_string)
+            elif path == "/metrics":
                 body = prometheus_text(self.stats, self.registry).encode()
                 ctype = b"text/plain; version=0.0.4"
             elif path == "/healthz" and self.health is not None:

@@ -75,6 +75,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one ``cpu_verify`` span per verified hit; then sweeps the genesis nonce
    space with telemetry off, on and tracing, twice each
    (``telemetry_overhead``, rates recorded, not gated);
+7c. the observatory: ``Dispatcher.sweep`` on ``cuda-tile`` and ``cuda``
+   over 2^28 genesis nonces in 2^24-nonce requests (exactly the genesis
+   share, 16 scan launches, the busy clock closed and the ring given back
+   after a ``max_shares=1`` cut; ``dispatcher_sweep``); the telemetry
+   session with ``--slo-fast-window 4 --slo-slow-window 12
+   --slo-objectives F --incident-dir D``, F holding a latency objective
+   no submit meets: ``/slo`` breached, ``/healthz`` ``slo`` degraded,
+   ``/query``'s ``scan_batch`` series, ``top --once``, ``slo
+   --status-url`` exiting 1, one incident bundle and its ledger row
+   (``stratum_session_observatory``); the ``perf`` subcommand's proxy,
+   record (the card in the fingerprint), report, gate and refused capture
+   (``perf_cli_roundtrip``); and, with grpcio, a served worker with
+   ``--status-port`` mined through by a parent session naming it
+   ``--worker HOST:PORT@STATUSPORT``, whose ``/query`` must hold the
+   worker's series (``served_worker_federation``);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -112,7 +127,7 @@ With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
 
-Phases 3 to 7b, 9's sweeps, session and ladder, and 10's probe run are the
+Phases 3 to 7c, 9's sweeps, session and ladder, and 10's probe run are the
 main path: the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. No tile hasher launches the
 hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
@@ -123,7 +138,8 @@ counted.
 Every phase's flight-recorder dump path (written on a crash or SIGUSR2
 only) and traces are in a temporary directory (``TMPDIR`` chooses where;
 the telemetry phases print it), never the command line's default dump
-path, a file the checkout tracks. Every phase prints a JSON line; the kernel table and the card
+path, a file the checkout tracks; so are every session's incident bundles
+and every perf ledger. Every phase prints a JSON line; the kernel table and the card
 follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
@@ -142,6 +158,7 @@ import json
 import os
 import re
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -167,6 +184,20 @@ SHARDS_ON_ONE_CARD = 4
 FLEET_CHILDREN = 3
 FLEET_DISPATCH = DISPATCH
 FLEET_SWEEP = 1 << 30
+#: dispatcher_sweep: nonces per ``Dispatcher.sweep`` (16 requests), and
+#: the warm sweeps per backend after the first: one ~40 ms sweep is too
+#: short to read alone, so the rate is their median, with their spread.
+OBS_SWEEP = 1 << 28
+OBS_SWEEP_WARM = 7
+#: stratum_session_observatory: the SLO engine's windows (seconds) and the
+#: objective the session must breach: 99% of submit round trips within
+#: 1 µs (the first bucket bound at or above it, 10 µs, counts as good; a
+#: local round trip takes milliseconds).
+OBS_FAST_WINDOW, OBS_SLOW_WINDOW = 4, 12
+OBS_OBJECTIVES = {"schema": "tpu-miner-slo-objectives/1", "objectives": [
+    {"name": "submit-rtt-1us", "kind": "latency", "target": 0.99,
+     "threshold_s": 1e-6, "signal": "tpu_miner_submit_rtt_seconds",
+     "description": "a bound no round trip meets"}]}
 PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
 #: Kernels folded into the scans' last blocks: none may be built or counted.
 REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
@@ -185,13 +216,23 @@ def out_dir() -> str:
     return tempfile.mkdtemp(prefix="chip_smoke_")
 
 
+#: The command line's modes that run a session (and its observatory).
+SESSION_MODES = ("--pool", "--gbt", "--getwork", "--serve-hasher")
+
+
 def cli_args(pkg, argv, flightrec_out: str = None):
     """The command line's options for ``argv``, the flight recorder's
     dump path in :func:`out_dir` (its default is a file the checkout
-    tracks)."""
+    tracks) and, for a session, the incident bundles' root there too
+    unless ``argv`` names one (its default is a directory in the
+    checkout)."""
     path = flightrec_out or os.path.join(out_dir(), "flightrec.json")
+    extra = []
+    if any(mode in argv for mode in SESSION_MODES) and (
+            "--incident-dir" not in argv):
+        extra = ["--incident-dir", os.path.join(out_dir(), "incidents")]
     return pkg.cli.build_parser().parse_args(
-        [*argv, "--flightrec-out", path])
+        [*argv, "--flightrec-out", path, *extra])
 
 
 def free_port() -> int:
@@ -372,6 +413,7 @@ class Smoke:
         #: case -> (job, slots, the plain rescan's outputs, its nonces)
         self.rescans: dict = {}
         self.sweep_mhs: dict = {}  # phase -> its sweep rate
+        self.sweep_rows: list = []  # dispatcher_sweep's ledger rows
         n = torch.cuda.device_count()
         #: the shards of the multi-device phases: every card, or one card
         #: named SHARDS_ON_ONE_CARD times.
@@ -1037,6 +1079,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         ms = s.time_ms(lambda: pkg.scan_tile(exact, n_steps=DISPATCH // 8192,
                                              block=8192), 20)
         busy = result["window_launches"] * ms / 1e3
+        s.sweep_mhs["stratum_session_telemetry"] = result["mhs"]
         return {**result, "scan_tile_launches": counts["scan_tile"],
                 "dispatches_collected": collected,
                 "scan_tile_exact_ms": ms,
@@ -1236,6 +1279,125 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return {"runs": runs, "mhs_a": mean("A"), "mhs_b": mean("B"),
                 "mhs_c": mean("C"), "b_over_a": mean("B") / mean("A"),
                 "c_over_a": mean("C") / mean("A")}
+
+    def dispatcher_sweep():
+        """``Dispatcher.sweep``, the synchronous path the perf proxy runs,
+        on ``cuda-tile`` and ``cuda``: :data:`OBS_SWEEP` genesis nonces
+        around 2083236893 at the difficulty-1 target in 2^24-nonce
+        requests through the ring, once to warm the hasher and then
+        :data:`OBS_SWEEP_WARM` times; exactly the genesis share, the
+        range's hashes and one scan launch per request in every sweep.
+        Then a sweep cut by ``max_shares=1``: the busy interval closes and
+        the ring keeps no dispatch. The warm sweeps' median rate, and
+        their least and greatest, against ``genesis_sweep``'s."""
+        job = pkg.job_from_template_fields(
+            job_id="genesis", prevhash_display_hex="00" * 32,
+            merkle_root_internal=genesis76[36:68], version=genesis_version,
+            nbits=0x1D00FFFF,
+            ntime=int.from_bytes(genesis76[68:72], "little"),
+            share_target=diff1)
+        assert job.header76(b"") == genesis76
+        start = GENESIS_NONCE - OBS_SWEEP // 2
+        out = {}
+        for backend, make, kernel in (
+                ("cuda-tile", pkg.TileCudaHasher, "scan_tile"),
+                ("cuda", pkg.CudaHasher, "scan_hitbuf")):
+            hasher = make(device="cuda")
+            runs = []
+            for _ in range(1 + OBS_SWEEP_WARM):
+                d = pkg.Dispatcher(hasher, n_workers=1, batch_size=DISPATCH)
+                s.reset_counts()
+                t0 = time.perf_counter()
+                shares = d.sweep(job, nonce_start=start, nonce_count=OBS_SWEEP)
+                seconds = time.perf_counter() - t0
+                counts = s.read_counts()
+                assert [sh.nonce for sh in shares] == [GENESIS_NONCE], shares
+                assert (d.stats.hashes, d.stats.batches) == (
+                    OBS_SWEEP, OBS_SWEEP // DISPATCH), d.stats
+                assert counts[kernel] == OBS_SWEEP // DISPATCH, counts
+                assert launched(counts).keys() <= {kernel, "rescan_steps"}, (
+                    counts)
+                assert d.stats._active_scans == 0
+                runs.append({"seconds": seconds,
+                             "mhs": OBS_SWEEP / seconds / 1e6,
+                             "launches": launched(counts)})
+            d = pkg.Dispatcher(hasher, n_workers=1, batch_size=DISPATCH)
+            abandoned = hasher.dispatches_abandoned
+            s.reset_counts()
+            shares = d.sweep(job, nonce_start=start, nonce_count=OBS_SWEEP,
+                             max_shares=1)
+            cut = s.read_counts()
+            assert [sh.nonce for sh in shares] == [GENESIS_NONCE], shares
+            assert d.stats._active_scans == 0, "the busy interval stayed open"
+            assert d.telemetry.ring_occupancy.value == 0, "the ring kept work"
+            left = hasher.dispatches_abandoned - abandoned
+            assert 0 < left <= hasher.stream_depth, left
+            warm = sorted(r["mhs"] for r in runs[1:])
+            mhs = statistics.median(warm)
+            out[backend] = {
+                "runs": runs, "mhs": mhs, "mhs_least": warm[0],
+                "mhs_greatest": warm[-1],
+                "mhs_vs_genesis_sweep": mhs / s.sweep_mhs[1],
+                "range_vs_genesis_sweep": [warm[0] / s.sweep_mhs[1],
+                                           warm[-1] / s.sweep_mhs[1]],
+                "cut": {"batches": d.stats.batches,
+                        "hashes": d.stats.hashes,
+                        "busy_seconds": d.stats.scan_seconds,
+                        "dispatches_given_back": left,
+                        "launches": launched(cut)}}
+        s.sweep_rows = [
+            {"metric": "dispatcher_sweep", "backend": backend,
+             "value": round(row["mhs"], 3), "unit": "MH/s",
+             "nonces": OBS_SWEEP, "batch_bits": 24,
+             "measured": time.strftime("%Y-%m-%dT%H:%MZ", time.gmtime())}
+            for backend, row in out.items()]
+        return {"nonces": OBS_SWEEP, "dispatch": DISPATCH,
+                "genesis_sweep_mhs": s.sweep_mhs[1], **out}
+
+    def stratum_session_observatory():
+        """:func:`observatory_stratum`: the telemetry session with the
+        observatory's flags and an objective it must breach; its rate
+        against ``stratum_session_telemetry``'s."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(observatory_stratum(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        return {**result, "mhs_vs_stratum_session_telemetry":
+                result["mhs"] / s.sweep_mhs["stratum_session_telemetry"],
+                "launches": launched(counts)}
+
+    def served_worker_federation():
+        """:func:`federated_stratum`: a served worker with
+        ``--status-port`` mined through by a parent session that names
+        it ``--worker HOST:PORT@STATUSPORT``. The worker's launches come
+        from its counts file: the tile kernel, no hit-buffer scan; the
+        parent launches nothing."""
+        pkg.hasher_service()
+        status_port = free_port()
+        worker = Worker("--status-port", str(status_port),
+                        "--health-interval", "1")
+        try:
+            worker.wait_ready()
+            s.reset_counts()
+            result = asyncio.run(asyncio.wait_for(
+                federated_stratum(pkg, worker, status_port), 300))
+            local = s.read_counts()
+        finally:
+            rc = worker.stop()
+        assert rc == 0, (rc, worker.log_tail())
+        counts = s.add_counts(worker.launch_counts())
+        assert not launched(local), f"the parent launched {local}"
+        assert counts.get("scan_tile", 0) > 0, counts
+        no_hitbuf_pair(counts)
+        return {**result, "worker_exit": rc,
+                "worker_launches": launched(counts)}
+
+    def perf_cli_roundtrip():
+        """:func:`perf_roundtrip` on ``dispatcher_sweep``'s rows: their
+        fingerprint must name this card and its power limit."""
+        return perf_roundtrip(pkg, s.sweep_rows, name_power)
 
     def genesis_sweep_batch3x():
         """The whole genesis sweep as ``--bench --batch-3x --sublanes 24``
@@ -1921,9 +2083,13 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("stratum_session_telemetry", stratum_session_telemetry)
     s.phase("genesis_sweep_batch3x", genesis_sweep_batch3x)
     s.phase("telemetry_overhead", telemetry_overhead)
+    s.phase("dispatcher_sweep", dispatcher_sweep)
+    s.phase("stratum_session_observatory", stratum_session_observatory)
+    s.phase("perf_cli_roundtrip", perf_cli_roundtrip)
     s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
     for name, fn in (("served_hasher_session", served_hasher_session),
-                     ("grpc_fleet_session", grpc_fleet_session)):
+                     ("grpc_fleet_session", grpc_fleet_session),
+                     ("served_worker_federation", served_worker_federation)):
         if importlib.util.find_spec("grpc") is None:
             emit({"phase": name, "ran": False,
                   "why": "grpcio is not installed"})
@@ -2132,6 +2298,8 @@ class Worker:
                  self.counts_path,
                  "--serve-hasher", self.target, "--flightrec-out",
                  os.path.join(out_dir(), f"worker-{self.port}-fr.json"),
+                 "--incident-dir",
+                 os.path.join(out_dir(), f"worker-{self.port}-incidents"),
                  *options],
                 cwd=os.path.dirname(os.path.abspath(__file__)),
                 stdout=log, stderr=subprocess.STDOUT)
@@ -2725,6 +2893,249 @@ async def stratum_telemetry(pkg, window_s: float = SESSION_WINDOW_S) -> dict:
             "trace_dropped": trace["otherData"].get("dropped_events", 0)}
 
 
+async def cli_run(*argv: str) -> tuple:
+    """(exit code, stdout) of ``python -m bitcoin_miner_tpu_torch ARGV``
+    in a process of its own, from the checkout's root."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "bitcoin_miner_tpu_torch", *argv,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    out, _ = await asyncio.wait_for(proc.communicate(), 120)
+    return proc.returncode, out.decode()
+
+
+async def observatory_stratum(pkg) -> dict:
+    """A Stratum session as ``--pool URL --workers 4 --status-port P
+    --health-interval 1 --slo-fast-window 4 --slo-slow-window 12
+    --slo-objectives F --incident-dir D`` builds it and
+    ``cli.run_session`` runs it, against the mock pool at difficulty
+    1/256; F holds one objective no submit meets (:data:`OBS_OBJECTIVES`).
+    After 3 accepted shares it mines a :data:`SESSION_WINDOW_S` window
+    (the rate counts the tile kernel's launches), and meanwhile ``/slo``
+    must read the objective breached, ``/healthz`` (200) the ``slo``
+    component degraded, ``/query`` the ``scan_batch`` series with several
+    points, ``top --once`` render a frame and ``slo --status-url`` exit 1.
+    At the stop D must hold one ``tpu-miner-incident/1`` bundle and its
+    row in ``incident_ledger.jsonl``, and no observatory or watchdog
+    thread may be left."""
+    import threading
+
+    pool = await smoke_pool(pkg)
+    port = free_port()
+    objectives = os.path.join(out_dir(), "observatory_objectives.json")
+    with open(objectives, "w") as f:
+        json.dump(OBS_OBJECTIVES, f)
+    incidents = os.path.join(out_dir(), "observatory_incidents")
+    args = cli_args(pkg, [
+        "--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
+        "--workers", "4", "--status-port", str(port),
+        "--health-interval", "1", "--slo-fast-window", str(OBS_FAST_WINDOW),
+        "--slo-slow-window", str(OBS_SLOW_WINDOW), "--slo-objectives",
+        objectives, "--incident-dir", incidents])
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    miner = pkg.cli.make_miner(args)
+    dispatcher = miner.dispatcher
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and dispatcher.telemetry is tel
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+    url = f"http://127.0.0.1:{port}"
+
+    def launches() -> int:
+        return sum(c.value for c in pkg.csrc.counters()
+                   if c.name == "scan_tile")
+
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+        a = (time.perf_counter(), launches())
+        deadline = time.perf_counter() + 60
+        while True:
+            code, body = await http_get(port, "/slo")
+            report = json.loads(body)
+            states = {o["name"]: o["state"] for o in report["objectives"]}
+            if states.get("submit-rtt-1us") == "breach":
+                break
+            assert time.perf_counter() < deadline, report
+            await asyncio.sleep(0.25)
+        out["seconds_to_breach"] = time.perf_counter() - t0
+        out["slo"] = report["objectives"][0]
+        await asyncio.sleep(1.5)  # a watchdog tick after the breach
+        code, body = await http_get(port, "/healthz")
+        health = json.loads(body)
+        assert code == 200 and health["components"]["slo"]["state"] == \
+            "degraded", health
+        out["healthz_slo"] = health["components"]["slo"]
+        code, body = await http_get(
+            port, "/query?name=tpu_miner_scan_batch_seconds_count"
+            "&process=parent")
+        series = json.loads(body)["series"]
+        assert code == 200 and len(series) == 1 and len(
+            series[0]["points"]) >= 3, series
+        out["scan_batch_points"] = len(series[0]["points"])
+        (top_rc, top), (slo_rc, slo) = await asyncio.gather(
+            cli_run("top", "--status-url", url, "--once"),
+            cli_run("slo", "--status-url", url))
+        assert top_rc == 0 and top.startswith("tpu-miner top"), top
+        assert slo_rc == 1 and "breach" in slo, (slo_rc, slo)
+        out["top_frame"] = top.splitlines()
+        out["slo_command"] = slo.splitlines()
+        await until(task, lambda: time.perf_counter() - a[0]
+                    >= SESSION_WINDOW_S, "window", stats.summary,
+                    SESSION_WINDOW_S + 60)
+        b = (time.perf_counter(), launches())
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+        tel.flightrec.disarm()
+    task.result()
+    left = [t.name for t in threading.enumerate() if t.is_alive()
+            and t.name in ("observatory", "health-watchdog")]
+    assert not left, f"threads outlived the session: {left}"
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    bundles = [d for d in os.listdir(incidents) if d.startswith("pl-")]
+    assert len(bundles) == 1, bundles
+    with open(os.path.join(incidents, bundles[0], "incident.json")) as f:
+        manifest = json.load(f)
+    assert manifest["schema"] == "tpu-miner-incident/1", manifest
+    with open(os.path.join(incidents, "incident_ledger.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["id"] for r in rows] == [manifest["ledger_id"]], rows
+    window = b[0] - a[0]
+    return {**out, "accepted": stats.shares_accepted,
+            "rejected": stats.shares_rejected, "hw_errors": stats.hw_errors,
+            "incident": {"manifest": manifest["ledger_id"],
+                         "artifacts": sorted(manifest["artifacts"]),
+                         "errors": manifest["errors"],
+                         "ledger_row": {k: rows[0].get(k) for k in (
+                             "metric", "objective", "value", "unit")}},
+            "tsdb_series": tel.tsdb_series.value,
+            "window_seconds": window, "window_launches": b[1] - a[1],
+            "mhs": (b[1] - a[1]) * hasher.batch_size / window / 1e6}
+
+
+async def federated_stratum(pkg, worker: "Worker", worker_status: int
+                            ) -> dict:
+    """A Stratum session as ``--pool URL --workers 4 --worker
+    HOST:PORT@STATUSPORT --status-port P --health-interval 1`` builds it
+    and ``cli.run_session`` runs it, on the served ``worker``, against
+    the mock pool at difficulty 1/256. After 3 accepted shares the
+    parent's ``/query`` must hold the worker's series (its ``scan_batch``
+    count) under ``worker=HOST:PORT``, and the worker's own ``/query``
+    and ``/slo`` must answer."""
+    pool = await smoke_pool(pkg)
+    port = free_port()
+    args = cli_args(pkg, [
+        "--pool", f"stratum+tcp://127.0.0.1:{pool.port}", "--user", "smoke",
+        "--workers", "4", "--worker", f"{worker.target}@{worker_status}",
+        "--status-port", str(port), "--health-interval", "1"])
+    pkg.pipeline.set_telemetry(None)
+    miner = pkg.cli.make_miner(args)
+    dispatcher = miner.dispatcher
+    fleet = dispatcher.hasher
+    assert fleet.scrape_targets() == [
+        (worker.target, f"http://127.0.0.1:{worker_status}/metrics")]
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+    out = {}
+    try:
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+        deadline = time.perf_counter() + 60
+        while True:
+            code, body = await http_get(port, f"/query?worker={worker.target}")
+            series = json.loads(body)["series"]
+            names = sorted({x["name"] for x in series})
+            if "tpu_miner_scan_batch_seconds_count" in names:
+                break
+            assert time.perf_counter() < deadline, names
+            await asyncio.sleep(0.5)
+        processes = {x["labels"]["process"] for x in series}
+        assert processes == {f"worker-{worker.target}"}, processes
+        out["parent_worker_series"] = len(series)
+        code, body = await http_get(worker_status, "/query?process=parent")
+        own = json.loads(body)
+        assert code == 200 and own["series"], own
+        out["worker_own_series"] = len(own["series"])
+        code, body = await http_get(worker_status, "/slo")
+        assert code == 200 and json.loads(body)["schema"] == \
+            "tpu-miner-slo/1", body[:200]
+        code, body = await http_get(port, "/metrics")
+        scrapes = {k: v for k, v in prom_samples(body.decode()).items()
+                   if k[0] == "tpu_miner_federate_scrapes_total"}
+        assert scrapes.get(("tpu_miner_federate_scrapes_total", (
+            ("result", "ok"), ("target", f"worker-{worker.target}")))), (
+            scrapes)
+        out["federate_scrapes"] = {"/".join(v for _, v in k[1]): n
+                                   for k, n in scrapes.items()}
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await pool.stop()
+        fleet.close()
+    rejected = [sh.reason for sh in pool.shares if not sh.accepted]
+    assert not rejected and stats.shares_rejected == 0, rejected
+    assert stats.hw_errors == 0, stats.summary()
+    return {**out, "accepted": stats.shares_accepted}
+
+
+def perf_roundtrip(pkg, rows: list, card) -> dict:
+    """The ``perf`` subcommand through ``cli.main``, every ledger in
+    :func:`out_dir`: ``proxy``; ``record`` of ``rows``, whose fingerprint
+    must name ``card`` (``nvidia-smi``'s name and power limit); ``report``;
+    ``gate`` of each ledger against itself (passes); ``capture`` refused
+    with its reason."""
+    proxy = os.path.join(out_dir(), "perf_proxy.jsonl")
+    ledger = os.path.join(out_dir(), "perf_run.jsonl")
+    evidence = os.path.join(out_dir(), "dispatcher_sweep.jsonl")
+    with open(evidence, "w") as f:
+        f.writelines(json.dumps(row) + "\n" for row in rows)
+
+    def perf(*argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = pkg.cli.main(["perf", *argv])
+        return rc, out.getvalue(), err.getvalue()
+
+    rc, proxy_out, _ = perf("proxy", "--repeats", "2", "--json",
+                            "--ledger", proxy)
+    assert rc == 0, proxy_out
+    best = json.loads(proxy_out[:proxy_out.rindex("appended")])["best"]
+    rc, out, _ = perf("record", "--from", evidence, "--ledger", ledger,
+                      "--platform", "cuda")
+    assert rc == 0 and f"recorded {len(rows)} row(s)" in out, out
+    with open(ledger) as f:
+        recorded = [json.loads(line) for line in f]
+    cards = {row["fingerprint"].get("card") for row in recorded}
+    assert rows and cards == {card}, (cards, card)
+    assert {row["fingerprint"]["platform"] for row in recorded} == {"cuda"}
+    assert not {"jax", "jaxlib", "libtpu"} & set(recorded[0]["fingerprint"])
+    rc, report, _ = perf("report", "--ledger", ledger)
+    assert rc == 0 and report.count(rows[0]["metric"]) == len(rows), report
+    gates = {}
+    for name, path in (("sweep", ledger), ("proxy", proxy)):
+        rc, gate, _ = perf("gate", "--ledger", path, "--baseline", path)
+        assert rc == 0 and "gate: ok" in gate, gate
+        gates[name] = gate.strip().splitlines()[-1]
+    rc, _, err = perf("capture")
+    assert rc != 0 and "not available" in err, (rc, err)
+    return {"proxy_best_s": best,
+            "proxy_sweep_telemetry_on_vs_off":
+                best["dispatcher_sweep"] / best["dispatcher_sweep_notel"],
+            "recorded": [{"backend": row["backend"], "value": row["value"],
+                          "unit": row["unit"],
+                          "card": row["fingerprint"].get("card")}
+                         for row in recorded],
+            "report": report.strip().splitlines(), "gates": gates,
+            "capture_rc": rc, "capture_refusal": err.strip()}
+
+
 async def until(task, done, what: str, summary, seconds: float) -> None:
     """Wait for ``done()``; fail if the session's task ends first or
     ``seconds`` pass."""
@@ -2758,7 +3169,12 @@ class _Package:
             ScanRequest,
             dispatch_granularity,
         )
-        from bitcoin_miner_tpu_torch.miner.job import Job, StratumJobParams
+        from bitcoin_miner_tpu_torch.miner.dispatcher import Dispatcher
+        from bitcoin_miner_tpu_torch.miner.job import (
+            Job,
+            StratumJobParams,
+            job_from_template_fields,
+        )
         from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
         from bitcoin_miner_tpu_torch.miner.scheduler import scheduler_for
         from bitcoin_miner_tpu_torch.ops import (
@@ -2798,6 +3214,8 @@ class _Package:
         self.MockStratumPool, self.PoolJob = MockStratumPool, PoolJob
         self.FakeNode, self.REGTEST_NBITS = FakeNode, REGTEST_NBITS
         self.Job, self.StratumJobParams = Job, StratumJobParams
+        self.Dispatcher = Dispatcher
+        self.job_from_template_fields = job_from_template_fields
         self.DecorrelatedJitterBackoff = DecorrelatedJitterBackoff
         self.csrc = csrc
         self.sibling_version_patterns = sibling_version_patterns

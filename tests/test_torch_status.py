@@ -334,9 +334,11 @@ def test_help_lists_the_telemetry_flags(capsys):
         cli.build_parser().parse_args(["--help"])
     out = capsys.readouterr().out
     for flag in ("--status-port", "--trace-out", "--flightrec-out",
-                 "--health-interval"):
+                 "--health-interval", "--slo-fast-window",
+                 "--slo-slow-window", "--slo-objectives", "--incident-dir",
+                 "--federate"):
         assert flag in out
-    assert "--slo-*" in out and "not ported" in out
+    assert "not ported" not in out
 
 
 @pytest.mark.parametrize("argv", [
@@ -394,8 +396,8 @@ def test_make_health_starts_the_watchdog(interval, threaded):
     args = cli.build_parser().parse_args(["--getwork", "http://x:1"])
     args.health_interval = interval
     tel = port_pipeline.PipelineTelemetry()
-    model, watchdog = cli.make_health(args, tel,
-                                      port_dispatcher.MinerStats())
+    model, watchdog, slo = cli.make_health(args, tel,
+                                           port_dispatcher.MinerStats())
     try:
         assert (watchdog is not None) is threaded
         if interval is None:
@@ -403,7 +405,7 @@ def test_make_health_starts_the_watchdog(interval, threaded):
     finally:
         if watchdog is not None:
             watchdog.stop()
-    assert model.telemetry is tel
+    assert model.telemetry is tel and model.slo is slo
 
 
 # ------------------------------------------------------------ end to end
@@ -442,9 +444,11 @@ async def _until(task, done, seconds=120):
 
 def _reference_session(tmp_path):
     """The JAX package's Stratum session on its TPU ring (the XLA scan on
-    JAX's CPU), its telemetry and health watchdog as its CLI builds
-    them."""
+    JAX's CPU), its telemetry, health watchdog, SLO engine and
+    observatory as its CLI builds them (no incident capture)."""
     from bitcoin_miner_tpu.backends.tpu import TpuHasher
+    from bitcoin_miner_tpu.telemetry.slo import SloEngine
+    from bitcoin_miner_tpu.telemetry.tsdb import Observatory, TimeSeriesStore
 
     tel = ref_pipeline.set_telemetry(ref_pipeline.PipelineTelemetry(
         trace_path=str(tmp_path / "ref.json")))
@@ -457,9 +461,12 @@ def _reference_session(tmp_path):
             "127.0.0.1", pool.port, "w",
             hasher=TpuHasher(batch_size=1 << 12, inner_size=1 << 10),
             n_workers=2, batch_size=1 << 12)
+        slo = SloEngine(tel, store=TimeSeriesStore(
+            interval_s=1.0, retention_s=900.0, stale_after_s=15.0))
         model = ref_health.HealthModel(tel, stats=miner.dispatcher.stats,
-                                       relay_probe=lambda: False)
+                                       relay_probe=lambda: False, slo=slo)
         dog = ref_health.HealthWatchdog(model, interval=0.2).start()
+        observatory = Observatory(slo.store, tel, interval_s=0.2).start()
         task = asyncio.create_task(miner.run())
         try:
             await _until(task, lambda: miner.dispatcher.stats.shares_accepted
@@ -468,6 +475,7 @@ def _reference_session(tmp_path):
         finally:
             miner.stop()
             await asyncio.gather(task, return_exceptions=True)
+            observatory.stop()
             dog.stop()
             await pool.stop()
 
@@ -493,6 +501,7 @@ def test_cpu_session_matches_the_reference(tmp_path, fresh_default):
          "--batch-bits", "12", "--workers", "2", "--status-port", str(port),
          "--trace-out", str(trace_path),
          "--flightrec-out", str(tmp_path / "fr.json"),
+         "--incident-dir", str(tmp_path / "incidents"),
          "--health-interval", "0.2", "--report-interval", "0.5"])
     scraped = {}
 

@@ -613,7 +613,7 @@ def test_cuda_fleet_through_the_command_line():
      "--device cpu applies only to a local hasher"),
     (["--worker", "127.0.0.1:1", "--inner-bits", "10"],
      "--inner-bits 10 applies only to a local hasher"),
-    (["--worker", "127.0.0.1:1@18000"], "@STATUSPORT suffix feeds"),
+    (["--worker", "127.0.0.1:1@x"], r"want HOST:PORT\[@STATUSPORT\]"),
     (["--backend", "grpc"], "requires --grpc-target"),
     (["--backend", "grpc", "--grpc-target", "127.0.0.1:1", "--no-spec"],
      "--no-spec True applies only to a local hasher"),
