@@ -3,7 +3,9 @@
 Modes:
   --pool stratum+tcp://HOST:PORT   Stratum v1 pool mining (stratum+ssl://
                                    for TLS; comma-listed backups for
-                                   failover)
+                                   failover); repeated, or with a
+                                   getwork+http:// or gbt+http:// URL, the
+                                   multi-pool fabric (``#w=N`` weights)
   --gbt  http://HOST:PORT          solo mining via getblocktemplate
   --getwork http://HOST:PORT       getwork polling
   --bench                          offline sweep of the genesis header
@@ -60,7 +62,7 @@ import logging
 import signal
 import sys
 import time
-from typing import TYPE_CHECKING, List, Optional, Tuple
+from typing import TYPE_CHECKING, List, Optional, Tuple, Union
 from urllib.parse import urlparse
 
 from .backends.base import (
@@ -96,6 +98,7 @@ from .telemetry import (
 )
 
 if TYPE_CHECKING:
+    from .miner.multipool import MultipoolMiner
     from .miner.runner import GbtMiner, GetworkMiner, StratumMiner
 
 logger = logging.getLogger("tpu_miner_torch")
@@ -130,8 +133,13 @@ def build_parser() -> argparse.ArgumentParser:
     mode = p.add_mutually_exclusive_group(required=True)
     mode.add_argument("--pool", action="append",
                       help="stratum+tcp://host:port (or stratum+ssl:// for "
-                           "TLS) pool URL; comma-separate backups for "
-                           "failover, all of one scheme")
+                           "TLS) pool URL; comma-separate backups for cold "
+                           "failover, all of one scheme. REPEATABLE: more "
+                           "than one --pool runs the multi-pool fabric, "
+                           "concurrent upstream sessions (stratum and "
+                           "getwork+http:// or gbt+http:// mixed) with "
+                           "capacity routing and instant failover; append "
+                           "#w=N for a dispatch weight (default 1)")
     mode.add_argument("--gbt", help="http://host:port bitcoind RPC "
                                     "(getblocktemplate)")
     mode.add_argument("--getwork", help="http://host:port getwork endpoint")
@@ -603,15 +611,18 @@ def _health_interval(args: argparse.Namespace) -> float:
 
 
 def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
-                stats) -> Tuple[HealthModel, Optional[HealthWatchdog],
-                                SloEngine]:
+                stats, fabric=None) -> Tuple[HealthModel,
+                                             Optional[HealthWatchdog],
+                                             SloEngine]:
     """The health model over ``telemetry`` and ``stats``, its watchdog
     thread, started, every ``--health-interval`` seconds (none at 0), and
     the SLO engine the watchdog ticks. The engine and the observatory
     share one time-series store, sized as the reference sizes it: SLO
     ticks land in distinct slots, both burn windows stay resolvable, and
     a series goes stale after three collections. An SLO breach captures
-    an incident bundle under ``--incident-dir`` (none with "")."""
+    an incident bundle under ``--incident-dir`` (none with ""). With a
+    multi-pool ``fabric`` the engine reads each live slot's accept rate
+    (``slo_slot_burn{objective,pool}``) and a bundle holds its snapshot."""
     interval = _health_interval(args)
     fast = (DEFAULT_SLO_FAST_WINDOW if args.slo_fast_window is None
             else args.slo_fast_window)
@@ -633,13 +644,14 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
         stale_after_s=max(15.0, 3.0 * interval) if interval else 15.0,
     )
     slo = SloEngine(telemetry, objectives, fast_window_s=fast,
-                    slow_window_s=slow, store=store)
+                    slow_window_s=slow, fabric=fabric, store=store)
     model = HealthModel(telemetry, stats=stats, slo=slo)
     incident_dir = (DEFAULT_INCIDENT_DIR if args.incident_dir is None
                     else args.incident_dir)
     if incident_dir:
         slo.on_breach = IncidentCapture(
-            telemetry, incident_dir, stats=stats, health=model, slo=slo,
+            telemetry, incident_dir, stats=stats, health=model,
+            fabric=fabric, slo=slo,
         ).on_breach
     watchdog = (HealthWatchdog(model, interval=interval).start()
                 if interval > 0 else None)
@@ -648,16 +660,17 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
 
 def make_observatory(args: argparse.Namespace,
                      telemetry: PipelineTelemetry, slo: SloEngine,
-                     hasher: Optional[Hasher] = None
+                     hasher: Optional[Hasher] = None, fabric=None,
                      ) -> Optional[Observatory]:
     """The observatory's collector, started, over the SLO engine's store:
     every ``--health-interval`` seconds it samples this process's
     registry, scrapes the ``--federate`` members and, where ``hasher`` is
     a fleet, each ``--worker HOST:PORT@STATUSPORT`` worker (labels
     ``process=worker-HOST:PORT``, ``worker=HOST:PORT``), and evaluates the
-    recording rules. None at an interval of 0, which runs no thread. (The
-    reference also discovers pool-frontend shards; this package has no
-    frontend.)"""
+    recording rules; with a multi-pool ``fabric`` it samples each slot's
+    accept rate (``fabric.slot_accept_rate{pool}``). None at an interval of
+    0, which runs no thread. (The reference also discovers pool-frontend
+    shards; this package has no frontend.)"""
     interval = _health_interval(args)
     if interval <= 0:
         return None
@@ -677,7 +690,7 @@ def make_observatory(args: argparse.Namespace,
                     for label, url in get()]
         federator.add_source(workers)
     return Observatory(slo.store, telemetry, federator=federator,
-                       interval_s=interval).start()
+                       fabric=fabric, interval_s=interval).start()
 
 
 def _dump_trace(telemetry: PipelineTelemetry,
@@ -714,13 +727,17 @@ async def run_session(miner, args: argparse.Namespace) -> None:
     the ``--status-port`` server, the flight recorder armed to
     ``--flightrec-out`` and SIGTERM stopping it as Ctrl-C does; at the end
     the threads are stopped, the ``--trace-out`` file is written and the
-    flight recorder is disarmed."""
+    flight recorder is disarmed. A multi-pool session's fabric feeds the
+    SLO engine, the incident bundles, the observatory, the reporter line
+    and ``/telemetry``."""
     dispatcher = miner.dispatcher
     telemetry, stats = dispatcher.telemetry, dispatcher.stats
+    fabric = getattr(miner, "fabric", None)
     from .utils.reporting import StatsReporter
     from .utils.status import StatusServer
 
-    health, watchdog, slo = make_health(args, telemetry, stats)
+    health, watchdog, slo = make_health(args, telemetry, stats,
+                                        fabric=fabric)
     observatory = None
     report_task = None
     status_server = None
@@ -729,7 +746,8 @@ async def run_session(miner, args: argparse.Namespace) -> None:
         telemetry.flightrec.arm(args.flightrec_out)
     try:
         observatory = make_observatory(args, telemetry, slo,
-                                       hasher=dispatcher.hasher)
+                                       hasher=dispatcher.hasher,
+                                       fabric=fabric)
         # The line shows health and the SLO summary only while the
         # watchdog keeps them fresh; /healthz evaluates per request
         # without one.
@@ -738,13 +756,13 @@ async def run_session(miner, args: argparse.Namespace) -> None:
             health=health if watchdog is not None else None,
             accounting=getattr(miner, "accounting", None),
             slo=slo if watchdog is not None else None,
-            observatory=observatory)
+            observatory=observatory, fabric=fabric)
         report_task = asyncio.create_task(reporter.run())
         if args.status_port is not None:
             status_server = StatusServer(
                 stats, args.status_port, registry=telemetry.registry,
                 telemetry=telemetry, health=health, slo=slo,
-                tsdb=slo.store)
+                tsdb=slo.store, fabric=fabric)
             try:
                 await status_server.start()
             except (OSError, OverflowError, ValueError) as e:
@@ -816,20 +834,27 @@ def parse_hostport(url: str, scheme: str, default_port: int
     return parsed.hostname or "127.0.0.1", parsed.port or default_port
 
 
-def _pool_endpoints(pools: List[str]) -> Tuple[List[Tuple[str, int]], bool]:
-    """The ``--pool`` endpoints, primary first, and whether they use TLS.
-    A repeated ``--pool`` or a getwork+http/gbt+http URL is the multi-pool
-    fabric, which this package does not have."""
+def _pool_args(pools: List[str]) -> List[str]:
+    """The non-blank ``--pool`` values."""
     pool_args = [u.strip() for u in pools if u.strip()]
     if not pool_args:
         raise SystemExit("--pool needs at least one URL")
+    return pool_args
+
+
+def _is_pool_fabric(pools: List[str]) -> bool:
+    """A repeated ``--pool``, or one whose first URL is not Stratum
+    (``getwork+http://``, ``gbt+http://``): the multi-pool fabric."""
+    pool_args = _pool_args(pools)
     first = normalize_url(pool_args[0].split(",")[0].strip(), "stratum+tcp")
-    if len(pool_args) > 1 or urlparse(first).scheme not in (
-            "stratum+tcp", "stratum+ssl"):
-        raise SystemExit(
-            "the multi-pool fabric (a repeated --pool, or getwork+http:// "
-            "and gbt+http:// pool URLs) is not ported to this package yet; "
-            "give one --pool of stratum+tcp:// or stratum+ssl:// URLs")
+    return len(pool_args) > 1 or urlparse(first).scheme not in (
+        "stratum+tcp", "stratum+ssl")
+
+
+def _pool_endpoints(pools: List[str]) -> Tuple[List[Tuple[str, int]], bool]:
+    """The one-pool ``--pool`` endpoints, primary first, and whether they
+    use TLS."""
+    pool_args = _pool_args(pools)
     urls = [u.strip() for u in pool_args[0].split(",") if u.strip()]
     schemes = {urlparse(normalize_url(u, "stratum+tcp")).scheme for u in urls}
     if not schemes <= {"stratum+tcp", "stratum+ssl"}:
@@ -853,11 +878,16 @@ def _checkpoint(args: argparse.Namespace):
     return SweepCheckpoint(args.checkpoint)
 
 
-def make_miner(args: argparse.Namespace) -> "StratumMiner":
-    """The ``--pool`` session the options select."""
+def make_miner(args: argparse.Namespace
+               ) -> "Union[StratumMiner, MultipoolMiner]":
+    """The ``--pool`` session the options select: one pool's
+    ``StratumMiner``, or the multi-pool fabric's ``MultipoolMiner``
+    (:func:`make_fabric_miner`)."""
     from .miner.runner import StratumMiner
     from .parallel.ranges import partition_extranonce2_space
 
+    if _is_pool_fabric(args.pool):
+        return make_fabric_miner(args)
     _refuse_session_flags(args, "--pool", tuple(f for f, _ in SESSION_FLAGS))
     endpoints, use_tls = _pool_endpoints(args.pool)
     host_index = 0 if args.host_index is None else args.host_index
@@ -889,6 +919,59 @@ def make_miner(args: argparse.Namespace) -> "StratumMiner":
     )
     miner.dispatcher.checkpoint = _checkpoint(args)
     return miner
+
+
+def make_fabric_miner(args: argparse.Namespace) -> "MultipoolMiner":
+    """The multi-pool fabric the ``--pool`` URLs select (one per flag,
+    ``#w=N`` weights): one dispatcher on the options' hasher, with the
+    one-pool session's dispatcher options, its pools' sessions routed by
+    the fabric's defaults (10 s quanta, 10 s stall bound, 10 s request
+    timeout). ``--checkpoint`` is refused (sweep identity is per pool),
+    and so is ``--allow-redirect``, which the fabric's sessions would
+    ignore."""
+    from .miner.multipool import MultipoolMiner, parse_pool_spec
+    from .parallel.ranges import partition_extranonce2_space
+
+    specs = []
+    for url in _pool_args(args.pool):
+        if "," in url:
+            raise SystemExit(
+                "with repeatable --pool, give one URL per flag (commas "
+                "are the single-pool cold-failover syntax)")
+        try:
+            specs.append(parse_pool_spec(url))
+        except ValueError as e:
+            raise SystemExit(f"bad --pool URL: {e}")
+    if args.suggest_difficulty is not None and args.suggest_difficulty <= 0:
+        raise SystemExit("--suggest-difficulty must be > 0")
+    if args.checkpoint:
+        raise SystemExit(
+            "--checkpoint is not supported with the multi-pool fabric "
+            "(sweep identity is per-pool; in-memory resume still applies)")
+    _refuse_session_flags(args, "the multi-pool fabric",
+                          tuple(f for f, _ in SESSION_FLAGS
+                                if f != "allow_redirect"))
+    host_index = 0 if args.host_index is None else args.host_index
+    n_hosts = 1 if args.n_hosts is None else args.n_hosts
+    try:
+        e2_start, _space, e2_step = partition_extranonce2_space(
+            4, host_index, n_hosts)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    setup_telemetry(args, arm=False)
+    hasher = make_hasher(args)
+    return MultipoolMiner(
+        specs, username=args.user, password=args.password, hasher=hasher,
+        n_workers=args.workers,
+        batch_size=dispatch_size(hasher, args),
+        scheduler=make_scheduler(args, hasher),
+        stream_depth=args.stream_depth,
+        extranonce2_start=e2_start,
+        extranonce2_step=e2_step,
+        ntime_roll=args.ntime_roll or 0,
+        suggest_difficulty=args.suggest_difficulty,
+        tls_verify=not args.tls_no_verify,
+    )
 
 
 def make_gbt_miner(args: argparse.Namespace) -> "GbtMiner":

@@ -51,14 +51,19 @@ def _record_submit(
     telemetry: Any, t0_ns: int, share: Share, result: str,
     accounting: Optional[ShareAccountant] = None,
     difficulty: Optional[float] = None,
+    pool: Optional[str] = None, lifecycle_key: Optional[str] = None,
 ) -> None:
-    """One verdict's telemetry, the same for all three sessions: the
-    ``pool_acks{result}`` counter and the in-flight gauge the health model
-    watches, the accountant weighing the verdict by the difficulty the
-    share was mined at, a flight-recorder event, and with telemetry on
-    the ``submit_rtt`` sample, the share's ``submit`` lifecycle hop with
-    an exemplar, the ``submit`` span and the ``pool_ack`` instant. Every
-    outcome lands here, so each :func:`_submit_started` is paired."""
+    """One verdict's telemetry, the same for all three sessions and the
+    multi-pool fabric: the ``pool_acks{result}`` counter and the in-flight
+    gauge the health model watches, the accountant weighing the verdict by
+    the difficulty the share was mined at, a flight-recorder event, and
+    with telemetry on the ``submit_rtt`` sample, the share's ``submit``
+    lifecycle hop with an exemplar, the ``submit`` span and the
+    ``pool_ack`` instant. Every outcome lands here, so each
+    :func:`_submit_started` is paired. ``pool`` names the fabric slot that
+    judged the share on its ``submit`` hop; ``lifecycle_key`` replaces the
+    key derived from the share, for a caller that remapped the share's
+    identity on its way here."""
     telemetry.submits_inflight.dec()
     telemetry.pool_acks.labels(result=result).inc()
     if accounting is not None:
@@ -73,10 +78,13 @@ def _record_submit(
     telemetry.submit_rtt.observe(rtt_s)
     lc = telemetry.lifecycle
     if lc.enabled:
-        key = share_key(share.job_id, share.extranonce2, share.nonce)
+        key = lifecycle_key or share_key(share.job_id, share.extranonce2,
+                                         share.nonce)
         trace = telemetry.tracer.current_trace()
-        lc.hop(key, "submit", trace=trace, result=result,
-               rtt_s=round(rtt_s, 6))
+        hop_fields = {"result": result, "rtt_s": round(rtt_s, 6)}
+        if pool is not None:
+            hop_fields["pool"] = pool
+        lc.hop(key, "submit", trace=trace, **hop_fields)
         lc.exemplar(telemetry.submit_rtt.name, rtt_s, trace=trace, key=key,
                     result=result)
     telemetry.tracer.complete(

@@ -162,6 +162,14 @@ class StratumClient:
             reconnect_base_delay, reconnect_max_delay
         )
 
+    @property
+    def session_established(self) -> bool:
+        """True iff the latest connection attempt completed its handshake
+        (subscribe and authorize). The multi-pool fabric's circuit breaker
+        reads it in ``on_disconnect`` to tell a refused handshake from an
+        ordinary drop."""
+        return self._session_established
+
     # --------------------------------------------------------------- wiring
     async def run(self) -> None:
         """Connect and read until :meth:`stop`, reconnecting with jittered

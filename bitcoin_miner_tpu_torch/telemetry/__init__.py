@@ -53,6 +53,8 @@ from .pipeline import (  # noqa: F401
     METRIC_MESH_DEVICES,
     METRIC_MESH_REBUILDS,
     METRIC_POOL_ACKS,
+    METRIC_POOL_FAILOVER,
+    METRIC_POOL_SLOT_STATE,
     METRIC_RING_COLLECT,
     METRIC_RING_OCCUPANCY,
     METRIC_RPC_ERRORS,
@@ -69,6 +71,7 @@ from .pipeline import (  # noqa: F401
     METRIC_SUBMIT_RTT,
     METRIC_SUBMITS_INFLIGHT,
     METRIC_TSDB_SERIES,
+    POOL_SLOT_LEVELS,
     NullTelemetry,
     PipelineTelemetry,
     TelemetryBound,

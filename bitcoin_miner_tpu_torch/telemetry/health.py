@@ -19,6 +19,9 @@ component       signals
                 reject-only ack windows
 ``shares``      ``share_efficiency`` below the drift bound once
                 ``share_expected`` clears the confidence floor
+``pools``       the multi-pool fabric's ``pool_slot_state`` gauges: any
+                slot degraded or dead degrades it, all slots dead stall
+                it (no upstream left to mine for)
 ``fleet``       the fleet supervisor's ``fleet_child_state`` gauges: any
                 child degraded, probing or quarantined degrades it, all
                 children quarantined stall it (nothing left to hash with)
@@ -33,9 +36,10 @@ component       signals
                 ``chip_dispatches`` still
 ==============  =====================================================
 
-The reference's ``frontend``, ``frontend_shard`` and ``pools`` rules come
-with the modules that feed them: their inputs are absent here, and an
-absent input is no component, as in the reference. The ``slo`` and
+The reference's ``frontend`` and ``frontend_shard`` rules come with the
+pool frontend that feeds them: their inputs are absent here, and an
+absent input is no component, as in the reference (so too ``pools``
+without a fabric). The ``slo`` and
 ``share_loss`` components exist only with an SLO engine (``slo=``).
 
 The stall rules share one shape: work is pending but the component's
@@ -58,7 +62,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from .pipeline import FLEET_CHILD_LEVELS
+from .pipeline import FLEET_CHILD_LEVELS, POOL_SLOT_LEVELS
 from .shareacct import DRIFT_DEGRADED_BELOW, MIN_EXPECTED_SHARES
 
 logger = logging.getLogger(__name__)
@@ -233,6 +237,7 @@ class HealthModel:
             "share_efficiency": getattr(
                 tel.share_efficiency, "value", 0.0
             ),
+            "pool_slots": self._children_by_label(tel.pool_slot_state),
             "fleet_children": self._children_by_label(
                 tel.fleet_child_state
             ),
@@ -371,6 +376,31 @@ class HealthModel:
                 )
             else:
                 report["shares"] = ComponentHealth("shares", OK)
+
+        # pools: the multi-pool fabric's slot gauges (absent or empty: no
+        # fabric, no component, so a one-pool session is unaffected). The
+        # fabric fails over within a dispatch generation; this is the
+        # operator's view: a slot parked degraded or dead costs
+        # redundancy, and all dead leaves no upstream to mine for.
+        slots: Dict[str, float] = snap.get("pool_slots", {})
+        if slots:
+            dead = sorted(k for k, v in slots.items()
+                          if v >= POOL_SLOT_LEVELS["dead"])
+            bad = sorted(k for k, v in slots.items()
+                         if v >= POOL_SLOT_LEVELS["degraded"])
+            if len(dead) == len(slots):
+                report["pools"] = ComponentHealth(
+                    "pools", STALLED,
+                    f"all {len(slots)} upstream pool slots dead",
+                )
+            elif bad:
+                report["pools"] = ComponentHealth(
+                    "pools", DEGRADED,
+                    f"pool slots not serving: {', '.join(bad)} "
+                    f"({len(slots) - len(bad)} live)",
+                )
+            else:
+                report["pools"] = ComponentHealth("pools", OK)
 
         # fleet: the supervisor's per-child gauges (absent or empty: no
         # supervisor, no component). The supervisor reclaims and rejoins

@@ -5,9 +5,9 @@ metric names, help strings, label sets and buckets, which dashboards and
 the reference's surfaces read. Only the families that this package emits
 (the dispatcher, the dispatch ring, the scheduler, the runners, the
 fan-out and the mesh-native ring, the fleet supervisor, the health model,
-the share accountant, the SLO engine, the incident capture and the
-time-series store) and those of the gRPC seam are registered; the pool
-frontend's and the multi-pool fabric's come with their modules.
+the share accountant, the SLO engine, the incident capture, the
+time-series store and the multi-pool fabric) and those of the gRPC seam
+are registered; the pool frontend's come with its module.
 
 ``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
 :class:`Tracer`, a :class:`FlightRecorder` and a
@@ -84,6 +84,17 @@ METRIC_MESH_DEVICES = "tpu_miner_mesh_devices"
 #: restore.
 METRIC_MESH_REBUILDS = "tpu_miner_mesh_rebuilds"
 
+#: Per-upstream-pool slot state of the multi-pool fabric
+#: (``miner/multipool.py``), labeled pool=<label>, valued by
+#: :data:`POOL_SLOT_LEVELS` (connecting 0 … dead 4). The health model's
+#: ``pools`` component reads the children: any slot degraded or dead
+#: degrades it, all dead stalls it (no upstream left).
+METRIC_POOL_SLOT_STATE = "tpu_miner_pool_slot_state"
+#: Upstream failovers (the active pool lost liveness and the next dispatch
+#: generation targeted another slot), labeled
+#: reason=disconnect|stalled|breaker|dead.
+METRIC_POOL_FAILOVER = "tpu_miner_pool_failover"
+
 #: Per-child state of the fleet supervisor's health machine
 #: (``parallel/supervisor.py``), labeled child=<label>, valued by
 #: :data:`FLEET_CHILD_LEVELS` (active 0 … quarantined 3). The health
@@ -115,6 +126,17 @@ METRIC_TSDB_SERIES = "tpu_miner_tsdb_series"
 #: stale.
 METRIC_FEDERATE_SCRAPES = "tpu_miner_federate_scrapes"
 
+#: A slot's state → the ``pool_slot_state`` gauge value: one definition
+#: for the fabric, which sets the gauge, and the health model, which
+#: classifies from it.
+POOL_SLOT_LEVELS = {
+    "connecting": 0.0,
+    "syncing": 1.0,
+    "active": 2.0,
+    "degraded": 3.0,
+    "dead": 4.0,
+}
+
 #: A child's state → the ``fleet_child_state`` gauge value: one definition
 #: for the supervisor, which sets the gauge, and the health model, which
 #: classifies from it.
@@ -135,7 +157,8 @@ BUNDLE_METRICS = (
     "ring_occupancy", "stream_window", "consts_cache", "stale_drops",
     "batch_nonces", "sched_resizes", "pool_acks", "submits_inflight",
     "rpc_responses", "rpc_errors", "chip_dispatches", "chip_inflight",
-    "mesh_devices", "mesh_rebuilds", "fleet_child_state", "fleet_reclaims",
+    "mesh_devices", "mesh_rebuilds", "pool_slot_state", "pool_failover",
+    "fleet_child_state", "fleet_reclaims",
     "health", "share_efficiency", "share_expected", "share_lost",
     "slo_burn", "slo_slot_burn", "incidents", "tsdb_series",
     "federate_scrapes",
@@ -276,6 +299,16 @@ class PipelineTelemetry:
             METRIC_MESH_REBUILDS,
             "Mesh-native topology transitions (quarantine degradation, "
             "mesh rebuild, device restore)",
+            labelnames=("reason",),
+        )
+        self.pool_slot_state = r.gauge(
+            METRIC_POOL_SLOT_STATE,
+            "Upstream pool slot FSM state (0 connecting … 4 dead)",
+            labelnames=("pool",),
+        )
+        self.pool_failover = r.counter(
+            METRIC_POOL_FAILOVER,
+            "Upstream failovers (active pool replaced mid-run)",
             labelnames=("reason",),
         )
         self.fleet_child_state = r.gauge(

@@ -24,9 +24,9 @@ bounded and dependency-free:
   naming scheme);
 - :class:`Observatory`: the daemon collector thread gluing them together
   (the ``HealthWatchdog`` loop), exporting ``tpu_miner_tsdb_series`` and
-  the reporter's ``tsdb N series`` fragment. Its fabric stage reads the
-  multi-pool fabric, which this package does not have: it stays a no-op
-  while ``fabric`` is None;
+  the reporter's ``tsdb N series`` fragment. With a multi-pool fabric
+  (``miner/multipool.py``) it samples each slot's window accept rate as
+  ``fabric.slot_accept_rate{pool}``;
 - the ``tpu-miner-query/1`` schema: :meth:`TimeSeriesStore.query`
   renders it (the ``/query`` body), :func:`parse_query_payload`
   validates it (``top`` and the tests load it).
@@ -832,11 +832,13 @@ class Observatory:
 
     def _sample_fabric(self, now: float) -> None:
         """Per-slot accept-window rates from the fabric snapshot — the
-        one fleet surface with no status port of its own."""
+        one fleet surface with no status port of its own. A slot's rate is
+        in its ``window`` (``PoolSlot.snapshot``); the reference reads the
+        slot's top level, so with a real fabric it samples nothing."""
         snap = self.fabric.snapshot()
         for slot in snap.get("slots", ()):
             label = slot.get("label")
-            rate = slot.get("accept_rate")
+            rate = (slot.get("window") or {}).get("accept_rate")
             if label is None or rate is None:
                 continue
             self.store.ingest(

@@ -71,12 +71,16 @@ class MockStratumPool:
         extranonce2_size: int = 4,
         difficulty: float = 1.0,
         version_mask: int = 0,
+        *,
+        authorized_users: Optional[List[str]] = None,
     ) -> None:
         self.extranonce1 = extranonce1
         self.extranonce2_size = extranonce2_size
         self.difficulty = difficulty
         #: BIP 310 mask offered via mining.configure (0 = unsupported).
         self.version_mask = version_mask
+        #: the users ``mining.authorize`` accepts (None: everyone).
+        self.authorized_users = authorized_users
         self.jobs: Dict[str, PoolJob] = {}
         self.current_job: Optional[PoolJob] = None
         self.shares: List[SubmittedShare] = []
@@ -125,6 +129,9 @@ class MockStratumPool:
     async def _serve(
         self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
     ) -> None:
+        if not await self._accept(writer):
+            writer.close()
+            return
         self._clients.append(writer)
         try:
             while True:
@@ -135,8 +142,9 @@ class MockStratumPool:
                     msg = json.loads(line)
                 except json.JSONDecodeError:
                     continue
-                writer.write((json.dumps(self._dispatch(msg)) + "\n").encode())
-                await writer.drain()
+                reply = self._dispatch(msg)
+                if reply is not None:
+                    await self._send_reply(writer, reply)
                 # Greet a fresh session the way real pools do: difficulty,
                 # then the current job, right after authorize.
                 if msg.get("method") == "mining.authorize" and self.current_job:
@@ -163,6 +171,17 @@ class MockStratumPool:
                 self._clients.remove(writer)
             writer.close()
 
+    # The seams the fault injector (``testing/chaos_pool.py``) overrides:
+    # whether a fresh connection is served, and how (whether) a reply
+    # reaches the wire. The base pool always serves and answers.
+    async def _accept(self, writer: asyncio.StreamWriter) -> bool:
+        return True
+
+    async def _send_reply(self, writer: asyncio.StreamWriter,
+                          reply: dict) -> None:
+        writer.write((json.dumps(reply) + "\n").encode())
+        await writer.drain()
+
     def _dispatch(self, msg: dict) -> dict:
         method = msg.get("method")
         req_id = msg.get("id")
@@ -184,7 +203,9 @@ class MockStratumPool:
             ]
             return {"id": req_id, "result": result, "error": None}
         if method == "mining.authorize":
-            return {"id": req_id, "result": True, "error": None}
+            user = params[0] if params else ""
+            ok = self.authorized_users is None or user in self.authorized_users
+            return {"id": req_id, "result": ok, "error": None}
         if method == "mining.suggest_difficulty":
             return {"id": req_id, "result": True, "error": None}
         if method == "mining.submit":

@@ -5,7 +5,8 @@ Counterpart of ``bitcoin_miner_tpu/utils/reporting.py``: a windowed MH/s
 the busy clock's device rate and the share counters; with a telemetry
 bundle the dispatch-gap p50/p95/p99 and submit-RTT p95 from the
 histograms ``/metrics`` exports; the share accountant's confident
-efficiency; the SLO engine's worst burning objective (``slo ok`` when
+efficiency; with a multi-pool fabric, its live slots (``pools L/N
+live``); the SLO engine's worst burning objective (``slo ok`` when
 none burns); the time-series store's ``tsdb N series``; and the health
 model's cached verdict.
 """
@@ -29,7 +30,7 @@ class StatsReporter:
         self, stats: MinerStats, interval: float = 10.0,
         telemetry: Optional[Any] = None, health: Optional[Any] = None,
         accounting: Optional[Any] = None, slo: Optional[Any] = None,
-        observatory: Optional[Any] = None,
+        observatory: Optional[Any] = None, fabric: Optional[Any] = None,
     ) -> None:
         self.stats = stats
         self.interval = interval
@@ -46,6 +47,9 @@ class StatsReporter:
         #: the observatory: its store's series count shows the collection
         #: plane is alive, and how wide a fleet it sees.
         self.observatory = observatory
+        #: the multi-pool fabric: the line counts its live slots, read
+        #: from the same slot states as ``/telemetry``'s ``pool_fabric``.
+        self.fabric = fabric
         self._last_hashes = 0
         self._last_t = time.monotonic()
 
@@ -84,6 +88,10 @@ class StatsReporter:
             eff = self.accounting.tick()
             if eff is not None:
                 line += f" | share eff {eff:.2f}"
+        if self.fabric is not None:
+            slots = self.fabric.slots
+            live = sum(1 for slot in slots if slot.live)
+            line += f" | pools {live}/{len(slots)} live"
         for source in (self.slo, self.observatory):
             # Cached reads only: the watchdog and the observatory's thread
             # are the ones that evaluate and collect.

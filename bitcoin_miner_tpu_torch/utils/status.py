@@ -7,7 +7,8 @@ HTTP server with one request per connection ("Connection: close"):
   Prometheus exposition format (``# HELP``/``# TYPE``, counters
   ``_total``);
 - ``/telemetry``: the registry's JSON snapshot, histograms with p50/p95/
-  p99;
+  p99, and with a multi-pool fabric its snapshot under ``pool_fabric``
+  (the active slot, weights, failovers, each slot's state and window);
 - ``/healthz``: the health model's verdict, 200, or 503 with the reasons
   when a component is stalled;
 - ``/trace``: the span buffer as Chrome trace-event JSON;
@@ -20,8 +21,8 @@ HTTP server with one request per connection ("Connection: close"):
   a 400 naming it;
 - any other path: :func:`stats_snapshot` as JSON.
 
-The reference's pool-fabric and shard payloads come with those modules.
-A request line or header over the
+The reference's shard payload comes with the sharded pool frontend. A
+request line or header over the
 reader's 64 KiB limit gets no answer and an orderly close: the server
 half-closes, then reads and drops what the client sent (bounded in bytes
 and time) before closing, so the client reads an empty response, not a
@@ -130,7 +131,7 @@ class StatusServer:
         self, stats: MinerStats, port: int, host: str = "127.0.0.1",
         registry: Optional[Any] = None, telemetry: Optional[Any] = None,
         health: Optional[Any] = None, slo: Optional[Any] = None,
-        tsdb: Optional[Any] = None,
+        tsdb: Optional[Any] = None, fabric: Optional[Any] = None,
     ) -> None:
         self.stats = stats
         self.host = host
@@ -140,6 +141,8 @@ class StatusServer:
         self.health = health
         self.slo = slo
         self.tsdb = tsdb
+        #: the multi-pool fabric whose snapshot ``/telemetry`` carries.
+        self.fabric = fabric
         self._server: Optional[asyncio.AbstractServer] = None
 
     async def start(self) -> None:
@@ -225,7 +228,12 @@ class StatusServer:
         if path == "/slo" and self.slo is not None:
             return json.dumps(self.slo.report_dict(), default=str).encode()
         if path == "/telemetry" and self.registry is not None:
-            return json.dumps(self.registry.snapshot(), default=str).encode()
+            payload = dict(self.registry.snapshot())
+            if self.fabric is not None:
+                # What the gauges cannot carry: each slot's window, the
+                # measured weights, the active slot, the failovers.
+                payload["pool_fabric"] = self.fabric.snapshot()
+            return json.dumps(payload, default=str).encode()
         if tel is None:
             return None
         if path == "/trace":

@@ -90,6 +90,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``--status-port`` mined through by a parent session naming it
    ``--worker HOST:PORT@STATUSPORT``, whose ``/query`` must hold the
    worker's series (``served_worker_federation``);
+7d. the multi-pool fabric, built by ``cli.make_miner`` and run by
+   ``cli.run_session`` as ``--pool stratum+tcp://A#w=3 --pool
+   stratum+tcp://B --pool gbt+http://N --workers 4 --status-port P
+   --health-interval 1`` with the routing defaults (10 s quanta, stall
+   bound and request timeout): two chaos pools at difficulty 1 and the
+   fake node at regtest's nbits; after 25 s A goes mute (a half-open
+   socket) wherever the dispatcher is and the session mines 30 s more,
+   printing what that leads to (A's state, failovers, seconds without a
+   launch); then a second session in which A goes mute once it owns the
+   dispatcher with its shares flowing and keeps it for the next quantum.
+   Every share each pool's validator saw is valid, no block is refused
+   but for a stale tip, the second mute ends in a ``pool_failover`` and
+   A degraded, ``/healthz`` and ``/telemetry`` show the fabric; it prints
+   the seconds from each mute to the next slot's generation, the card's
+   rate before and after each mute, its seconds without a launch, and
+   the share of requests dropped as stale (``fabric_session``). Then two
+   pools with ``--vshare 2``: A grants 0x1FFFE000, B no mask, so each
+   route switch moves the hasher between the K=2 tile kernel and its
+   degraded K=1 build (``fabric_session_vshare``);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -194,6 +213,21 @@ OBS_SWEEP_WARM = 7
 #: 1 µs (the first bucket bound at or above it, 10 µs, counts as good; a
 #: local round trip takes milliseconds).
 OBS_FAST_WINDOW, OBS_SLOW_WINDOW = 4, 12
+#: fabric_session: the chaos pools' share difficulty (~1.5 shares a second
+#: at the card's rate, a share or none per request, so a worker parked on
+#: the muted pool holds one), seconds mined before pool A goes mute, the
+#: most seconds to wait after that (in the session that is held to a
+#: failover) for a moment A's shares flow and A keeps the dispatcher for
+#: the next 10 s quantum (so that A still owns it when the 10 s stall
+#: bound passes: a stall is a failover only for the slot that owns the
+#: dispatcher, and after a GBT quantum at regtest A's shares take ~20 s
+#: to flow), and seconds mined after the mute; fabric_session_vshare's
+#: seconds.
+FABRIC_DIFFICULTY = 1.0
+FABRIC_PRE_MUTE_S = 25.0
+FABRIC_WAIT_ACTIVE_S = 120.0
+FABRIC_POST_MUTE_S = 30.0
+FABRIC_VSHARE_S = 20.0
 OBS_OBJECTIVES = {"schema": "tpu-miner-slo-objectives/1", "objectives": [
     {"name": "submit-rtt-1us", "kind": "latency", "target": 0.99,
      "threshold_s": 1e-6, "signal": "tpu_miner_submit_rtt_seconds",
@@ -1394,6 +1428,43 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return {**result, "worker_exit": rc,
                 "worker_launches": launched(counts)}
 
+    def fabric_session():
+        """:func:`fabric_stratum` twice: the three-slot fabric with pool A
+        muted at a fixed time (``fixed_time_mute``), then at the moment a
+        stall becomes a failover, on the one-chain tile kernel; the
+        rates beside ``stratum_session_telemetry``'s."""
+        s.reset_counts()
+        fixed = asyncio.run(asyncio.wait_for(
+            fabric_stratum(pkg, fixed_mute=True), 300))
+        result = asyncio.run(asyncio.wait_for(
+            fabric_stratum(pkg, fixed_mute=False), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0, counts
+        assert not any(n for name, n in counts.items() if "_k" in name), (
+            f"a K>1 kernel launched in the one-chain fabric: {counts}")
+        no_hitbuf_pair(counts)
+        ref = s.sweep_mhs["stratum_session_telemetry"]
+        fixed.pop("routing")
+        return {**result, "fixed_time_mute": fixed,
+                "stratum_session_telemetry_mhs": ref,
+                "mhs_before_vs_telemetry_session":
+                    result["mhs_before_mute"] / ref,
+                "mhs_after_vs_telemetry_session":
+                    result["mhs_after_mute"] / ref,
+                "launches": launched(counts)}
+
+    def fabric_session_vshare():
+        """:func:`fabric_vshare`: K=2 on pool A's jobs, the degraded K=1
+        build on pool B's."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(fabric_vshare(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile_k2"] > 0 and counts["scan_tile"] > 0, counts
+        assert not any(n for name, n in counts.items()
+                       if "_k" in name and name != "scan_tile_k2"), counts
+        no_hitbuf_pair(counts)
+        return {**result, "launches": launched(counts)}
+
     def perf_cli_roundtrip():
         """:func:`perf_roundtrip` on ``dispatcher_sweep``'s rows: their
         fingerprint must name this card and its power limit."""
@@ -2086,6 +2157,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("dispatcher_sweep", dispatcher_sweep)
     s.phase("stratum_session_observatory", stratum_session_observatory)
     s.phase("perf_cli_roundtrip", perf_cli_roundtrip)
+    s.phase("fabric_session", fabric_session)
+    s.phase("fabric_session_vshare", fabric_session_vshare)
     s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
     for name, fn in (("served_hasher_session", served_hasher_session),
                      ("grpc_fleet_session", grpc_fleet_session),
@@ -3020,6 +3093,352 @@ async def observatory_stratum(pkg) -> dict:
             "mhs": (b[1] - a[1]) * hasher.batch_size / window / 1e6}
 
 
+def fabric_pool_job(pkg, job_id: str):
+    return pkg.PoolJob(
+        job_id=job_id,
+        prevhash_internal=pkg.sha256d(b"chip smoke fabric " +
+                                      job_id.encode()),
+        coinb1=bytes.fromhex("01000000") + b"\x11" * 30,
+        coinb2=b"\x22" * 30 + bytes.fromhex("00000000"),
+        merkle_branch=[pkg.sha256d(b"tx1"), pkg.sha256d(b"tx2")],
+        version=0x20000000, nbits=0x1D00FFFF, ntime=0x655F2B2C)
+
+
+async def fabric_pools(pkg, mask_a: int = 0, mask_b: int = 0) -> tuple:
+    """Chaos pools A and B at :data:`FABRIC_DIFFICULTY`, each with its own
+    extranonce1, job and BIP 310 mask."""
+    pools = []
+    for name, e1, mask in (("fabric-a", "deadbeef", mask_a),
+                           ("fabric-b", "beadfeed", mask_b)):
+        pool = pkg.ChaosStratumPool(difficulty=FABRIC_DIFFICULTY,
+                                    extranonce1=bytes.fromhex(e1),
+                                    version_mask=mask)
+        await pool.start()
+        await pool.announce_job(fabric_pool_job(pkg, name))
+        pools.append(pool)
+    return tuple(pools)
+
+
+def tile_launches(pkg) -> int:
+    return sum(c.value for c in pkg.csrc.counters()
+               if c.name.startswith("scan_tile"))
+
+
+async def fabric_stratum(pkg, fixed_mute: bool) -> dict:
+    """The multi-pool fabric as ``--pool stratum+tcp://A#w=3 --pool
+    stratum+tcp://B --pool gbt+http://N --workers 4 --status-port P
+    --health-interval 1`` builds it (``cli.make_miner``) and
+    ``cli.run_session`` runs it, with the command line's routing defaults,
+    on a fresh telemetry bundle: A and B chaos pools at
+    :data:`FABRIC_DIFFICULTY`, N the fake node at regtest's nbits taking
+    each accepted block as its next tip. After :data:`FABRIC_PRE_MUTE_S`
+    of mining A goes mute (reads every request, answers none): with
+    ``fixed_mute`` at once, wherever the dispatcher is, and the session
+    mines :data:`FABRIC_POST_MUTE_S` more (a stall is a failover only for
+    the slot owning the dispatcher at a routing tick, so this mute is
+    measured, not held to one); else at the first moment A owns the
+    dispatcher, its shares flow and the stride scheduler's next pick is A
+    again, and the session mines :data:`FABRIC_POST_MUTE_S` more, until
+    the stall rule has degraded A and a failover moved the dispatcher. A
+    sampler records the tile kernel's launches every 0.1 s: the card's
+    rate over all nonces before and after the mute (launches × 2^24) and
+    the seconds after it with no launch (workers parked on submits to the
+    muted pool until the request timeout)."""
+    a, b = await fabric_pools(pkg)
+    node = pkg.FakeNode(nbits=pkg.REGTEST_NBITS, advance_tip=True)
+    await node.start()
+    port = free_port()
+    args = cli_args(pkg, [
+        "--pool", f"stratum+tcp://127.0.0.1:{a.port}#w=3",
+        "--pool", f"stratum+tcp://127.0.0.1:{b.port}",
+        "--pool", f"gbt+http://127.0.0.1:{node.port}", "--user", "smoke",
+        "--workers", "4", "--status-port", str(port),
+        "--health-interval", "1"])
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    miner = pkg.cli.make_miner(args)
+    assert isinstance(miner, pkg.MultipoolMiner), miner
+    dispatcher, fabric = miner.dispatcher, miner.fabric
+    hasher = dispatcher.hasher
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and dispatcher.telemetry is tel
+    assert (fabric.route_interval_s, fabric.stall_after_s,
+            fabric.request_timeout) == (10.0, 10.0, 10.0)
+    slot_a = fabric.slots[0]
+    stats = dispatcher.stats
+    task = asyncio.create_task(pkg.cli.run_session(miner, args))
+    timeline = []  # (seconds, tile launches)
+    #: (seconds from the start, the owning slot, each slot's state), at
+    #: every change the sampler sees.
+    routing = []
+    #: when the sampler last saw a stride pass move (a routing pick).
+    last_pick = [float("-inf")]
+    passes = [None]
+
+    def route_state() -> tuple:
+        active = fabric.active
+        return (None if active is None else active.index,
+                tuple(slot.state for slot in fabric.slots))
+
+    async def sample() -> None:
+        while True:
+            now = time.perf_counter()
+            timeline.append((now, tile_launches(pkg)))
+            state = route_state()
+            if not routing or routing[-1][1:] != state:
+                routing.append((round(now - t0, 2), *state))
+            moved = tuple(sl._pass for sl in fabric.slots)
+            if moved != passes[0]:
+                passes[0], last_pick[0] = moved, now
+            await asyncio.sleep(0.1)
+
+    def where() -> str:
+        """The session's line with the fabric's routing state."""
+        return (f"{stats.summary()} | failovers {fabric.failovers} | "
+                f"dispatch_log {fabric.dispatch_log[-12:]} | slots "
+                f"{[(sl.state, sl.inflight, sl._pass) for sl in fabric.slots]}"
+                f" | routing {routing[-12:]}")
+
+    sampler = asyncio.create_task(sample())
+
+    async def mute_a(must_fail_over: bool) -> dict:
+        """Mute A and mine :data:`FABRIC_POST_MUTE_S`; with
+        ``must_fail_over``, on until the stall rule has degraded A, a
+        failover moved the dispatcher and a watchdog tick has seen it."""
+        n0 = len(fabric.dispatch_log)
+        switch = []
+
+        def switched() -> bool:
+            if not switch and any(i != slot_a.index
+                                  for _g, i in fabric.dispatch_log[n0:]):
+                switch.append(time.perf_counter())
+            return bool(switch)
+
+        failovers0 = fabric.failovers
+        out = {"mute_at_s": round(time.perf_counter() - t0, 2),
+               "a_owned_dispatcher_at_mute": fabric.active is slot_a,
+               "accepted_on_A_before_mute": sum(sh.accepted
+                                                for sh in a.shares)}
+        a.mute = True
+        t_mute = time.perf_counter()
+
+        def done() -> bool:
+            now = time.perf_counter()
+            moved = switched()
+            if now - t_mute < FABRIC_POST_MUTE_S:
+                return False
+            return not must_fail_over or (
+                moved and now - switch[0] >= 2.0
+                and slot_a.state == "degraded"
+                and fabric.failovers > failovers0)
+
+        await until(task, done, "the failover after the mute"
+                    if must_fail_over else "the mute's window", where,
+                    FABRIC_POST_MUTE_S + 45)
+        t_end = time.perf_counter()
+        return {**out, "t_mute": t_mute, "t_end": t_end,
+                "slot_a_state": slot_a.state,
+                "failovers": fabric.failovers - failovers0,
+                "seconds_mute_to_other_slot":
+                    switch[0] - t_mute if switch else None,
+                "dispatch_log_slots": [i for _g, i
+                                       in fabric.dispatch_log[n0:]]}
+
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        await until(task, lambda: stats.shares_accepted >= 1,
+                    "a first accepted share", where, 120)
+        t_first = time.perf_counter()
+        await until(task, lambda: time.perf_counter() - t_first
+                    >= FABRIC_PRE_MUTE_S, "pre-mute window", where,
+                    FABRIC_PRE_MUTE_S + 60)
+        def a_keeps_the_dispatcher() -> bool:
+            """A owns the dispatcher, its pool answered a submit in the
+            last 2 s (A's shares flow: the previous owner's requests have
+            drained), the last routing pick was at most 6 s ago, and the
+            next one falls to A too (the live slot with the lowest stride
+            pass, ties to the lower index). Muted now, A leaves a submit
+            unanswered within ~2 s, and the quantum after next finds it
+            past the 10 s stall bound while A still owns the dispatcher."""
+            live = [sl for sl in fabric.slots if sl.live]
+            if fabric.active is not slot_a or not live:
+                return False
+            nxt = min(live, key=lambda sl: (sl._pass, sl.index))
+            answered = slot_a.last_verdict_t
+            return (nxt is slot_a and answered is not None
+                    and time.monotonic() - answered <= 2.0
+                    and time.perf_counter() - last_pick[0] <= 6.0)
+
+        if not fixed_mute:
+            await until(task, a_keeps_the_dispatcher,
+                        "pool A owning the dispatcher for the next quantum"
+                        " too", where, FABRIC_WAIT_ACTIVE_S)
+        muted = await mute_a(must_fail_over=not fixed_mute)
+        code, body = await http_get(port, "/healthz")
+        health = json.loads(body)
+        # 503 when a component reads stalled: a muted pool's pending
+        # submits can make the session's `pool` rule read so.
+        assert code == (503 if health["status"] == "stalled" else 200), (
+            code, health)
+        assert "pools" in health["components"], health
+        out["healthz_status"] = health["status"]
+        out["healthz_pools"] = health["components"]["pools"]
+        code, body = await http_get(port, "/telemetry")
+        out["telemetry_pool_fabric_active"] = json.loads(
+            body)["pool_fabric"]["active"]
+        out["fabric_snapshot"] = fabric.snapshot()
+    finally:
+        sampler.cancel()
+        await asyncio.gather(sampler, return_exceptions=True)
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        for server in (a, b, node):
+            await server.stop()
+        tel.flightrec.disarm()
+    task.result()
+
+    def rate(t_from: float, t_to: float) -> float:
+        pts = [(t, n) for t, n in timeline if t_from <= t <= t_to]
+        return (pts[-1][1] - pts[0][1]) * hasher.batch_size / (
+            pts[-1][0] - pts[0][0]) / 1e6
+
+    def idle(t_from: float, t_to: float) -> float:
+        """Seconds between two samples with no launch between."""
+        return sum(t_b - t_a for (t_a, n_a), (t_b, n_b)
+                   in zip(timeline, timeline[1:])
+                   if t_from <= t_a and t_b <= t_to and n_b == n_a)
+
+    def window(mute: dict) -> dict:
+        t_mute, t_end = mute.pop("t_mute"), mute.pop("t_end")
+        quiet = idle(t_mute, t_end)
+        return {**mute, "mhs_after_mute": rate(t_mute, t_end),
+                "seconds_after_mute": t_end - t_mute,
+                "seconds_without_launch_after_mute": quiet,
+                "idle_share_after_mute": quiet / (t_end - t_mute)}
+
+    t_mute = muted["t_mute"]
+    muted = window(muted)
+    assert a.shares, "pool A saw no share before the mute"
+    for pool in (a, b):
+        assert all(sh.accepted for sh in pool.shares), [
+            sh.reason for sh in pool.shares if not sh.accepted]
+        assert all(sh.job_id in pool.jobs for sh in pool.shares)
+    node_rejects = {blk.reason for blk in node.blocks if not blk.accepted}
+    assert node_rejects <= {"inconclusive-not-best-prevblk"}, node_rejects
+    assert stats.hw_errors == 0 and stats.shares_rejected == 0, (
+        stats.summary())
+    if not fixed_mute:
+        assert slot_a.state == "degraded" and muted["failovers"] >= 1
+    failover = {k[0]: c.value for k, c in tel.pool_failover.children()}
+    drops = {k[0]: c.value for k, c in tel.stale_drops.children()}
+    slots = {s["label"]: s for s in out.pop("fabric_snapshot")["slots"]}
+    return {**out, **muted,
+            "accepted_per_pool": {"A": sum(sh.accepted for sh in a.shares),
+                                  "B": sum(sh.accepted for sh in b.shares)},
+            "validator_accepted_share": {
+                name: sum(sh.accepted for sh in pool.shares)
+                / len(pool.shares) if pool.shares else None
+                for name, pool in (("A", a), ("B", b))},
+            "blocks_accepted_by_node": sum(blk.accepted
+                                           for blk in node.blocks),
+            "blocks_stale_tip": len(node.blocks) - sum(
+                blk.accepted for blk in node.blocks),
+            "pool_failover": failover,
+            "routing": routing,
+            "slot_states": {label: slot["state"]
+                            for label, slot in slots.items()},
+            "slot_windows": {label: slot["window"]
+                             for label, slot in slots.items()},
+            "mhs_before_mute": rate(t_first, t_mute),
+            "seconds_before_mute": t_mute - t_first,
+            "stale_drops": drops, "requests": stats.batches,
+            "mean_request_nonces": stats.hashes / max(1, stats.batches),
+            "stale_request_share": drops.get("result", 0.0)
+                / max(1, stats.batches),
+            "shares_stale": stats.shares_stale,
+            "stale_unroutable": fabric.stale_unroutable,
+            "hw_errors": stats.hw_errors,
+            "phase_seconds": time.perf_counter() - t0}
+
+
+async def fabric_vshare(pkg) -> dict:
+    """Two pools as ``--pool stratum+tcp://A --pool stratum+tcp://B
+    --workers 4 --vshare 2`` builds them (``cli.make_miner``), the routing
+    defaults: A grants :data:`VERSION_MASK`, B no mask, so A's jobs run the
+    K=2 tile kernel and B's its degraded K=1 build, switched by
+    ``Dispatcher.set_job`` → ``set_version_mask`` at each route change. It
+    mines :data:`FABRIC_VSHARE_S` and until each slot has owned the
+    dispatcher and A has accepted sibling shares; the launches are
+    attributed to the slot owning the dispatcher when they are read
+    (every 0.05 s)."""
+    a, b = await fabric_pools(pkg, mask_a=VERSION_MASK)
+    args = cli_args(pkg, [
+        "--pool", f"stratum+tcp://127.0.0.1:{a.port}",
+        "--pool", f"stratum+tcp://127.0.0.1:{b.port}", "--user", "smoke",
+        "--workers", "4", "--vshare", "2"])
+    miner = pkg.cli.make_miner(args)
+    assert isinstance(miner, pkg.MultipoolMiner), miner
+    fabric = miner.fabric
+    stats = miner.dispatcher.stats
+    task = asyncio.create_task(miner.run())
+    per_slot = {0: {"k1": 0, "k2": 0}, 1: {"k1": 0, "k2": 0}}
+    last = [0, 0]
+
+    def counts() -> tuple:
+        k = {c.name: c.value for c in pkg.csrc.counters()}
+        return k.get("scan_tile", 0), k.get("scan_tile_k2", 0)
+
+    def attribute() -> None:
+        k1, k2 = counts()
+        active = fabric.active
+        if active is not None:
+            per_slot[active.index]["k1"] += k1 - last[0]
+            per_slot[active.index]["k2"] += k2 - last[1]
+        last[:] = [k1, k2]
+
+    def siblings(pool) -> int:
+        return sum(1 for sh in pool.shares
+                   if sh.accepted and sh.version_bits)
+
+    def done() -> bool:
+        attribute()
+        return (time.perf_counter() - t0 >= FABRIC_VSHARE_S
+                and {i for _g, i in fabric.dispatch_log} == {0, 1}
+                and siblings(a) >= 1 and sum(sh.accepted for sh in b.shares))
+
+    t0 = time.perf_counter()
+    try:
+        await until(task, done, "both slots served, siblings on A",
+                    stats.summary, FABRIC_VSHARE_S + 60)
+    finally:
+        miner.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        await a.stop()
+        await b.stop()
+    task.result()
+    for pool, mask in ((a, VERSION_MASK), (b, 0)):
+        assert pool.shares and all(sh.accepted for sh in pool.shares), [
+            sh.reason for sh in pool.shares if not sh.accepted]
+        assert all(sh.version_bits is None if not mask else
+                   sh.version_bits & ~mask == 0 for sh in pool.shares)
+    assert per_slot[0]["k2"] > 0 and per_slot[1]["k1"] > 0, per_slot
+    assert stats.hw_errors == 0, stats.summary()
+    return {"accepted_per_pool": {"A": sum(sh.accepted for sh in a.shares),
+                                  "B": sum(sh.accepted for sh in b.shares)},
+            "sibling_accepted_A": siblings(a),
+            "chain0_accepted_A": sum(1 for sh in a.shares
+                                     if sh.accepted and not sh.version_bits),
+            "sibling_version_bits_A": sorted({
+                f"{sh.version_bits:#010x}" for sh in a.shares
+                if sh.version_bits}),
+            "version_bits_B": sorted({str(sh.version_bits)
+                                      for sh in b.shares}),
+            "launches_by_active_slot": {"A": per_slot[0], "B": per_slot[1]},
+            "dispatch_log_slots": [i for _g, i in fabric.dispatch_log],
+            "hw_errors": stats.hw_errors,
+            "seconds": time.perf_counter() - t0}
+
+
 async def federated_stratum(pkg, worker: "Worker", worker_status: int
                             ) -> dict:
     """A Stratum session as ``--pool URL --workers 4 --worker
@@ -3170,6 +3589,7 @@ class _Package:
             dispatch_granularity,
         )
         from bitcoin_miner_tpu_torch.miner.dispatcher import Dispatcher
+        from bitcoin_miner_tpu_torch.miner.multipool import MultipoolMiner
         from bitcoin_miner_tpu_torch.miner.job import (
             Job,
             StratumJobParams,
@@ -3197,6 +3617,9 @@ class _Package:
             REGTEST_NBITS,
             FakeNode,
         )
+        from bitcoin_miner_tpu_torch.testing.chaos_pool import (
+            ChaosStratumPool,
+        )
         from bitcoin_miner_tpu_torch.testing.mock_pool import (
             MockStratumPool,
             PoolJob,
@@ -3212,6 +3635,8 @@ class _Package:
         self.difficulty_to_target = difficulty_to_target
         self.nbits_to_target = nbits_to_target
         self.MockStratumPool, self.PoolJob = MockStratumPool, PoolJob
+        self.ChaosStratumPool, self.MultipoolMiner = (ChaosStratumPool,
+                                                      MultipoolMiner)
         self.FakeNode, self.REGTEST_NBITS = FakeNode, REGTEST_NBITS
         self.Job, self.StratumJobParams = Job, StratumJobParams
         self.Dispatcher = Dispatcher

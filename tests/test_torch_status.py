@@ -243,6 +243,63 @@ def test_healthz_answers_503_when_a_component_stalls():
     run(main())
 
 
+def _fabric_pair():
+    """(reference, port) two-slot fabrics, the second slot dead."""
+    from bitcoin_miner_tpu.miner import multipool as ref_mp
+    from bitcoin_miner_tpu_torch.miner import multipool as port_mp
+
+    out = []
+    for mp, pipeline in ((ref_mp, ref_pipeline), (port_mp, port_pipeline)):
+        fabric = mp.PoolFabric(
+            [mp.parse_pool_spec("stratum+tcp://127.0.0.1:1#w=2"),
+             mp.parse_pool_spec("stratum+tcp://127.0.0.1:2")],
+            telemetry=pipeline.PipelineTelemetry())
+        fabric.slots[1].state = mp.DEAD
+        out.append(fabric)
+    return out
+
+
+def test_telemetry_carries_the_fabric_snapshot():
+    """``/telemetry`` holds ``pool_fabric``: the port's snapshot, equal to
+    the reference's server's on the same fabric state."""
+    async def main(status_mod, pipeline, dispatcher, fabric):
+        tel = pipeline.PipelineTelemetry()
+        server = status_mod.StatusServer(
+            dispatcher.MinerStats(), port=0, registry=tel.registry,
+            telemetry=tel, fabric=fabric)
+        await server.start()
+        try:
+            return json.loads(split(await scrape(server.port,
+                                                 "/telemetry"))[1])
+        finally:
+            await server.stop()
+
+    ref_fabric, port_fabric = _fabric_pair()
+    ref = run(main(ref_status, ref_pipeline, ref_dispatcher, ref_fabric))
+    port = run(main(port_status, port_pipeline, port_dispatcher,
+                    port_fabric))
+    snap = port["pool_fabric"]
+    assert snap == ref["pool_fabric"]
+    assert snap["active"] is None
+    assert [s["state"] for s in snap["slots"]] == ["connecting", "dead"]
+    assert snap["weights"] == {"127.0.0.1:1": 0.0, "127.0.0.1:2": 0.0}
+
+
+def test_telemetry_without_a_fabric_has_no_fabric_key():
+    async def main():
+        server, tel, stats = _server()
+        await server.start()
+        try:
+            return json.loads(split(await scrape(server.port,
+                                                 "/telemetry"))[1])
+        finally:
+            await server.stop()
+
+    payload = run(main())
+    assert "pool_fabric" not in payload
+    assert "tpu_miner_pool_slot_state" in payload
+
+
 def test_routes_without_telemetry_answer_the_snapshot():
     async def main():
         stats = port_dispatcher.MinerStats()

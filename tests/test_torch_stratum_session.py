@@ -427,9 +427,12 @@ class TestCommandLine:
         assert gbt.dispatcher.checkpoint.path == path
 
     @pytest.mark.parametrize("argv,message", [
-        (["--pool", "a:1", "--pool", "b:2"], "multi-pool fabric"),
-        (["--pool", "gbt+http://a:1"], "multi-pool fabric"),
-        (["--pool", "getwork+http://a:1"], "multi-pool fabric"),
+        (["--pool", "a:1", "--pool", "b:2", "--checkpoint", "x"],
+         "multi-pool fabric"),
+        (["--pool", "gbt+http://a:1", "--allow-redirect"],
+         "multi-pool fabric"),
+        (["--pool", "getwork+http://a:1", "--checkpoint", "x"],
+         "multi-pool fabric"),
         (["--pool", "stratum+tcp://a:1,stratum+ssl://b:2"], "one scheme"),
         (["--pool", "stratum+tcp://a:1,http://b:2"], "must be stratum"),
         (["--pool", " "], "at least one URL"),

@@ -635,6 +635,79 @@ def test_health_sample_matches_reference():
     assert all(not samples[0][k] for k in set(samples[0]) - port_keys)
 
 
+def test_pool_fabric_families_are_the_references():
+    """The fabric's two families sit in the bundle where the reference
+    registers them (just before the fleet's), with its slot levels, and
+    the same operations render the same exposition lines."""
+    assert port_pipeline.POOL_SLOT_LEVELS == ref_pipeline.POOL_SLOT_LEVELS
+    names = port_pipeline.BUNDLE_METRICS
+    i = names.index("pool_slot_state")
+    assert names[i:i + 3] == ("pool_slot_state", "pool_failover",
+                              "fleet_child_state")
+    rendered = []
+    for pipeline in (ref_pipeline, port_pipeline):
+        tel = pipeline.PipelineTelemetry()
+        for pool, state in (("a:1", "active"), ("b:2", "dead"),
+                            ("a:1", "degraded")):
+            tel.pool_slot_state.labels(pool=pool).set(
+                pipeline.POOL_SLOT_LEVELS[state])
+        for reason in ("disconnect", "stalled", "disconnect"):
+            tel.pool_failover.labels(reason=reason).inc()
+        rendered.append((tel.pool_slot_state.render(),
+                         tel.pool_failover.render()))
+    assert rendered[1] == rendered[0]
+    assert 'tpu_miner_pool_failover_total{reason="disconnect"} 2' in \
+        rendered[1][1]
+
+
+def _pools_snapshot(slots):
+    return {"batches": 0, "active_scans": 0, "gap_count": 0, "gap_sum": 0.0,
+            "ring_occupancy": 0.0, "ring_collects": 0, "stream_window": 0.0,
+            "rpc_responses": 0.0, "rpc_errors": 0.0,
+            "submits_inflight": 0.0, "pool_acks": {}, "chips": {},
+            "share_expected": 0.0, "share_efficiency": 0.0,
+            "pool_slots": slots}
+
+
+@pytest.mark.parametrize("slots,state", [
+    ({}, None),
+    ({"a:1": 2.0, "b:2": 2.0}, "ok"),
+    ({"a:1": 0.0, "b:2": 1.0}, "ok"),
+    ({"a:1": 2.0, "b:2": 3.0}, "degraded"),
+    ({"a:1": 4.0, "b:2": 2.0, "c:3": 3.0}, "degraded"),
+    ({"a:1": 4.0}, "stalled"),
+    ({"a:1": 4.0, "b:2": 4.0}, "stalled"),
+], ids=["no-fabric", "all-active", "connecting-syncing", "one-degraded",
+        "dead-and-degraded", "one-dead", "all-dead"])
+def test_pools_rule_matches_reference(slots, state):
+    """The ``pools`` rule reads the same verdict and reason from the same
+    slot gauges as the reference's; no slots is no component."""
+    out = []
+    for pipeline, health, kw in (
+            (ref_pipeline, ref_health, {"relay_probe": _no_relay}),
+            (port_pipeline, port_health, {})):
+        model = health.HealthModel(pipeline.PipelineTelemetry(), **kw)
+        report = model.evaluate(_pools_snapshot(slots), now=1.0)
+        pools = report.get("pools")
+        out.append(None if pools is None else (pools.state, pools.reason))
+        model.publish(report)
+        out.append(model.healthz(report))
+    assert out[2:] == out[:2]
+    assert (out[2] and out[2][0]) == state
+
+
+def test_health_sample_reads_the_pool_slot_gauges():
+    samples = []
+    for pipeline, health, kw in (
+            (ref_pipeline, ref_health, {"relay_probe": _no_relay}),
+            (port_pipeline, port_health, {})):
+        tel = pipeline.PipelineTelemetry()
+        tel.pool_slot_state.labels(pool="a:1").set(2.0)
+        tel.pool_slot_state.labels(pool="b:2").set(4.0)
+        samples.append(health.HealthModel(tel, **kw).sample()["pool_slots"])
+    assert samples[1] == samples[0] == {"a:1": 2.0, "b:2": 4.0}
+
+
 def test_health_watchdog_publishes_and_stops():
     tel = port_pipeline.PipelineTelemetry()
     model = port_health.HealthModel(tel)
