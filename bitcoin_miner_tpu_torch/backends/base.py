@@ -4,6 +4,8 @@ backend plugs in, and its streaming form ``scan_stream``.
 Backends register by name:
 
     cpu              — hashlib oracle (always available; the specification)
+    native           — the C++ hasher through ctypes (``backends/native.py``;
+                       the CPU benchmark path)
     cuda             — the hit-buffer scan kernel (``ops/sha256_torch.py``)
     cuda-tile        — the per-step (count, min) tile kernel
                        (``ops/sha256_tile.py``)
@@ -211,7 +213,7 @@ def get_hasher(name: str, **kwargs: Any) -> Hasher:
     """Instantiate a backend by registry name; ``kwargs`` go to its
     constructor (``device=`` for the CUDA backends)."""
     if name not in _REGISTRY:
-        if name == "cpu":
+        if name in ("cpu", "native"):
             from . import cpu  # noqa: F401
         elif name in CUDA_BACKENDS:
             from . import cuda  # noqa: F401
@@ -221,7 +223,7 @@ def get_hasher(name: str, **kwargs: Any) -> Hasher:
         factory = _REGISTRY[name]
     except KeyError:
         known = sorted(set(available_hashers())
-                       | {"cpu", "grpc-local", *CUDA_BACKENDS})
+                       | {"cpu", "native", "grpc-local", *CUDA_BACKENDS})
         raise ValueError(
             f"unknown hasher {name!r}; available: {known}"
         ) from None

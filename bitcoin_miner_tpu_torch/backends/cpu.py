@@ -1,10 +1,14 @@
-"""The hashlib specification oracle: every device hit is re-verified here
-before it becomes a share, and every backend is tested against it."""
+"""The CPU hashers: the hashlib specification oracle, which re-verifies
+every device hit before it becomes a share and which every backend is
+tested against, and its compiled C++ twin (``native``)."""
 
 from __future__ import annotations
 
+import logging
+
 from ..core.sha256 import sha256d, sha256_midstate, sha256d_from_midstate
 from ..core.target import hash_meets_target
+from . import native as _native
 from .base import Hasher, ScanResult, register_hasher
 
 
@@ -42,4 +46,34 @@ class CpuHasher(Hasher):
         return ScanResult(nonces=hits, total_hits=total, hashes_done=count)
 
 
+class NativeCpuHasher(Hasher):
+    """The C++ hasher (``native/sha256d.cpp``) through ctypes: the CPU
+    benchmark path. It runs on the host whatever ``--device`` says."""
+
+    name = "native"
+
+    def __init__(self) -> None:
+        _native.load()  # raises OSError when the library cannot be built
+        # The SHA-NI and scalar paths differ ~3x in rate: say which runs.
+        logging.getLogger(__name__).info(
+            "native sha256d backend: %s", _native.backend_name())
+
+    def sha256d(self, data: bytes) -> bytes:
+        return _native.sha256d(data)
+
+    def scan(
+        self,
+        header76: bytes,
+        nonce_start: int,
+        count: int,
+        target: int,
+        max_hits: int = 64,
+    ) -> ScanResult:
+        self._check_range(header76, nonce_start, count)
+        hits, total = _native.scan(header76, nonce_start, count, target,
+                                   max_hits)
+        return ScanResult(nonces=hits, total_hits=total, hashes_done=count)
+
+
 register_hasher("cpu", CpuHasher)
+register_hasher("native", NativeCpuHasher)

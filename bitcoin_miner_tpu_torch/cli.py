@@ -11,6 +11,13 @@ Modes:
   --bench                          offline sweep of the genesis header
   --serve-hasher HOST:PORT         serve the backend as a gRPC hasher
                                    worker (``rpc/hasher_service.py``)
+  --serve-pool HOST:PORT           serve a Stratum v1 pool frontend to
+                                   downstream miners (``poolserver/``):
+                                   jobs from a local template stream or
+                                   ``--upstream`` pools (one, or several
+                                   through the multi-pool fabric);
+                                   ``--internal-worker`` mines the
+                                   frontend's own slice with ``--backend``
 
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
 hit-buffer kernel), their sharded forms over several cards ``cuda-tile-mesh``
@@ -19,7 +26,8 @@ dispatch ring, ``--mesh-kernel cuda|cuda-tile``), ``cuda-fanout`` (whole
 requests to one hasher per card, ``--fanout-kernel cuda|cuda-tile``),
 ``cuda-fleet`` (one hit-buffer hasher per card under the fleet supervisor:
 a dead card is quarantined and its requests reclaimed), ``grpc`` (a served
-worker, ``--grpc-target HOST:PORT``) and ``cpu`` (the hashlib oracle).
+worker, ``--grpc-target HOST:PORT``), ``cpu`` (the hashlib oracle) and
+``native`` (the C++ hasher on the host CPU, ``backends/native.py``).
 ``--worker HOST:PORT``, repeated, mines on a supervised fleet of served
 workers. The gRPC paths need ``grpcio``. ``--mesh-devices N`` takes the
 first N cards for the multi-device backends (default: all). ``--device cpu``
@@ -100,6 +108,7 @@ from .telemetry import (
 if TYPE_CHECKING:
     from .miner.multipool import MultipoolMiner
     from .miner.runner import GbtMiner, GetworkMiner, StratumMiner
+    from .poolserver import PoolFrontend
 
 logger = logging.getLogger("tpu_miner_torch")
 
@@ -121,7 +130,22 @@ DEFAULT_INCIDENT_DIR = "tpu-miner-incidents"
 
 #: ``--backend`` choices, the default first.
 BACKENDS = ("cuda-tile", "cuda", "cuda-tile-mesh", "cuda-mesh",
-            "cuda-mesh-native", "cuda-fanout", "cuda-fleet", "grpc", "cpu")
+            "cuda-mesh-native", "cuda-fanout", "cuda-fleet", "grpc", "cpu",
+            "native")
+
+#: The hashers that run on the host CPU whatever ``--device`` says.
+HOST_BACKENDS = ("cpu", "native")
+
+#: The ``--serve-pool`` options, each with its value when not given (the
+#: parser leaves them None, so another mode can refuse them).
+SERVE_DEFAULTS = {
+    "serve_difficulty": 1.0,
+    "serve_extranonce2_size": 4,
+    "serve_prefix_bytes": 2,
+    "serve_job_interval": 30.0,
+    "serve_shards": 0,
+    "serve_vardiff_interval": 30.0,
+}
 
 
 
@@ -151,6 +175,13 @@ def build_parser() -> argparse.ArgumentParser:
                            "a miner drives with --backend grpc "
                            "--grpc-target or --worker; records spans for "
                            "the miner's --trace-out (needs grpcio)")
+    mode.add_argument("--serve-pool", metavar="HOST:PORT",
+                      help="serve a Stratum v1 pool frontend to downstream "
+                           "miners (poolserver/): per-session extranonce "
+                           "space partitioning, CPU share validation, jobs "
+                           "from --upstream (proxy mode) or a local "
+                           "template stream; --internal-worker mines the "
+                           "frontend's own slice with --backend")
     p.add_argument("--user", default="tpu-miner", help="pool/RPC username")
     p.add_argument("--password", default="x", help="pool/RPC password")
     p.add_argument("--backend", default="cuda-tile", choices=BACKENDS,
@@ -169,6 +200,59 @@ def build_parser() -> argparse.ArgumentParser:
                         "worker's --status-port: the observatory scrapes "
                         "its /metrics into this process's /query under "
                         "worker=HOST:PORT")
+    serve = p.add_argument_group(
+        "serve-pool", "pool-frontend options (--serve-pool mode)")
+    serve.add_argument("--upstream", action="append", default=None,
+                       help="stratum+tcp://host:port upstream pool: proxy "
+                            "mode, the upstream session fanned out to every "
+                            "downstream client (authenticated with --user/"
+                            "--password); omitted: a local template job "
+                            "stream. REPEATABLE: more than one --upstream "
+                            "rides the multi-pool fabric (concurrent "
+                            "sessions, instant failover: the frontend "
+                            "survives upstream death); append #w=N for a "
+                            "dispatch weight")
+    serve.add_argument("--serve-difficulty", type=float, default=None,
+                       help="downstream share difficulty (local-template "
+                            "mode; proxy mode tracks the upstream "
+                            "difficulty once it arrives); default "
+                            f"{SERVE_DEFAULTS['serve_difficulty']:g}")
+    serve.add_argument("--serve-extranonce2-size", type=int, default=None,
+                       help="total extranonce2 bytes the frontend owns "
+                            "(local mode; proxy mode adopts the "
+                            "upstream's); default "
+                            f"{SERVE_DEFAULTS['serve_extranonce2_size']}")
+    serve.add_argument("--serve-prefix-bytes", type=int, default=None,
+                       help="extranonce bytes carved per session: 256^N "
+                            "concurrent disjoint client slices; default "
+                            f"{SERVE_DEFAULTS['serve_prefix_bytes']}")
+    serve.add_argument("--serve-job-interval", type=float, default=None,
+                       help="seconds between local-template job "
+                            "announcements (local mode only); default "
+                            f"{SERVE_DEFAULTS['serve_job_interval']:g}")
+    serve.add_argument("--internal-worker", action="store_true",
+                       help="mine the frontend's own slice with --backend "
+                            "through the standard dispatcher (the server "
+                            "becomes its own biggest miner); on the card "
+                            "unless --device cpu. Composes with --worker "
+                            "HOST:PORT (the supervised gRPC fleet) or "
+                            "--backend grpc --grpc-target")
+    serve.add_argument("--serve-shards", type=int, default=None,
+                       metavar="N",
+                       help="shard the frontend across N acceptor "
+                            "processes; not ported yet: N > 1 is refused")
+    serve.add_argument("--serve-vardiff", type=float, default=None,
+                       metavar="SHARES_PER_MIN",
+                       help="per-session vardiff: retarget each session "
+                            "from its own claimed-work rate toward this "
+                            "share rate (bounded step, floored at the "
+                            "operator difficulty) instead of honouring "
+                            "mining.suggest_difficulty verbatim; off by "
+                            "default")
+    serve.add_argument("--serve-vardiff-interval", type=float, default=None,
+                       help="seconds between per-session vardiff retargets "
+                            "(with --serve-vardiff); default "
+                            f"{SERVE_DEFAULTS['serve_vardiff_interval']:g}")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the cuda backends run: the card, or their "
                         "plain PyTorch versions on the CPU (one device)")
@@ -279,7 +363,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "host (off: a cross-host redirect over the "
                         "plaintext link is a hijack vector)")
     p.add_argument("--status-port", type=int, default=None,
-                   help="--pool, --gbt, --getwork: serve live stats on "
+                   help="session modes: serve live stats on "
                         "http://127.0.0.1:PORT/ as JSON; /metrics answers "
                         "in Prometheus exposition format, /telemetry dumps "
                         "the metric registry as JSON, /healthz answers "
@@ -302,7 +386,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "served at /flightrec on --status-port (default: "
                         "%(default)s)")
     p.add_argument("--health-interval", type=float, default=None,
-                   help="--pool, --gbt, --getwork: seconds between "
+                   help="session modes: seconds between "
                         "health-watchdog evaluations (the /healthz rule "
                         "engine; 0 runs no watchdog and /healthz "
                         "evaluates per request); default "
@@ -449,14 +533,17 @@ def make_hasher(args: argparse.Namespace) -> Hasher:
             args.backend not in MULTI_DEVICE_BACKENDS):
         _refuse("mesh_devices", args.mesh_devices,
                 "the multi-device backends", args.backend)
-    if args.backend == "cpu":
+    if args.backend in HOST_BACKENDS:
         for flag, val, default in (("vshare", args.vshare, 1),
                                    ("unroll", args.unroll, None),
                                    ("no_spec", args.no_spec, False)):
             if val != default:
                 _refuse(flag, "" if val is True else val, "the cuda backends",
-                        "cpu")
-        return get_hasher("cpu")
+                        args.backend)
+        try:
+            return get_hasher(args.backend)
+        except OSError as e:  # the native library could not be built
+            raise SystemExit(str(e))
     unroll = 64 if args.unroll is None else args.unroll
     spec = not args.no_spec
     if unroll < 1:
@@ -574,7 +661,9 @@ def cmd_bench(args: argparse.Namespace) -> int:
     print(
         f"{out['mhs']:.2f} MH/s over {out['hashes']} hashes in "
         f"{out['seconds']:.2f}s ({out['dispatches']} dispatches, backend "
-        f"{args.backend} on {args.device}, vshare {args.vshare}"
+        f"{args.backend} on "
+        f"{'the host CPU' if args.backend in HOST_BACKENDS else args.device}"
+        f", vshare {args.vshare}"
         f"{', variant ' + args.variant if args.variant else ''}); genesis "
         f"nonce {'FOUND+VERIFIED' if out['verified'] else 'MISSED'}"
         f"{siblings}"
@@ -611,9 +700,8 @@ def _health_interval(args: argparse.Namespace) -> float:
 
 
 def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
-                stats, fabric=None) -> Tuple[HealthModel,
-                                             Optional[HealthWatchdog],
-                                             SloEngine]:
+                stats, fabric=None, frontend=None
+                ) -> Tuple[HealthModel, Optional[HealthWatchdog], SloEngine]:
     """The health model over ``telemetry`` and ``stats``, its watchdog
     thread, started, every ``--health-interval`` seconds (none at 0), and
     the SLO engine the watchdog ticks. The engine and the observatory
@@ -622,7 +710,9 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
     a series goes stale after three collections. An SLO breach captures
     an incident bundle under ``--incident-dir`` (none with ""). With a
     multi-pool ``fabric`` the engine reads each live slot's accept rate
-    (``slo_slot_burn{objective,pool}``) and a bundle holds its snapshot."""
+    (``slo_slot_burn{objective,pool}``) and a bundle holds its snapshot;
+    with a pool ``frontend`` (a ``StratumPoolServer``) it reads the
+    claimed work of its sessions (``frontend-claimed-work``)."""
     interval = _health_interval(args)
     fast = (DEFAULT_SLO_FAST_WINDOW if args.slo_fast_window is None
             else args.slo_fast_window)
@@ -644,7 +734,8 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
         stale_after_s=max(15.0, 3.0 * interval) if interval else 15.0,
     )
     slo = SloEngine(telemetry, objectives, fast_window_s=fast,
-                    slow_window_s=slow, fabric=fabric, store=store)
+                    slow_window_s=slow, fabric=fabric, frontend=frontend,
+                    store=store)
     model = HealthModel(telemetry, stats=stats, slo=slo)
     incident_dir = (DEFAULT_INCIDENT_DIR if args.incident_dir is None
                     else args.incident_dir)
@@ -669,8 +760,8 @@ def make_observatory(args: argparse.Namespace,
     ``process=worker-HOST:PORT``, ``worker=HOST:PORT``), and evaluates the
     recording rules; with a multi-pool ``fabric`` it samples each slot's
     accept rate (``fabric.slot_accept_rate{pool}``). None at an interval of
-    0, which runs no thread. (The reference also discovers pool-frontend
-    shards; this package has no frontend.)"""
+    0, which runs no thread. (The reference also discovers the sharded
+    pool frontend's children, which this package does not have yet.)"""
     interval = _health_interval(args)
     if interval <= 0:
         return None
@@ -721,23 +812,34 @@ def _dump_trace(telemetry: PipelineTelemetry,
         logger.info("pipeline trace written to %s (open in Perfetto)", path)
 
 
+def session_parts(miner) -> tuple:
+    """``(telemetry, stats, hasher)`` of a session: its dispatcher's, or
+    a pool frontend's (its internal worker's stats and hasher, or idle
+    stats and None without one)."""
+    dispatcher = getattr(miner, "dispatcher", None)
+    if dispatcher is not None:
+        return dispatcher.telemetry, dispatcher.stats, dispatcher.hasher
+    return miner.server.telemetry, miner.stats, miner.hasher
+
+
 async def run_session(miner, args: argparse.Namespace) -> None:
     """Run a session until it stops, with its reporter line, its health
     watchdog (which ticks the SLO engine), the observatory's collector,
     the ``--status-port`` server, the flight recorder armed to
     ``--flightrec-out`` and SIGTERM stopping it as Ctrl-C does; at the end
     the threads are stopped, the ``--trace-out`` file is written and the
-    flight recorder is disarmed. A multi-pool session's fabric feeds the
-    SLO engine, the incident bundles, the observatory, the reporter line
-    and ``/telemetry``."""
-    dispatcher = miner.dispatcher
-    telemetry, stats = dispatcher.telemetry, dispatcher.stats
+    flight recorder is disarmed. A multi-pool fabric (a session's, or a
+    pool frontend's upstreams') feeds the SLO engine, the incident
+    bundles, the observatory, the reporter line and ``/telemetry``; a pool
+    frontend's server feeds the SLO engine its claimed work."""
+    telemetry, stats, hasher = session_parts(miner)
     fabric = getattr(miner, "fabric", None)
     from .utils.reporting import StatsReporter
     from .utils.status import StatusServer
 
-    health, watchdog, slo = make_health(args, telemetry, stats,
-                                        fabric=fabric)
+    health, watchdog, slo = make_health(
+        args, telemetry, stats, fabric=fabric,
+        frontend=getattr(miner, "server", None))
     observatory = None
     report_task = None
     status_server = None
@@ -745,8 +847,7 @@ async def run_session(miner, args: argparse.Namespace) -> None:
     if args.flightrec_out:
         telemetry.flightrec.arm(args.flightrec_out)
     try:
-        observatory = make_observatory(args, telemetry, slo,
-                                       hasher=dispatcher.hasher,
+        observatory = make_observatory(args, telemetry, slo, hasher=hasher,
                                        fabric=fabric)
         # The line shows health and the SLO summary only while the
         # watchdog keeps them fresh; /healthz evaluates per request
@@ -791,7 +892,7 @@ async def run_session(miner, args: argparse.Namespace) -> None:
         if watchdog is not None:
             watchdog.stop()
         logger.info("stopped; final: %s", stats.summary())
-        _dump_trace(telemetry, dispatcher.hasher)
+        _dump_trace(telemetry, hasher)
         telemetry.flightrec.disarm()
 
 
@@ -806,10 +907,19 @@ SESSION_FLAGS = (("checkpoint", ("--pool", "--gbt")),
                  ("ntime_roll", ("--pool", "--getwork")),
                  ("host_index", ("--pool",)), ("n_hosts", ("--pool",)),
                  ("suggest_difficulty", ("--pool",)),
-                 ("tls_no_verify", ("--pool",)),
+                 ("tls_no_verify", ("--pool", "--serve-pool")),
                  ("allow_redirect", ("--pool",)),
-                 *((flag, ("--pool", "--gbt", "--getwork", "--serve-hasher"))
-                   for flag in LIVE_FLAGS))
+                 *((flag, ("--pool", "--gbt", "--getwork", "--serve-hasher",
+                           "--serve-pool"))
+                   for flag in LIVE_FLAGS),
+                 *((flag, ("--serve-pool",))
+                   for flag in ("upstream", "internal_worker", "serve_vardiff",
+                                *SERVE_DEFAULTS)))
+
+
+def _flags_of(mode: str) -> Tuple[str, ...]:
+    """The session options ``mode`` takes."""
+    return tuple(flag for flag, modes in SESSION_FLAGS if mode in modes)
 
 
 def _refuse_session_flags(args: argparse.Namespace, mode: str,
@@ -888,7 +998,7 @@ def make_miner(args: argparse.Namespace
 
     if _is_pool_fabric(args.pool):
         return make_fabric_miner(args)
-    _refuse_session_flags(args, "--pool", tuple(f for f, _ in SESSION_FLAGS))
+    _refuse_session_flags(args, "--pool", _flags_of("--pool"))
     endpoints, use_tls = _pool_endpoints(args.pool)
     host_index = 0 if args.host_index is None else args.host_index
     n_hosts = 1 if args.n_hosts is None else args.n_hosts
@@ -949,7 +1059,7 @@ def make_fabric_miner(args: argparse.Namespace) -> "MultipoolMiner":
             "--checkpoint is not supported with the multi-pool fabric "
             "(sweep identity is per-pool; in-memory resume still applies)")
     _refuse_session_flags(args, "the multi-pool fabric",
-                          tuple(f for f, _ in SESSION_FLAGS
+                          tuple(f for f in _flags_of("--pool")
                                 if f != "allow_redirect"))
     host_index = 0 if args.host_index is None else args.host_index
     n_hosts = 1 if args.n_hosts is None else args.n_hosts
@@ -1074,11 +1184,127 @@ def cmd_serve_hasher(args: argparse.Namespace) -> int:
     return 0
 
 
+def _serve_option(args: argparse.Namespace, flag: str):
+    val = getattr(args, flag)
+    return SERVE_DEFAULTS[flag] if val is None else val
+
+
+def make_frontend(args: argparse.Namespace) -> "PoolFrontend":
+    """The ``--serve-pool`` frontend the options select: a
+    ``StratumPoolServer`` (the native validator when the library builds,
+    else the hashlib oracle), its job source (local templates, one
+    ``--upstream``'s ``UpstreamProxy``, or several through the multi-pool
+    fabric's ``FabricUpstreamProxy``) and, with ``--internal-worker``, an
+    ``InternalWorker`` on ``make_hasher(args)``: on the card unless
+    ``--device cpu`` (or a host backend) says otherwise."""
+    from .poolserver import (
+        FabricUpstreamProxy,
+        InternalWorker,
+        LocalTemplateSource,
+        PoolFrontend,
+        StratumPoolServer,
+        UpstreamProxy,
+    )
+
+    _refuse_session_flags(args, "--serve-pool", _flags_of("--serve-pool"))
+    if _serve_option(args, "serve_shards") > 1:
+        raise SystemExit("--serve-shards: the sharded pool frontend is not "
+                         "ported yet; run one process (omit the flag)")
+    try:
+        # Port 0 binds an ephemeral port (the log and server.port say
+        # which); no port is 3334.
+        parsed = urlparse(normalize_url(args.serve_pool, "stratum+tcp"))
+        host = parsed.hostname or "127.0.0.1"
+        port = 3334 if parsed.port is None else parsed.port
+    except ValueError as e:
+        raise SystemExit(f"bad --serve-pool address: {e}")
+    difficulty = _serve_option(args, "serve_difficulty")
+    if difficulty <= 0:
+        raise SystemExit("--serve-difficulty must be > 0")
+    if args.serve_vardiff is not None and args.serve_vardiff <= 0:
+        raise SystemExit("--serve-vardiff must be > 0 shares/minute")
+    telemetry = setup_telemetry(args, arm=False)
+    # The hasher first: without a card (and without --device cpu) the
+    # frontend must fail before it binds anything.
+    hasher = make_hasher(args) if args.internal_worker else None
+    try:
+        server = StratumPoolServer(
+            extranonce2_size=_serve_option(args, "serve_extranonce2_size"),
+            prefix_bytes=_serve_option(args, "serve_prefix_bytes"),
+            difficulty=difficulty,
+            telemetry=telemetry,
+            vardiff_interval_s=(
+                _serve_option(args, "serve_vardiff_interval")
+                if args.serve_vardiff is not None else 0.0),
+            vardiff_target_spm=args.serve_vardiff or 6.0,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    proxy = None
+    local_source = None
+    upstreams = [u.strip() for u in args.upstream or () if u.strip()]
+    if len(upstreams) > 1:
+        from .miner.multipool import PoolFabric, parse_pool_spec
+
+        specs = []
+        for url in upstreams:
+            try:
+                spec = parse_pool_spec(url)
+            except ValueError as e:
+                raise SystemExit(f"bad --upstream URL: {e}")
+            if spec.kind != "stratum":
+                raise SystemExit(
+                    "multi-upstream proxy mode needs stratum+tcp:// or "
+                    f"stratum+ssl:// URLs, got {url!r}")
+            specs.append(spec)
+        fabric = PoolFabric(
+            specs, username=args.user, password=args.password,
+            telemetry=telemetry, tls_verify=not args.tls_no_verify,
+        )
+        proxy = FabricUpstreamProxy(server, fabric)
+    elif upstreams:
+        from .protocol.stratum import StratumClient
+
+        scheme = urlparse(normalize_url(upstreams[0], "stratum+tcp")).scheme
+        if scheme not in ("stratum+tcp", "stratum+ssl"):
+            raise SystemExit(f"--upstream must be stratum+tcp:// or "
+                             f"stratum+ssl://, got {scheme}")
+        try:
+            up_host, up_port = parse_hostport(upstreams[0], "stratum+tcp",
+                                              3333)
+        except ValueError as e:
+            raise SystemExit(f"bad --upstream URL: {e}")
+        proxy = UpstreamProxy(server, StratumClient(
+            up_host, up_port, args.user, args.password,
+            use_tls=scheme == "stratum+ssl",
+            tls_verify=not args.tls_no_verify,
+        ))
+    else:
+        local_source = LocalTemplateSource()
+    internal = None
+    if hasher is not None:
+        internal = InternalWorker(
+            server, hasher,
+            n_workers=args.workers,
+            stream_depth=args.stream_depth,
+            scheduler=make_scheduler(args, hasher),
+            batch_size=dispatch_size(hasher, args),
+        )
+    return PoolFrontend(
+        server, host, port,
+        proxy=proxy,
+        local_source=local_source,
+        job_interval_s=_serve_option(args, "serve_job_interval"),
+        internal_worker=internal,
+    )
+
+
 def cmd_session(miner, args: argparse.Namespace) -> int:
     try:
         asyncio.run(run_session(miner, args))
     except KeyboardInterrupt:
-        logger.info("interrupted; final: %s", miner.dispatcher.stats.summary())
+        logger.info("interrupted; final: %s",
+                    session_parts(miner)[1].summary())
     return 0
 
 
@@ -1113,4 +1339,6 @@ def main(argv: Optional[list] = None) -> int:
         return cmd_session(make_gbt_miner(args), args)
     if args.getwork:
         return cmd_session(make_getwork_miner(args), args)
+    if args.serve_pool:
+        return cmd_session(make_frontend(args), args)
     return cmd_session(make_miner(args), args)

@@ -19,6 +19,10 @@ component       signals
                 reject-only ack windows
 ``shares``      ``share_efficiency`` below the drift bound once
                 ``share_expected`` clears the confidence floor
+``frontend``    the pool frontend's downstream side (``poolserver/``):
+                ``frontend_sessions`` is the traffic signal; a window of
+                invalid ``frontend_shares`` verdicts with none accepted
+                degrades it (junk shares, or mis-built jobs)
 ``pools``       the multi-pool fabric's ``pool_slot_state`` gauges: any
                 slot degraded or dead degrades it, all slots dead stall
                 it (no upstream left to mine for)
@@ -36,10 +40,10 @@ component       signals
                 ``chip_dispatches`` still
 ==============  =====================================================
 
-The reference's ``frontend`` and ``frontend_shard`` rules come with the
-pool frontend that feeds them: their inputs are absent here, and an
-absent input is no component, as in the reference (so too ``pools``
-without a fabric). The ``slo`` and
+The reference's ``frontend_shard`` rule comes with the sharded frontend
+that feeds it. An absent input is no component, as in the reference:
+no ``frontend`` without a frontend, no ``pools`` without a fabric. The
+``slo`` and
 ``share_loss`` components exist only with an SLO engine (``slo=``).
 
 The stall rules share one shape: work is pending but the component's
@@ -130,6 +134,7 @@ class HealthModel:
         self._gap_seen = (0, 0.0)
         self._err_seen = 0.0
         self._ack_seen: Dict[str, float] = {}
+        self._frontend_seen: Dict[str, float] = {}
         #: last published state per component (transition detection).
         self._published: Dict[str, str] = {}
         self.last_report: Dict[str, ComponentHealth] = {}
@@ -237,6 +242,9 @@ class HealthModel:
             "share_efficiency": getattr(
                 tel.share_efficiency, "value", 0.0
             ),
+            "frontend_sessions": getattr(tel.frontend_sessions, "value",
+                                         0.0),
+            "frontend_shares": self._children_by_label(tel.frontend_shares),
             "pool_slots": self._children_by_label(tel.pool_slot_state),
             "fleet_children": self._children_by_label(
                 tel.fleet_child_state
@@ -376,6 +384,33 @@ class HealthModel:
                 )
             else:
                 report["shares"] = ComponentHealth("shares", OK)
+
+        # frontend: the pool frontend's downstream side. Sessions are the
+        # traffic signal, the verdict counters the quality signal: a
+        # window in which every downstream submit failed validation and
+        # none passed means mis-built jobs or an adversarial fleet. Both
+        # degrade, never stall: the listener still answers. Absent keys
+        # (no frontend) = no component.
+        fe_shares: Dict[str, float] = snap.get("frontend_shares", {})
+        fe_sessions = snap.get("frontend_sessions", 0.0)
+        if fe_sessions > 0 or fe_shares:
+            fe_accept_delta = (fe_shares.get("accepted", 0.0)
+                               - self._frontend_seen.get("accepted", 0.0))
+            fe_invalid_delta = sum(
+                v for k, v in fe_shares.items() if k != "accepted"
+            ) - sum(
+                v for k, v in self._frontend_seen.items() if k != "accepted"
+            )
+            self._frontend_seen = dict(fe_shares)
+            if fe_invalid_delta > 0 and fe_accept_delta == 0:
+                report["frontend"] = ComponentHealth(
+                    "frontend", DEGRADED,
+                    f"{fe_invalid_delta:.0f} invalid downstream shares, "
+                    f"0 accepted since last check "
+                    f"({fe_sessions:.0f} sessions)",
+                )
+            else:
+                report["frontend"] = ComponentHealth("frontend", OK)
 
         # pools: the multi-pool fabric's slot gauges (absent or empty: no
         # fabric, no component, so a one-pool session is unaffected). The

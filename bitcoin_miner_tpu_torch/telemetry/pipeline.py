@@ -6,8 +6,9 @@ the reference's surfaces read. Only the families that this package emits
 (the dispatcher, the dispatch ring, the scheduler, the runners, the
 fan-out and the mesh-native ring, the fleet supervisor, the health model,
 the share accountant, the SLO engine, the incident capture, the
-time-series store and the multi-pool fabric) and those of the gRPC seam
-are registered; the pool frontend's come with its module.
+time-series store, the multi-pool fabric and the one-process pool
+frontend) and those of the gRPC seam are registered; the sharded
+frontend's ``frontend_shard_state`` comes with its module.
 
 ``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
 :class:`Tracer`, a :class:`FlightRecorder` and a
@@ -84,6 +85,24 @@ METRIC_MESH_DEVICES = "tpu_miner_mesh_devices"
 #: restore.
 METRIC_MESH_REBUILDS = "tpu_miner_mesh_rebuilds"
 
+#: Downstream Stratum sessions connected to the pool frontend
+#: (``poolserver/``): the ``frontend`` health rule's traffic signal.
+METRIC_FRONTEND_SESSIONS = "tpu_miner_frontend_sessions"
+#: The frontend validator's share verdicts, labeled result=accepted|stale|
+#: low_difficulty|duplicate|malformed|bad_extranonce2|version_bits: the
+#: ``frontend`` rule's quality signal (an invalid-only window degrades it).
+METRIC_FRONTEND_SHARES = "tpu_miner_frontend_shares"
+#: One job broadcast to every downstream session (one encode, then a
+#: transport write per session): the ``job-broadcast`` objective's signal.
+METRIC_FRONTEND_JOB_BROADCAST = "tpu_miner_frontend_job_broadcast_seconds"
+#: One ``mining.submit`` validation, native or hashlib, whichever is in
+#: force: the ``frontend-validate`` objective's signal, and what a junk
+#: submit costs the event loop.
+METRIC_FRONTEND_VALIDATE = "tpu_miner_frontend_validate_seconds"
+#: Broadcast payload encodes: once per job generation or retarget, never
+#: per session.
+METRIC_FRONTEND_BROADCAST_ENCODES = "tpu_miner_frontend_broadcast_encodes"
+
 #: Per-upstream-pool slot state of the multi-pool fabric
 #: (``miner/multipool.py``), labeled pool=<label>, valued by
 #: :data:`POOL_SLOT_LEVELS` (connecting 0 … dead 4). The health model's
@@ -157,7 +176,9 @@ BUNDLE_METRICS = (
     "ring_occupancy", "stream_window", "consts_cache", "stale_drops",
     "batch_nonces", "sched_resizes", "pool_acks", "submits_inflight",
     "rpc_responses", "rpc_errors", "chip_dispatches", "chip_inflight",
-    "mesh_devices", "mesh_rebuilds", "pool_slot_state", "pool_failover",
+    "mesh_devices", "mesh_rebuilds", "frontend_sessions", "frontend_shares",
+    "frontend_job_broadcast", "frontend_validate",
+    "frontend_broadcast_encodes", "pool_slot_state", "pool_failover",
     "fleet_child_state", "fleet_reclaims",
     "health", "share_efficiency", "share_expected", "share_lost",
     "slo_burn", "slo_slot_burn", "incidents", "tsdb_series",
@@ -300,6 +321,30 @@ class PipelineTelemetry:
             "Mesh-native topology transitions (quarantine degradation, "
             "mesh rebuild, device restore)",
             labelnames=("reason",),
+        )
+        self.frontend_sessions = r.gauge(
+            METRIC_FRONTEND_SESSIONS,
+            "Downstream Stratum sessions connected to the pool frontend",
+        )
+        self.frontend_shares = r.counter(
+            METRIC_FRONTEND_SHARES,
+            "Downstream share verdicts from the frontend validator",
+            labelnames=("result",),
+        )
+        self.frontend_job_broadcast = r.histogram(
+            METRIC_FRONTEND_JOB_BROADCAST,
+            "One job broadcast to every downstream session (s)",
+            buckets=GAP_BUCKETS,
+        )
+        self.frontend_validate = r.histogram(
+            METRIC_FRONTEND_VALIDATE,
+            "One mining.submit validation, native or oracle (s)",
+            buckets=GAP_BUCKETS,
+        )
+        self.frontend_broadcast_encodes = r.counter(
+            METRIC_FRONTEND_BROADCAST_ENCODES,
+            "Broadcast payload serializations (once per job generation "
+            "or retarget, never per session)",
         )
         self.pool_slot_state = r.gauge(
             METRIC_POOL_SLOT_STATE,

@@ -14,14 +14,17 @@ objective                  SLI / error budget
                            on the share accountant's confidence floor
 ``submit-rtt``             fraction of submit round trips under the
                            bound, from windowed ``submit_rtt`` buckets
-``job-broadcast``,         the pool frontend's latency histograms; this
-``frontend-validate``      package has no frontend, so they read no_data
+``job-broadcast``,         the pool frontend's latency histograms
+``frontend-validate``      (``frontend_job_broadcast``,
+                           ``frontend_validate``); no_data until a
+                           frontend broadcasts or validates
 ``fleet-availability``     fraction of supervised children not
                            quarantined (``fleet_child_state``)
 ``pool-accept-rate``       accepted fraction of windowed ``pool_acks``
                            verdicts (with a multi-pool fabric attached,
                            the worst live slot's window rate)
-``frontend-claimed-work``  the frontend's claimed-work rate per session;
+``frontend-claimed-work``  the frontend's claimed-work rate per session
+                           (``frontend=``, the ``StratumPoolServer``);
                            no_data without a frontend
 =========================  =============================================
 
@@ -422,12 +425,8 @@ class SloEngine:
         if children is not None:
             fleet = {key[0]: child.value for key, child in children() if key}
         submit_bounds, submit_counts = _histogram_state(tel.submit_rtt)
-        # The pool frontend's families: absent in this package's bundle,
-        # so their objectives read no_data.
-        bc_bounds, bc_counts = _histogram_state(
-            getattr(tel, "frontend_job_broadcast", None))
-        fv_bounds, fv_counts = _histogram_state(
-            getattr(tel, "frontend_validate", None))
+        bc_bounds, bc_counts = _histogram_state(tel.frontend_job_broadcast)
+        fv_bounds, fv_counts = _histogram_state(tel.frontend_validate)
         snap: Dict[str, Any] = {
             "share_efficiency": getattr(tel.share_efficiency, "value", 0.0),
             "share_expected": getattr(tel.share_expected, "value", 0.0),

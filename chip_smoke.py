@@ -109,6 +109,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    pools with ``--vshare 2``: A grants 0x1FFFE000, B no mask, so each
    route switch moves the hasher between the K=2 tile kernel and its
    degraded K=1 build (``fabric_session_vshare``);
+7e. the native CPU oracle and the pool frontend (``native_oracle``): the
+   package's C++ library built with g++ on the card's host (seconds,
+   SHA-NI or scalar), ``NativeCpuHasher.scan`` over 4096 nonces around
+   the genesis nonce equal to the ``cpu`` hasher's, 2^24 nonces with the
+   genesis nonce found (the host CPU's rate, not the card's), and 2000
+   seeded submits with the same verdicts from the frontend's hashlib and
+   native validators; then ``--serve-pool 127.0.0.1:0 --internal-worker
+   --serve-difficulty 0.00390625 --serve-job-interval 5 --workers 4
+   --status-port P`` through ``cli.run_session`` (local templates, the
+   tile kernel on the card): ≥ 100 shares accepted by its own frontend
+   over a 20 s window, none invalid, no hardware error, the native
+   validator in force; its rate against ``stratum_session_telemetry``'s,
+   the validation quantiles, ``/healthz``'s ``frontend`` component and
+   the three frontend objectives of ``/slo``; then 256 downstream
+   sessions each submitting a junk share a second for 10 s: the job
+   broadcast's p99 and the internal rate under that load
+   (``frontend_internal_worker``); the mock pool ← ``--upstream``
+   frontend with its internal worker ← a downstream ``StratumMiner`` on
+   the same card, 30 s: every share valid at the pool, its accepted
+   count equal to the proxy's forwards and upstream accepts, the two
+   prefixes disjoint, both rates and their sum against the single
+   session's (``frontend_proxy_session``); two mock pools behind the
+   fabric proxy (``--upstream A --upstream B``) with the internal worker:
+   every share reaches the pool that announced its job, each pool gets a
+   valid share (``frontend_fabric_proxy``);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -146,7 +171,7 @@ With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
 
-Phases 3 to 7c, 9's sweeps, session and ladder, and 10's probe run are the
+Phases 3 to 7e, 9's sweeps, session and ladder, and 10's probe run are the
 main path: the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. No tile hasher launches the
 hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
@@ -235,6 +260,17 @@ OBS_OBJECTIVES = {"schema": "tpu-miner-slo-objectives/1", "objectives": [
 PROBE_STEPS = PROBE_GROUPS = 4096  # the int32 probe's reference size
 #: Kernels folded into the scans' last blocks: none may be built or counted.
 REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
+#: The pool frontend's phases: the share difficulty (~390 shares a second
+#: at the card's rate), the internal worker's measured window, the
+#: downstream sessions that load the event loop and for how long, the
+#: proxy sessions' window, and the seeded submits held against both
+#: validators.
+FRONTEND_DIFFICULTY = 1 / 256
+FRONTEND_WINDOW_S = 20.0
+FRONTEND_CLIENTS = 256
+FRONTEND_LOAD_S = 10
+FRONTEND_PROXY_S = 30.0
+NATIVE_SUBMITS = 2000
 #: ntime passes of the telemetry session's job: (NTIME_ROLL + 1) × 2^32
 #: nonces, ~10 s at the session's rate, outlast the 3 shares and the
 #: window; the job then runs out and the pool's next one comes
@@ -251,7 +287,8 @@ def out_dir() -> str:
 
 
 #: The command line's modes that run a session (and its observatory).
-SESSION_MODES = ("--pool", "--gbt", "--getwork", "--serve-hasher")
+SESSION_MODES = ("--pool", "--gbt", "--getwork", "--serve-hasher",
+                 "--serve-pool")
 
 
 def cli_args(pkg, argv, flightrec_out: str = None):
@@ -1465,6 +1502,85 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         no_hitbuf_pair(counts)
         return {**result, "launches": launched(counts)}
 
+    def native_oracle():
+        """The package's C++ library built on the card's host and held
+        against the hashlib oracle: a scan, a 2^24-nonce sweep (the host
+        CPU's rate) and :data:`NATIVE_SUBMITS` seeded submits through
+        both of the frontend's validators."""
+        native = pkg.native
+        t0 = time.perf_counter()
+        library = native.build()
+        build_s = time.perf_counter() - t0
+        hasher = pkg.NativeCpuHasher()
+        header76 = bytes.fromhex(pkg.GENESIS_HEADER_HEX)[:76]
+        target = pkg.nbits_to_target(0x1D00FFFF)
+        start = GENESIS_NONCE - 2048
+        got = hasher.scan(header76, start, 4096, target)
+        want = pkg.get_hasher("cpu").scan(header76, start, 4096, target)
+        assert (got.nonces, got.total_hits) == (
+            want.nonces, want.total_hits) == ([GENESIS_NONCE], 1), (got, want)
+        t0 = time.perf_counter()
+        sweep = hasher.scan(header76, GENESIS_NONCE - (1 << 23), 1 << 24,
+                            target)
+        sweep_s = time.perf_counter() - t0
+        assert sweep.nonces == [GENESIS_NONCE], sweep
+        return {"library": str(library.relative_to(
+                    os.path.dirname(os.path.abspath(__file__)))),
+                "build_seconds": build_s, "backend": native.backend_name(),
+                "scan_4096_matches_cpu": True,
+                "sweep_nonces": 1 << 24, "sweep_seconds": sweep_s,
+                "host_cpu_mhs": (1 << 24) / sweep_s / 1e6,
+                "validators": validator_parity(pkg, NATIVE_SUBMITS)}
+
+    def frontend_internal_worker():
+        """:func:`frontend_internal`: the frontend mining its own slice
+        on the one-chain tile kernel, then under 256 junk sessions; its
+        rates against ``stratum_session_telemetry``'s."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(frontend_internal(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        ref = s.sweep_mhs.get("stratum_session_telemetry")
+        if ref:
+            result.update({
+                "stratum_session_telemetry_mhs": ref,
+                "internal_vs_telemetry_session":
+                    result["mhs_dispatcher_hashes"] / ref,
+                "internal_launches_vs_telemetry_session":
+                    result["mhs"] / ref,
+                "under_load_vs_telemetry_session":
+                    result["load"]["mhs_dispatcher_hashes"] / ref})
+        return {**result, "launches": launched(counts)}
+
+    def frontend_proxy_session():
+        """:func:`frontend_proxy`: the internal worker and a downstream
+        miner on one card behind an ``--upstream`` frontend."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(frontend_proxy(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        ref = s.sweep_mhs.get("stratum_session_telemetry")
+        if ref:
+            result.update({
+                "stratum_session_telemetry_mhs": ref,
+                "sum_vs_telemetry_session": result["mhs_sum"] / ref,
+                "launches_vs_telemetry_session": result["mhs"] / ref})
+        return {**result, "launches": launched(counts)}
+
+    def frontend_fabric_proxy():
+        """:func:`frontend_fabric`: two upstream pools behind the fabric
+        proxy, the internal worker on the card."""
+        s.reset_counts()
+        result = asyncio.run(asyncio.wait_for(frontend_fabric(pkg), 300))
+        counts = s.read_counts()
+        assert counts["scan_tile"] > 0, counts
+        no_hitbuf_pair(counts)
+        return {**result, "launches": launched(counts)}
+
     def perf_cli_roundtrip():
         """:func:`perf_roundtrip` on ``dispatcher_sweep``'s rows: their
         fingerprint must name this card and its power limit."""
@@ -2159,6 +2275,10 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("perf_cli_roundtrip", perf_cli_roundtrip)
     s.phase("fabric_session", fabric_session)
     s.phase("fabric_session_vshare", fabric_session_vshare)
+    s.phase("native_oracle", native_oracle)
+    s.phase("frontend_internal_worker", frontend_internal_worker)
+    s.phase("frontend_proxy_session", frontend_proxy_session)
+    s.phase("frontend_fabric_proxy", frontend_fabric_proxy)
     s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
     for name, fn in (("served_hasher_session", served_hasher_session),
                      ("grpc_fleet_session", grpc_fleet_session),
@@ -3555,6 +3675,423 @@ def perf_roundtrip(pkg, rows: list, card) -> dict:
             "capture_rc": rc, "capture_refusal": err.strip()}
 
 
+def validator_parity(pkg, n: int) -> dict:
+    """``n`` seeded submits, every verdict class among them, through the
+    frontend's hashlib validator and its native one: the same verdict and
+    hash each time. Returns the verdict counts."""
+    import random
+
+    ps = pkg.poolserver
+    server = ps.StratumPoolServer(
+        difficulty=2.0 ** -31, native_validation=True,
+        telemetry=pkg.pipeline.PipelineTelemetry())
+    assert server.native_active
+    session = ps.ClientSession(next(server._ids), "smoke", writer=None)
+    assert not server._handle_subscribe(session, 0).get("error")
+    session.username, session.difficulty = "smoke", server.difficulty
+    job = ps.LocalTemplateSource().next_job()
+    asyncio.run(server.set_job(job))
+    rng = random.Random(15)
+    counts: dict = {}
+    for _ in range(n):
+        kind = rng.randrange(10)
+        job_id = "gone" if kind == 0 else job.job_id
+        size = session.extranonce2_size + (kind == 1)
+        e2 = rng.getrandbits(8 * size).to_bytes(size, "little")
+        nonce = rng.getrandbits(32)
+        bits = 0x2000 if kind == 2 else None
+        if kind == 3:
+            session.seen_shares.add((job_id, e2, job.ntime, nonce, None))
+        args = (session, job_id, e2, job.ntime, nonce, bits)
+        want, got = server._validate(*args), server._validate_native(*args)
+        assert got[:2] == want[:2], (args[1:], want, got)
+        counts[want[0]] = counts.get(want[0], 0) + 1
+    assert set(counts) == {"accepted", "low_difficulty", "stale",
+                           "bad_extranonce2", "version_bits",
+                           "duplicate"}, counts
+    return counts
+
+
+def window_quantile(hist, before: list, q: float):
+    """The upper bound of the bucket holding quantile ``q`` of what
+    ``hist`` observed since its cumulative counts were ``before``; None
+    when it observed nothing."""
+    delta = [a - b for a, b in zip(hist.cumulative_counts(), before)]
+    if not delta or not delta[-1]:
+        return None
+    for bound, c in zip((*hist.bounds, float("inf")), delta):
+        if c >= q * delta[-1]:
+            return bound
+    return None
+
+
+async def downstream_session(port: int, user: str, on_reply=None):
+    """A downstream session that subscribes, authorizes and reads every
+    line the frontend sends (``on_reply`` sees each reply to a request
+    id of 100 or more). Returns its writer and its reading task."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    for msg in ({"id": 1, "method": "mining.subscribe", "params": []},
+                {"id": 2, "method": "mining.authorize",
+                 "params": [user, "x"]}):
+        writer.write((json.dumps(msg) + "\n").encode())
+
+    async def read():
+        while True:
+            line = await reader.readline()
+            if not line:
+                return
+            msg = json.loads(line)
+            if (on_reply is not None and isinstance(msg.get("id"), int)
+                    and msg["id"] >= 100):
+                on_reply(msg)
+
+    return writer, asyncio.create_task(read())
+
+
+async def close_sessions(sessions) -> None:
+    for writer, reading in sessions:
+        writer.close()
+        reading.cancel()
+    await asyncio.gather(*(r for _, r in sessions), return_exceptions=True)
+
+
+async def junk_fleet(server, n: int, seconds: int, at_end) -> dict:
+    """``n`` downstream sessions on ``server``: each subscribes,
+    authorizes, then submits one junk share (a random nonce of the
+    current job) a second for ``seconds`` s, reading every line the
+    frontend sends. ``at_end`` is awaited while they are still connected.
+    Returns the replies they read."""
+    import random
+
+    rng = random.Random(256)
+    replies = {"accepted": 0, "rejected": 0}
+
+    def on_reply(msg) -> None:
+        replies["accepted" if msg.get("result") else "rejected"] += 1
+
+    async def client(i: int):
+        await asyncio.sleep(i / n)  # spread over the first second
+        writer, reading = await downstream_session(server.port, f"junk{i}",
+                                                   on_reply)
+        for k in range(seconds):
+            job = server.current_job
+            e2 = ((i << 8) + k).to_bytes(server.session_extranonce2_size,
+                                         "little")
+            writer.write((json.dumps({
+                "id": 100 + k, "method": "mining.submit", "params": [
+                    f"junk{i}", job.job_id, e2.hex(), f"{job.ntime:08x}",
+                    f"{rng.getrandbits(32):08x}"]}) + "\n").encode())
+            await asyncio.sleep(1.0)
+        return writer, reading
+
+    clients = await asyncio.gather(*(client(i) for i in range(n)))
+    out = await at_end()
+    await close_sessions(clients)
+    return {**out, "replies": replies}
+
+
+async def frontend_internal(pkg) -> dict:
+    """``--serve-pool 127.0.0.1:0 --internal-worker --workers 4
+    --serve-difficulty 0.00390625 --serve-job-interval 5 --status-port P
+    --health-interval 1 --slo-fast-window 20 --slo-slow-window 40``, built
+    by ``cli.make_frontend`` and run by ``cli.run_session``, on a fresh
+    telemetry bundle: local templates, the tile hasher on the card behind
+    the frontend's native validator. One idle downstream session stays
+    connected throughout (``frontend-claimed-work`` reads the claimed work
+    per connected session; the 20 s fast window holds the 4 job broadcasts
+    ``job-broadcast`` needs). After the first share it mines a
+    :data:`FRONTEND_WINDOW_S` window (the rate from its dispatcher's
+    hashes and from the tile launches, the validation quantiles,
+    ``/healthz``), then :func:`junk_fleet` loads the event loop with
+    :data:`FRONTEND_CLIENTS` sessions for :data:`FRONTEND_LOAD_S` s (the
+    broadcast's p99 and the internal rate meanwhile, ``/healthz`` and the
+    frontend objectives of ``/slo`` before they leave)."""
+    status = free_port()
+    args = cli_args(pkg, [
+        "--serve-pool", "127.0.0.1:0", "--internal-worker", "--workers", "4",
+        "--serve-difficulty", str(FRONTEND_DIFFICULTY),
+        "--serve-job-interval", "5", "--status-port", str(status),
+        "--health-interval", "1", "--slo-fast-window", "20",
+        "--slo-slow-window", "40"],
+        flightrec_out=os.path.join(out_dir(),
+                                   "frontend_internal_flightrec.json"))
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    frontend = pkg.cli.make_frontend(args)
+    server, iw, hasher = (frontend.server, frontend.internal_worker,
+                          frontend.hasher)
+    assert isinstance(hasher, pkg.TileCudaHasher), hasher
+    assert hasher.device.type == "cuda" and server.telemetry is tel
+    assert server.native_active, "the native validator is not in force"
+    stats = frontend.stats
+    task = asyncio.create_task(pkg.cli.run_session(frontend, args))
+    idle = []
+
+    def mark() -> tuple:
+        return (time.perf_counter(), stats.hashes, tile_launches(pkg),
+                iw.session.accepted, stats.batches,
+                {k[0]: c.value for k, c in tel.stale_drops.children()},
+                tel.frontend_job_broadcast.count)
+
+    def rates(a, b) -> dict:
+        """The window's rates. The dispatcher's hashes include the
+        results a job switch made stale, so the useful rate is the
+        accepted shares against the ``expected_per_s`` those hashes find
+        at the session's difficulty. A result dropped at a switch was a
+        request in flight at the scheduler's steady size (its last
+        ``request_nonces``): ``stale_hash_share`` estimates the hashes
+        lost so."""
+        window = b[0] - a[0]
+        hashes = b[1] - a[1]
+        expected = hashes / window / (2 ** 32 * FRONTEND_DIFFICULTY)
+        drops = {k: v - a[5].get(k, 0) for k, v in b[5].items()}
+        request = tel.batch_nonces.value
+        return {"window_seconds": window, "window_launches": b[2] - a[2],
+                "mhs_dispatcher_hashes": hashes / window / 1e6,
+                "mhs": (b[2] - a[2]) * hasher.batch_size / window / 1e6,
+                "accepted_per_s": (b[3] - a[3]) / window,
+                "expected_per_s": expected,
+                "accepted_vs_expected": (b[3] - a[3]) / window / expected,
+                "job_switches": b[6] - a[6], "results": b[4] - a[4],
+                "stale_drops": drops, "request_nonces": request,
+                "stale_hash_share": drops.get("result", 0) * request
+                / max(hashes, 1)}
+
+    async def surfaces() -> dict:
+        code, body = await http_get(status, "/healthz")
+        health = json.loads(body)
+        code_slo, body_slo = await http_get(status, "/slo")
+        objectives = {o["name"]: o["state"]
+                      for o in json.loads(body_slo)["objectives"]}
+        return {"healthz_code": code,
+                "healthz_frontend": health["components"].get("frontend"),
+                "slo": {name: objectives[name] for name in (
+                    "job-broadcast", "frontend-validate",
+                    "frontend-claimed-work")}}
+
+    try:
+        await until(task, lambda: server.port, "the listener", stats.summary,
+                    60)
+        idle.append(await downstream_session(server.port, "idle"))
+        await until(task, lambda: iw.session.accepted >= 1, "the first share",
+                    stats.summary, 240)
+        a = mark()
+        await until(task, lambda: time.perf_counter() - a[0]
+                    >= FRONTEND_WINDOW_S, "window", stats.summary,
+                    FRONTEND_WINDOW_S + 60)
+        b = mark()
+        out = {**rates(a, b), "accepted_in_window": b[3] - a[3],
+               "validate_ms": {
+                   "p50": tel.frontend_validate.quantile(0.5) * 1e3,
+                   "p99": tel.frontend_validate.quantile(0.99) * 1e3},
+               **await surfaces()}
+        broadcast_before = tel.frontend_job_broadcast.cumulative_counts()
+        verdicts_before = {k[0]: c.value
+                           for k, c in tel.frontend_shares.children()}
+        c = mark()
+
+        async def at_end():
+            return {**rates(c, mark()), **await surfaces()}
+
+        load = await junk_fleet(server, FRONTEND_CLIENTS, FRONTEND_LOAD_S,
+                                at_end)
+        p99 = window_quantile(tel.frontend_job_broadcast, broadcast_before,
+                              0.99)
+        load.update({
+            "sessions": FRONTEND_CLIENTS,
+            "broadcasts": tel.frontend_job_broadcast.cumulative_counts()[-1]
+            - broadcast_before[-1],
+            "job_broadcast_p99_bucket_ms": None if p99 is None else p99 * 1e3,
+            "job_broadcast_max_ms": tel.frontend_job_broadcast.max * 1e3,
+            "verdicts": {k[0]: c.value - verdicts_before.get(k[0], 0)
+                         for k, c in tel.frontend_shares.children()}})
+        out["load"] = load
+    finally:
+        await close_sessions(idle)
+        frontend.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        tel.flightrec.disarm()
+    task.result()
+    assert iw.session.accepted >= 100, iw.session.accepted
+    assert iw.session.invalid == 0 and stats.shares_rejected == 0, (
+        iw.session.invalid, stats.summary())
+    assert stats.hw_errors == 0, stats.summary()
+    return {**out, "accepted": iw.session.accepted,
+            "invalid": iw.session.invalid, "hw_errors": stats.hw_errors,
+            "native_validation": server.native_active,
+            "validate_count": tel.frontend_validate.count,
+            "validate_ms_p99_run": tel.frontend_validate.quantile(0.99) * 1e3}
+
+
+async def frontend_proxy(pkg) -> dict:
+    """The port's validating mock pool at difficulty 1/256 ← ``--serve-pool
+    127.0.0.1:0 --upstream stratum+tcp://POOL --internal-worker --workers
+    4`` ← a downstream ``StratumMiner`` as ``--pool stratum+tcp://FRONTEND
+    --workers 4`` builds it: two tile hashers on one card. After both have
+    shares they mine :data:`FRONTEND_PROXY_S` s; then, at a moment with no
+    forward in flight, the pool's accepted count must equal the proxy's
+    forwards and upstream accepts. Every share valid at the pool, in one of
+    the two sessions' disjoint slices, none twice."""
+    pool = pkg.MockStratumPool(difficulty=FRONTEND_DIFFICULTY)
+    await pool.start()
+    await pool.announce_job(fabric_pool_job(pkg, "proxy-1"))
+    args = cli_args(pkg, [
+        "--serve-pool", "127.0.0.1:0", "--upstream",
+        f"stratum+tcp://127.0.0.1:{pool.port}", "--internal-worker",
+        "--workers", "4", "--status-port", str(free_port()),
+        "--health-interval", "1"],
+        flightrec_out=os.path.join(out_dir(), "frontend_proxy_flightrec.json"))
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    frontend = pkg.cli.make_frontend(args)
+    server, proxy, iw = frontend.server, frontend.proxy, \
+        frontend.internal_worker
+    istats = frontend.stats
+    ftask = asyncio.create_task(pkg.cli.run_session(frontend, args))
+    miner = mtask = None
+
+    def pool_accepted() -> int:
+        return sum(1 for sh in pool.shares if sh.accepted)
+
+    try:
+        await until(ftask, lambda: server.port and server.current_job,
+                    "the upstream job", istats.summary, 60)
+        miner = pkg.cli.make_miner(cli_args(pkg, [
+            "--pool", f"stratum+tcp://127.0.0.1:{server.port}", "--user",
+            "downstream", "--workers", "4"],
+            flightrec_out=os.path.join(out_dir(),
+                                       "frontend_proxy_miner_flightrec.json")))
+        assert miner.dispatcher.hasher.device.type == "cuda"
+        mstats = miner.dispatcher.stats
+        mtask = asyncio.create_task(miner.run())
+        await until(ftask, lambda: mstats.shares_accepted >= 3
+                    and iw.session.accepted >= 3, "3 shares from each",
+                    lambda: (istats.summary(), mstats.summary()), 240)
+
+        def mark():
+            return (time.perf_counter(), istats.hashes, mstats.hashes,
+                    tile_launches(pkg))
+
+        a = mark()
+        await until(ftask, lambda: time.perf_counter() - a[0]
+                    >= FRONTEND_PROXY_S, "window", istats.summary,
+                    FRONTEND_PROXY_S + 60)
+        b = mark()
+        await until(ftask, lambda: proxy.forwarded == proxy.upstream_accepted
+                    + proxy.upstream_rejected == pool_accepted()
+                    + sum(1 for sh in pool.shares if not sh.accepted),
+                    "a moment with no forward in flight",
+                    lambda: (proxy.forwarded, proxy.upstream_accepted,
+                             len(pool.shares)), 30)
+        counts = {"pool_accepted": pool_accepted(),
+                  "pool_rejected": len(pool.shares) - pool_accepted(),
+                  "forwarded": proxy.forwarded,
+                  "upstream_accepted": proxy.upstream_accepted,
+                  "upstream_rejected": proxy.upstream_rejected}
+        prefixes = {
+            "internal": iw.session.extranonce1[len(pool.extranonce1):],
+            "downstream": next(
+                s for s in server.sessions.values()
+                if not s.internal).extranonce1[len(pool.extranonce1):]}
+    finally:
+        if miner is not None:
+            miner.stop()
+            await asyncio.gather(mtask, return_exceptions=True)
+        frontend.stop()
+        await asyncio.gather(ftask, return_exceptions=True)
+        await pool.stop()
+        tel.flightrec.disarm()
+    ftask.result()
+    assert counts["pool_rejected"] == counts["upstream_rejected"] == 0, counts
+    assert counts["pool_accepted"] == counts["upstream_accepted"] == \
+        counts["forwarded"], counts
+    assert prefixes["internal"] != prefixes["downstream"], prefixes
+    by_prefix = {name: sum(1 for sh in pool.shares
+                           if sh.extranonce2.startswith(p))
+                 for name, p in prefixes.items()}
+    assert all(by_prefix.values()) and sum(by_prefix.values()) == len(
+        pool.shares), by_prefix
+    keys = [(sh.job_id, sh.extranonce2, sh.ntime, sh.nonce)
+            for sh in pool.shares]
+    assert len(set(keys)) == len(keys), "a share reached the pool twice"
+    assert istats.hw_errors == mstats.hw_errors == 0
+    assert mstats.shares_rejected == 0 and iw.session.invalid == 0
+    window = b[0] - a[0]
+    internal = (b[1] - a[1]) / window / 1e6
+    downstream = (b[2] - a[2]) / window / 1e6
+    return {**counts, "shares_by_prefix": by_prefix,
+            "prefixes": {k: v.hex() for k, v in prefixes.items()},
+            "window_seconds": window,
+            "mhs_internal": internal, "mhs_downstream": downstream,
+            "mhs_sum": internal + downstream,
+            "mhs": (b[3] - a[3]) * (1 << 24) / window / 1e6,
+            "downstream_accepted": mstats.shares_accepted,
+            "internal_accepted": iw.session.accepted}
+
+
+async def frontend_fabric(pkg) -> dict:
+    """Two mock pools (extranonce1 deadbeef and beadfeed, difficulty
+    1/256) behind ``--serve-pool 127.0.0.1:0 --upstream A --upstream B
+    --internal-worker --workers 4`` (the fabric proxy with its routing
+    defaults): it mines until :data:`FRONTEND_PROXY_S` s have passed and
+    each pool holds a valid share. Every share reaches the pool that
+    announced its job and is valid there."""
+    pools = []
+    for name, e1 in (("fabric-a", "deadbeef"), ("fabric-b", "beadfeed")):
+        pool = pkg.MockStratumPool(difficulty=FRONTEND_DIFFICULTY,
+                                   extranonce1=bytes.fromhex(e1))
+        await pool.start()
+        await pool.announce_job(fabric_pool_job(pkg, name))
+        pools.append(pool)
+    args = cli_args(pkg, [
+        "--serve-pool", "127.0.0.1:0",
+        *(f for pool in pools for f in (
+            "--upstream", f"stratum+tcp://127.0.0.1:{pool.port}")),
+        "--internal-worker", "--workers", "4", "--health-interval", "1"],
+        flightrec_out=os.path.join(out_dir(), "frontend_fabric_flightrec.json"))
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    frontend = pkg.cli.make_frontend(args)
+    proxy, iw, stats = frontend.proxy, frontend.internal_worker, \
+        frontend.stats
+    assert frontend.fabric is proxy.fabric
+    task = asyncio.create_task(pkg.cli.run_session(frontend, args))
+    t0 = time.perf_counter()
+
+    def accepted(pool) -> int:
+        return sum(1 for sh in pool.shares if sh.accepted)
+
+    try:
+        await until(task, lambda: time.perf_counter() - t0 >= FRONTEND_PROXY_S
+                    and all(accepted(p) for p in pools),
+                    "a valid share at each pool",
+                    lambda: ([accepted(p) for p in pools], stats.summary()),
+                    FRONTEND_PROXY_S + 90)
+        seconds = time.perf_counter() - t0
+        fabric = proxy.fabric.snapshot()
+        log = list(proxy.fabric.dispatch_log)
+    finally:
+        frontend.stop()
+        await asyncio.gather(task, return_exceptions=True)
+        for pool in pools:
+            await pool.stop()
+        tel.flightrec.disarm()
+    task.result()
+    for pool in pools:
+        assert all(sh.accepted for sh in pool.shares), [
+            sh.reason for sh in pool.shares if not sh.accepted]
+        assert all(sh.job_id in pool.jobs for sh in pool.shares)
+    assert stats.hw_errors == 0 and iw.session.invalid == 0
+    return {"seconds": seconds,
+            "pool_accepted": [accepted(p) for p in pools],
+            "forwarded": proxy.forwarded,
+            "upstream_accepted": proxy.upstream_accepted,
+            "upstream_rejected": proxy.upstream_rejected,
+            "dropped_cross_upstream": proxy.dropped_cross_upstream,
+            "internal_accepted": iw.session.accepted,
+            "installs": len(log),
+            "slot_switches": sum(1 for x, y in zip(log, log[1:])
+                                 if x[1] != y[1]),
+            "failovers": fabric["failovers"], "active": fabric["active"]}
+
+
 async def until(task, done, what: str, summary, seconds: float) -> None:
     """Wait for ``done()``; fail if the session's task ends first or
     ``seconds`` pass."""
@@ -3577,7 +4114,10 @@ class _Package:
             TileCudaHasher,
             sibling_version_patterns,
         )
-        from bitcoin_miner_tpu_torch import cli
+        from bitcoin_miner_tpu_torch import cli, poolserver
+        from bitcoin_miner_tpu_torch.backends import native
+        from bitcoin_miner_tpu_torch.backends.base import get_hasher
+        from bitcoin_miner_tpu_torch.backends.cpu import NativeCpuHasher
         from bitcoin_miner_tpu_torch.core.header import GENESIS_HEADER_HEX
         from bitcoin_miner_tpu_torch.core.sha256 import sha256d
         from bitcoin_miner_tpu_torch.core.target import (
@@ -3673,6 +4213,8 @@ class _Package:
         self.pipeline = pipeline
         self.ScanRequest = ScanRequest
         self.make_cuda_fleet, self.ChaosHasher = make_cuda_fleet, ChaosHasher
+        self.native, self.NativeCpuHasher = native, NativeCpuHasher
+        self.get_hasher, self.poolserver = get_hasher, poolserver
 
     @staticmethod
     def hasher_service():

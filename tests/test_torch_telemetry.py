@@ -696,6 +696,66 @@ def test_pools_rule_matches_reference(slots, state):
     assert (out[2] and out[2][0]) == state
 
 
+def _frontend_snapshots(seed):
+    """A seeded run of the pool frontend's two signals: the session
+    gauge (0 at times) and verdict counters that grow, some windows with
+    accepts, some invalid-only, some idle."""
+    rng = np.random.default_rng(700 + seed)
+    shares, out = {}, []
+    for _ in range(40):
+        kind = int(rng.integers(4))
+        if kind == 0:
+            shares["accepted"] = shares.get("accepted", 0.0) + 1
+        if kind in (1, 2):
+            label = ["low_difficulty", "stale", "duplicate", "malformed",
+                     "bad_extranonce2", "version_bits"][int(rng.integers(6))]
+            shares[label] = shares.get(label, 0.0) + float(rng.integers(1, 4))
+        out.append(dict(_pools_snapshot({}),
+                        frontend_sessions=float(rng.integers(0, 3)),
+                        frontend_shares=dict(shares)))
+    return out
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_frontend_rule_matches_reference(seed):
+    """The ``frontend`` rule reads the same verdicts and reasons from the
+    same synthetic snapshots as the reference's, and no frontend signal
+    is no component."""
+    out = []
+    for pipeline, health, kw in (
+            (ref_pipeline, ref_health, {"relay_probe": _no_relay}),
+            (port_pipeline, port_health, {})):
+        model = health.HealthModel(pipeline.PipelineTelemetry(), **kw)
+        trail = [("frontend" in model.evaluate(_pools_snapshot({}),
+                                               now=0.0),)]
+        for i, snap in enumerate(_frontend_snapshots(seed)):
+            report = model.evaluate(snap, now=1.0 + i)
+            fe = report.get("frontend")
+            trail.append(None if fe is None else (fe.state, fe.reason))
+            model.publish(report)
+            trail.append(model.healthz(report))
+        out.append(trail)
+    assert out[1] == out[0]
+    assert out[1][0] == (False,)
+    states = {t[0] for t in out[1][1::2] if t}
+    assert states == {"ok", "degraded"}
+
+
+def test_health_sample_reads_the_frontend_families():
+    samples = []
+    for pipeline, health, kw in (
+            (ref_pipeline, ref_health, {"relay_probe": _no_relay}),
+            (port_pipeline, port_health, {})):
+        tel = pipeline.PipelineTelemetry()
+        tel.frontend_sessions.set(3)
+        tel.frontend_shares.labels(result="accepted").inc(5)
+        tel.frontend_shares.labels(result="stale").inc()
+        sample = health.HealthModel(tel, **kw).sample()
+        samples.append((sample["frontend_sessions"],
+                        sample["frontend_shares"]))
+    assert samples[1] == samples[0] == (3.0, {"accepted": 5.0, "stale": 1.0})
+
+
 def test_health_sample_reads_the_pool_slot_gauges():
     samples = []
     for pipeline, health, kw in (
