@@ -17,7 +17,10 @@ Modes:
                                    ``--upstream`` pools (one, or several
                                    through the multi-pool fabric);
                                    ``--internal-worker`` mines the
-                                   frontend's own slice with ``--backend``
+                                   frontend's own slice with ``--backend``;
+                                   ``--serve-shards N`` spreads it over N
+                                   acceptor processes on one port
+                                   (``poolserver/shard.py``)
 
 Backends: ``cuda-tile`` (default; the tile kernel), ``cuda`` (the
 hit-buffer kernel), their sharded forms over several cards ``cuda-tile-mesh``
@@ -108,7 +111,7 @@ from .telemetry import (
 if TYPE_CHECKING:
     from .miner.multipool import MultipoolMiner
     from .miner.runner import GbtMiner, GetworkMiner, StratumMiner
-    from .poolserver import PoolFrontend
+    from .poolserver import PoolFrontend, ShardSupervisor
 
 logger = logging.getLogger("tpu_miner_torch")
 
@@ -240,7 +243,15 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--serve-shards", type=int, default=None,
                        metavar="N",
                        help="shard the frontend across N acceptor "
-                            "processes; not ported yet: N > 1 is refused")
+                            "processes that share the listen port "
+                            "(SO_REUSEPORT), each over a disjoint static "
+                            "slice of the extranonce prefix space; 0 or 1: "
+                            "one process. Child i serves /metrics and "
+                            "/healthz on --status-port + 1 + i; the parent "
+                            "supervises them and aggregates their samples "
+                            "with a shard label. Needs an explicit port; "
+                            "refused with --internal-worker and with more "
+                            "than one --upstream")
     serve.add_argument("--serve-vardiff", type=float, default=None,
                        metavar="SHARES_PER_MIN",
                        help="per-session vardiff: retarget each session "
@@ -752,7 +763,7 @@ def make_health(args: argparse.Namespace, telemetry: PipelineTelemetry,
 def make_observatory(args: argparse.Namespace,
                      telemetry: PipelineTelemetry, slo: SloEngine,
                      hasher: Optional[Hasher] = None, fabric=None,
-                     ) -> Optional[Observatory]:
+                     shards=None) -> Optional[Observatory]:
     """The observatory's collector, started, over the SLO engine's store:
     every ``--health-interval`` seconds it samples this process's
     registry, scrapes the ``--federate`` members and, where ``hasher`` is
@@ -760,8 +771,9 @@ def make_observatory(args: argparse.Namespace,
     ``process=worker-HOST:PORT``, ``worker=HOST:PORT``), and evaluates the
     recording rules; with a multi-pool ``fabric`` it samples each slot's
     accept rate (``fabric.slot_accept_rate{pool}``). None at an interval of
-    0, which runs no thread. (The reference also discovers the sharded
-    pool frontend's children, which this package does not have yet.)"""
+    0, which runs no thread. With a sharded pool frontend's supervisor
+    (``shards``) it scrapes each live child as ``shard-<i>``, labelled
+    ``shard=<i>``."""
     interval = _health_interval(args)
     if interval <= 0:
         return None
@@ -773,6 +785,13 @@ def make_observatory(args: argparse.Namespace,
                 f"bad --federate {spec!r}: want NAME=URL "
                 "(e.g. worker-1=http://127.0.0.1:18988/metrics)")
         federator.add_target(ScrapeTarget.make(name, url))
+    if shards is not None:
+        def shard_targets(get=shards.scrape_targets):
+            return [ScrapeTarget.make(f"shard-{i}",
+                                      f"http://127.0.0.1:{port}/metrics",
+                                      {"shard": str(i)})
+                    for i, port in get()]
+        federator.add_source(shard_targets)
     fleet_targets = getattr(hasher, "scrape_targets", None)
     if callable(fleet_targets):
         def workers(get=fleet_targets):
@@ -813,12 +832,15 @@ def _dump_trace(telemetry: PipelineTelemetry,
 
 
 def session_parts(miner) -> tuple:
-    """``(telemetry, stats, hasher)`` of a session: its dispatcher's, or
-    a pool frontend's (its internal worker's stats and hasher, or idle
-    stats and None without one)."""
+    """``(telemetry, stats, hasher)`` of a session: its dispatcher's, a
+    pool frontend's (its internal worker's stats and hasher, or idle
+    stats and None without one), or a sharded frontend's supervisor's
+    (idle stats, no hasher)."""
     dispatcher = getattr(miner, "dispatcher", None)
     if dispatcher is not None:
         return dispatcher.telemetry, dispatcher.stats, dispatcher.hasher
+    if getattr(miner, "shard_supervisor", None) is not None:
+        return miner.telemetry, miner.stats, None
     return miner.server.telemetry, miner.stats, miner.hasher
 
 
@@ -831,9 +853,12 @@ async def run_session(miner, args: argparse.Namespace) -> None:
     flight recorder is disarmed. A multi-pool fabric (a session's, or a
     pool frontend's upstreams') feeds the SLO engine, the incident
     bundles, the observatory, the reporter line and ``/telemetry``; a pool
-    frontend's server feeds the SLO engine its claimed work."""
+    frontend's server feeds the SLO engine its claimed work; a sharded
+    frontend's supervisor feeds ``/telemetry`` its shards, ``/metrics``
+    its children's samples and the observatory its children."""
     telemetry, stats, hasher = session_parts(miner)
     fabric = getattr(miner, "fabric", None)
+    shards = getattr(miner, "shard_supervisor", None)
     from .utils.reporting import StatsReporter
     from .utils.status import StatusServer
 
@@ -848,7 +873,7 @@ async def run_session(miner, args: argparse.Namespace) -> None:
         telemetry.flightrec.arm(args.flightrec_out)
     try:
         observatory = make_observatory(args, telemetry, slo, hasher=hasher,
-                                       fabric=fabric)
+                                       fabric=fabric, shards=shards)
         # The line shows health and the SLO summary only while the
         # watchdog keeps them fresh; /healthz evaluates per request
         # without one.
@@ -863,7 +888,7 @@ async def run_session(miner, args: argparse.Namespace) -> None:
             status_server = StatusServer(
                 stats, args.status_port, registry=telemetry.registry,
                 telemetry=telemetry, health=health, slo=slo,
-                tsdb=slo.store, fabric=fabric)
+                tsdb=slo.store, fabric=fabric, shards=shards)
             try:
                 await status_server.start()
             except (OSError, OverflowError, ValueError) as e:
@@ -1189,14 +1214,17 @@ def _serve_option(args: argparse.Namespace, flag: str):
     return SERVE_DEFAULTS[flag] if val is None else val
 
 
-def make_frontend(args: argparse.Namespace) -> "PoolFrontend":
+def make_frontend(args: argparse.Namespace
+                  ) -> "Union[PoolFrontend, ShardSupervisor]":
     """The ``--serve-pool`` frontend the options select: a
     ``StratumPoolServer`` (the native validator when the library builds,
     else the hashlib oracle), its job source (local templates, one
     ``--upstream``'s ``UpstreamProxy``, or several through the multi-pool
     fabric's ``FabricUpstreamProxy``) and, with ``--internal-worker``, an
     ``InternalWorker`` on ``make_hasher(args)``: on the card unless
-    ``--device cpu`` (or a host backend) says otherwise."""
+    ``--device cpu`` (or a host backend) says otherwise. With
+    ``--serve-shards N`` above 1, the sharded frontend's supervisor
+    (:func:`make_sharded_frontend`)."""
     from .poolserver import (
         FabricUpstreamProxy,
         InternalWorker,
@@ -1207,9 +1235,6 @@ def make_frontend(args: argparse.Namespace) -> "PoolFrontend":
     )
 
     _refuse_session_flags(args, "--serve-pool", _flags_of("--serve-pool"))
-    if _serve_option(args, "serve_shards") > 1:
-        raise SystemExit("--serve-shards: the sharded pool frontend is not "
-                         "ported yet; run one process (omit the flag)")
     try:
         # Port 0 binds an ephemeral port (the log and server.port say
         # which); no port is 3334.
@@ -1223,6 +1248,8 @@ def make_frontend(args: argparse.Namespace) -> "PoolFrontend":
         raise SystemExit("--serve-difficulty must be > 0")
     if args.serve_vardiff is not None and args.serve_vardiff <= 0:
         raise SystemExit("--serve-vardiff must be > 0 shares/minute")
+    if _serve_option(args, "serve_shards") > 1:
+        return make_sharded_frontend(args, host, port)
     telemetry = setup_telemetry(args, arm=False)
     # The hasher first: without a card (and without --device cpu) the
     # frontend must fail before it binds anything.
@@ -1299,10 +1326,89 @@ def make_frontend(args: argparse.Namespace) -> "PoolFrontend":
     )
 
 
+def make_sharded_frontend(args: argparse.Namespace, host: str, port: int
+                          ) -> "ShardSupervisor":
+    """``--serve-pool HOST:PORT --serve-shards N``: the supervisor of N
+    acceptor processes that share ``HOST:PORT`` through ``SO_REUSEPORT``,
+    each over a disjoint static slice of the prefix space. The parent
+    runs no listener: it owns the children's lifecycle (liveness, respawn
+    at the same range, SIGTERM to all) and the aggregated status surface.
+    Refused, as the reference refuses them: port 0 (each child would bind
+    its own), more than one ``--upstream`` (the fabric's failover state
+    cannot be split over processes) and ``--internal-worker`` (each child
+    would build a hasher: point a separate miner at the frontend).
+
+    Where this process loads the native validator, every child is made
+    to load it too (``native_validation=True``): a child that cannot
+    fails at its start, where the reference's would validate on with
+    hashlib, unseen by the parent. Without it, each child probes on its
+    own, as the reference's do."""
+    from .backends.native import native_available
+    from .poolserver import ShardSupervisor, make_shard_configs
+
+    if port == 0:
+        raise SystemExit(
+            "--serve-shards needs an explicit port (every shard binds the "
+            "same address; port 0 would scatter them)")
+    upstreams = [u.strip() for u in args.upstream or () if u.strip()]
+    if len(upstreams) > 1:
+        raise SystemExit(
+            "--serve-shards with multiple --upstream is not supported: "
+            "each shard holds one upstream session of its own (the "
+            "fabric's failover state cannot be partitioned across "
+            "processes); give one --upstream, or none for local templates")
+    if args.internal_worker:
+        raise SystemExit(
+            "--serve-shards with --internal-worker is not supported: N "
+            "children would each build a hasher; run a separate miner "
+            "pointed at the sharded frontend instead")
+    upstream_host, upstream_port, upstream_tls = None, 3333, False
+    if upstreams:
+        scheme = urlparse(normalize_url(upstreams[0], "stratum+tcp")).scheme
+        if scheme not in ("stratum+tcp", "stratum+ssl"):
+            raise SystemExit(f"--upstream must be stratum+tcp:// or "
+                             f"stratum+ssl://, got {scheme}")
+        try:
+            upstream_host, upstream_port = parse_hostport(
+                upstreams[0], "stratum+tcp", 3333)
+        except ValueError as e:
+            raise SystemExit(f"bad --upstream URL: {e}")
+        upstream_tls = scheme == "stratum+ssl"
+    telemetry = setup_telemetry(args, arm=False)
+    try:
+        configs = make_shard_configs(
+            args.serve_shards, host, port,
+            prefix_bytes=_serve_option(args, "serve_prefix_bytes"),
+            extranonce2_size=_serve_option(args, "serve_extranonce2_size"),
+            difficulty=_serve_option(args, "serve_difficulty"),
+            job_interval_s=_serve_option(args, "serve_job_interval"),
+            status_port=args.status_port,
+            health_interval_s=_health_interval(args),
+            vardiff_target_spm=args.serve_vardiff or 0.0,
+            vardiff_interval_s=(
+                _serve_option(args, "serve_vardiff_interval")
+                if args.serve_vardiff is not None else 0.0),
+            upstream_host=upstream_host,
+            upstream_port=upstream_port,
+            upstream_tls=upstream_tls,
+            upstream_tls_verify=not args.tls_no_verify,
+            username=args.user,
+            password=args.password,
+            slo_objectives_path=args.slo_objectives,
+            native_validation=True if native_available() else None,
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return ShardSupervisor(configs, telemetry=telemetry)
+
+
 def cmd_session(miner, args: argparse.Namespace) -> int:
     try:
         asyncio.run(run_session(miner, args))
     except KeyboardInterrupt:
+        shutdown = getattr(miner, "shutdown", None)
+        if shutdown is not None:  # a sharded frontend's children
+            shutdown()
         logger.info("interrupted; final: %s",
                     session_parts(miner)[1].summary())
     return 0

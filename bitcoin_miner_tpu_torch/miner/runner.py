@@ -182,6 +182,12 @@ class StratumMiner:
         #: replayed).
         self._last_params: Optional[StratumJobParams] = None
         self._last_difficulty: Optional[float] = None
+        #: the first dispatcher generation of the current connection.
+        #: Until the connection's first job is installed, every share is
+        #: mined over a dropped connection's extranonce1, and a pool whose
+        #: sessions reuse job ids would judge it against the new one's (a
+        #: divergence: the reference submits it).
+        self._live_generation = 0
         #: every pool verdict, weighed by the difficulty in force; the
         #: reporter ticks it and the health model reads its gauges.
         self.accounting = ShareAccountant(self.dispatcher.stats)
@@ -230,9 +236,11 @@ class StratumMiner:
             await self._on_job(params)
 
     async def _on_disconnect(self) -> None:
-        # Job ids and extranonce1 are per-connection.
+        # Job ids and extranonce1 are per-connection: so is the work
+        # mined on them.
         self._last_params = None
         self._last_difficulty = None
+        self._live_generation = self.dispatcher.current_generation + 1
         self.dispatcher.reset_sweep_positions()
         self._sync_reconnects()
 
@@ -269,6 +277,15 @@ class StratumMiner:
             _record_submit(telemetry, t0, share, result,
                            accounting=self.accounting, difficulty=difficulty)
 
+        if self.dispatcher.current_generation < self._live_generation:
+            # Mined for a connection that has dropped: lost with it. (The
+            # dispatcher drops a result of an older generation than its
+            # own before any of its shares reach here.)
+            stats.shares_stale += 1
+            record("lost")
+            logger.info("share of a dropped connection not submitted "
+                        "(job %s)", share.job_id)
+            return
         try:
             ok = await self.client.submit_share(share)
         except StratumError as e:

@@ -1,8 +1,9 @@
 """The pool frontend: a Stratum v1 server for downstream miners, with
 per-session extranonce slices, CPU share validation, jobs from a local
 template stream or upstream pools, and an internal worker that mines
-the server's own slice. Counterpart of ``bitcoin_miner_tpu/poolserver``
-but for the sharded frontend (``shard.py``)."""
+the server's own slice, and its sharded form: N acceptor processes on one
+port, each over a static range of the prefix space (``shard.py``).
+Counterpart of ``bitcoin_miner_tpu/poolserver``."""
 
 from .jobs import (
     FabricUpstreamProxy,
@@ -12,6 +13,7 @@ from .jobs import (
 )
 from .runner import PoolFrontend
 from .server import ClientSession, InternalWorker, StratumPoolServer
+from .shard import ShardConfig, ShardSupervisor, make_shard_configs
 from .space import PrefixAllocator, SpaceExhausted
 
 __all__ = [
@@ -22,7 +24,10 @@ __all__ = [
     "LocalTemplateSource",
     "PoolFrontend",
     "PrefixAllocator",
+    "ShardConfig",
+    "ShardSupervisor",
     "SpaceExhausted",
     "StratumPoolServer",
     "UpstreamProxy",
+    "make_shard_configs",
 ]

@@ -32,6 +32,7 @@ class PoolFrontend:
         local_source: Optional[LocalTemplateSource] = None,
         job_interval_s: float = 30.0,
         internal_worker: Optional[InternalWorker] = None,
+        reuse_port: bool = False,
     ) -> None:
         if (proxy is None) == (local_source is None):
             raise ValueError(
@@ -45,6 +46,9 @@ class PoolFrontend:
         self.local_source = local_source
         self.job_interval_s = job_interval_s
         self.internal_worker = internal_worker
+        #: bind with ``SO_REUSEPORT``: one of the sharded frontend's
+        #: acceptor processes, which share the listen address.
+        self.reuse_port = reuse_port
         self._stats: Optional[MinerStats] = None
         self._stop_event: Optional[asyncio.Event] = None
         self._stopping = False
@@ -83,7 +87,8 @@ class PoolFrontend:
         self._stop_event = asyncio.Event()
         if self._stopping:
             self._stop_event.set()
-        await self.server.start(self.host, self.port)
+        await self.server.start(self.host, self.port,
+                                reuse_port=self.reuse_port)
         tasks: List[asyncio.Task] = []
         if self.proxy is not None:
             tasks.append(asyncio.create_task(

@@ -356,10 +356,16 @@ class StratumPoolServer:
 
     # ------------------------------------------------------------ lifecycle
     async def start(
-        self, host: str = "127.0.0.1", port: int = 0
+        self, host: str = "127.0.0.1", port: int = 0,
+        reuse_port: bool = False,
     ) -> Tuple[str, int]:
+        """Bind and serve. ``reuse_port`` sets ``SO_REUSEPORT``, so that
+        several acceptor processes bind the same port and the kernel
+        spreads incoming connections over them (the sharded frontend,
+        ``shard.py``; Linux semantics)."""
         self._server = await asyncio.start_server(
-            self._serve, host, port, limit=self.max_line_bytes
+            self._serve, host, port, limit=self.max_line_bytes,
+            reuse_port=reuse_port or None,
         )
         self.port = self._server.sockets[0].getsockname()[1]
         logger.info("pool frontend listening on %s:%d", host, self.port)

@@ -39,6 +39,7 @@ from .metrics import (  # noqa: F401
 )
 from .pipeline import (  # noqa: F401
     FLEET_CHILD_LEVELS,
+    FRONTEND_SHARD_LEVELS,
     GAP_BUCKETS,
     METRIC_BATCH_NONCES,
     METRIC_CHIP_DISPATCHES,
@@ -48,6 +49,7 @@ from .pipeline import (  # noqa: F401
     METRIC_FEDERATE_SCRAPES,
     METRIC_FLEET_CHILD_STATE,
     METRIC_FLEET_RECLAIMS,
+    METRIC_FRONTEND_SHARD_STATE,
     METRIC_HEALTH,
     METRIC_INCIDENTS,
     METRIC_MESH_DEVICES,

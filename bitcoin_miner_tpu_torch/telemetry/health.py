@@ -5,46 +5,48 @@ of the components this package has: a small rule engine over the metrics
 the pipeline already emits that classifies each component ``ok`` /
 ``degraded`` / ``stalled`` with a machine-readable reason:
 
-==============  =====================================================
-component       signals
-==============  =====================================================
-``device``      completed batches (``MinerStats.batches`` or the
-                ``scan_batch`` count) against work in flight (the busy
-                clock, ``ring_occupancy``); the recent ``dispatch_gap``
-                mean
-``ring``        ``ring_occupancy`` > 0 with ``ring_collect`` still
-``rpc``         ``stream_window`` > 0 with ``rpc_responses`` still;
-                ``rpc_errors`` growth
-``pool``        ``submits_inflight`` > 0 with ``pool_acks`` still;
-                reject-only ack windows
-``shares``      ``share_efficiency`` below the drift bound once
-                ``share_expected`` clears the confidence floor
-``frontend``    the pool frontend's downstream side (``poolserver/``):
-                ``frontend_sessions`` is the traffic signal; a window of
-                invalid ``frontend_shares`` verdicts with none accepted
-                degrades it (junk shares, or mis-built jobs)
-``pools``       the multi-pool fabric's ``pool_slot_state`` gauges: any
-                slot degraded or dead degrades it, all slots dead stall
-                it (no upstream left to mine for)
-``fleet``       the fleet supervisor's ``fleet_child_state`` gauges: any
-                child degraded, probing or quarantined degrades it, all
-                children quarantined stall it (nothing left to hash with)
-``slo``         the SLO engine's objective states (``telemetry/slo.py``):
-                any objective at fast burn or in breach degrades it;
-                burn never stalls (503 stays the stall rules')
-``share_loss``  the lost-share burst: the fast window's loss rate over
-                the slow window's base rate, from ``slo.share_lost`` in
-                the engine's store, which :meth:`HealthModel.sample`'s
-                loss sweep fills
-``chip:<n>``    a fan-out card's ``chip_inflight`` > 0 with its
-                ``chip_dispatches`` still
-==============  =====================================================
+==================  =====================================================
+component           signals
+==================  =====================================================
+``device``          completed batches (``MinerStats.batches`` or the
+                    ``scan_batch`` count) against work in flight (the busy
+                    clock, ``ring_occupancy``); the recent ``dispatch_gap``
+                    mean
+``ring``            ``ring_occupancy`` > 0 with ``ring_collect`` still
+``rpc``             ``stream_window`` > 0 with ``rpc_responses`` still;
+                    ``rpc_errors`` growth
+``pool``            ``submits_inflight`` > 0 with ``pool_acks`` still;
+                    reject-only ack windows
+``shares``          ``share_efficiency`` below the drift bound once
+                    ``share_expected`` clears the confidence floor
+``frontend``        the pool frontend's downstream side (``poolserver/``):
+                    ``frontend_sessions`` is the traffic signal; a window of
+                    invalid ``frontend_shares`` verdicts with none accepted
+                    degrades it (junk shares, or mis-built jobs)
+``pools``           the multi-pool fabric's ``pool_slot_state`` gauges: any
+                    slot degraded or dead degrades it, all slots dead stall
+                    it (no upstream left to mine for)
+``fleet``           the fleet supervisor's ``fleet_child_state`` gauges: any
+                    child degraded, probing or quarantined degrades it, all
+                    children quarantined stall it (nothing left to hash with)
+``frontend_shard``  the sharded frontend's ``frontend_shard_state``
+                    gauges: any shard off serving degrades it, all shards
+                    down stall it (no process left accepting)
+``slo``             the SLO engine's objective states (``telemetry/slo.py``):
+                    any objective at fast burn or in breach degrades it;
+                    burn never stalls (503 stays the stall rules')
+``share_loss``      the lost-share burst: the fast window's loss rate over
+                    the slow window's base rate, from ``slo.share_lost`` in
+                    the engine's store, which :meth:`HealthModel.sample`'s
+                    loss sweep fills
+``chip:<n>``        a fan-out card's ``chip_inflight`` > 0 with its
+                    ``chip_dispatches`` still
+==================  =====================================================
 
-The reference's ``frontend_shard`` rule comes with the sharded frontend
-that feeds it. An absent input is no component, as in the reference:
-no ``frontend`` without a frontend, no ``pools`` without a fabric. The
-``slo`` and
-``share_loss`` components exist only with an SLO engine (``slo=``).
+An absent input is no component, as in the reference: no ``frontend``
+without a frontend, no ``pools`` without a fabric, no
+``frontend_shard`` without shards. The ``slo`` and ``share_loss``
+components exist only with an SLO engine (``slo=``).
 
 The stall rules share one shape: work is pending but the component's
 progress counter stopped. A slow component keeps making progress (ok or
@@ -66,7 +68,11 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from .pipeline import FLEET_CHILD_LEVELS, POOL_SLOT_LEVELS
+from .pipeline import (
+    FLEET_CHILD_LEVELS,
+    FRONTEND_SHARD_LEVELS,
+    POOL_SLOT_LEVELS,
+)
 from .shareacct import DRIFT_DEGRADED_BELOW, MIN_EXPECTED_SHARES
 
 logger = logging.getLogger(__name__)
@@ -248,6 +254,9 @@ class HealthModel:
             "pool_slots": self._children_by_label(tel.pool_slot_state),
             "fleet_children": self._children_by_label(
                 tel.fleet_child_state
+            ),
+            "frontend_shards": self._children_by_label(
+                tel.frontend_shard_state
             ),
         }
 
@@ -464,6 +473,33 @@ class HealthModel:
                 )
             else:
                 report["fleet"] = ComponentHealth("fleet", OK)
+
+        # frontend_shard: the sharded frontend's per-acceptor gauges
+        # (absent or empty: unsharded, no component). The supervisor
+        # respawns a dead shard within a liveness tick; this is the
+        # operator's view: a shard off serving costs accept capacity (the
+        # survivors' disjoint prefix ranges keep validating), and all down
+        # leaves no process accepting connections.
+        shards: Dict[str, float] = snap.get("frontend_shards", {})
+        if shards:
+            down = sorted(k for k, v in shards.items()
+                          if v >= FRONTEND_SHARD_LEVELS["down"])
+            off = sorted(k for k, v in shards.items()
+                         if v >= FRONTEND_SHARD_LEVELS["degraded"])
+            if len(down) == len(shards):
+                report["frontend_shard"] = ComponentHealth(
+                    "frontend_shard", STALLED,
+                    f"all {len(shards)} frontend shards down",
+                )
+            elif off:
+                report["frontend_shard"] = ComponentHealth(
+                    "frontend_shard", DEGRADED,
+                    f"frontend shards not serving: {', '.join(off)} "
+                    f"({len(shards) - len(off)} serving)",
+                )
+            else:
+                report["frontend_shard"] = ComponentHealth(
+                    "frontend_shard", OK)
 
         # slo: the objective states (absent or None: no engine, no
         # component; all no_data: no evidence yet, no component). Burn

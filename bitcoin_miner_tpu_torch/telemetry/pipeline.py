@@ -7,8 +7,8 @@ the reference's surfaces read. Only the families that this package emits
 fan-out and the mesh-native ring, the fleet supervisor, the health model,
 the share accountant, the SLO engine, the incident capture, the
 time-series store, the multi-pool fabric and the one-process pool
-frontend) and those of the gRPC seam are registered; the sharded
-frontend's ``frontend_shard_state`` comes with its module.
+frontend and its sharded form) and those of the gRPC seam are
+registered: every family of the reference's bundle.
 
 ``PipelineTelemetry`` bundles a :class:`MetricRegistry`, a
 :class:`Tracer`, a :class:`FlightRecorder` and a
@@ -125,6 +125,13 @@ METRIC_FLEET_CHILD_STATE = "tpu_miner_fleet_child_state"
 #: reason=error|hang|probe_failed.
 METRIC_FLEET_RECLAIMS = "tpu_miner_fleet_reclaims"
 
+#: Per-acceptor-process state of the sharded pool frontend
+#: (``poolserver/shard.py``), labeled shard=<index>, valued by
+#: :data:`FRONTEND_SHARD_LEVELS` (starting 0 … down 3). The health model's
+#: ``frontend_shard`` component reads the children: any shard off serving
+#: degrades it, all shards down stall it (nothing left accepting).
+METRIC_FRONTEND_SHARD_STATE = "tpu_miner_frontend_shard_state"
+
 #: Fast-window error-budget burn per SLO objective (``telemetry/slo.py``),
 #: labeled objective=<name>: 1.0 burns exactly at the sustainable rate,
 #: the engine's breach_burn (the slow window confirming) is the incident
@@ -166,6 +173,16 @@ FLEET_CHILD_LEVELS = {
     "quarantined": 3.0,
 }
 
+#: A shard's state → the ``frontend_shard_state`` gauge value: one
+#: definition for the supervisor, which sets the gauge, and the health
+#: model, which classifies from it.
+FRONTEND_SHARD_LEVELS = {
+    "starting": 0.0,
+    "serving": 1.0,
+    "degraded": 2.0,
+    "down": 3.0,
+}
+
 #: Gaps run from ~10 µs (a full ring) to seconds (a slow pool): the
 #: default latency ladder covers that span.
 GAP_BUCKETS: Tuple[float, ...] = DEFAULT_LATENCY_BUCKETS
@@ -179,7 +196,7 @@ BUNDLE_METRICS = (
     "mesh_devices", "mesh_rebuilds", "frontend_sessions", "frontend_shares",
     "frontend_job_broadcast", "frontend_validate",
     "frontend_broadcast_encodes", "pool_slot_state", "pool_failover",
-    "fleet_child_state", "fleet_reclaims",
+    "fleet_child_state", "fleet_reclaims", "frontend_shard_state",
     "health", "share_efficiency", "share_expected", "share_lost",
     "slo_burn", "slo_slot_burn", "incidents", "tsdb_series",
     "federate_scrapes",
@@ -367,6 +384,12 @@ class PipelineTelemetry:
             "In-flight requests reclaimed from a failed child and "
             "re-dispatched to a survivor",
             labelnames=("reason",),
+        )
+        self.frontend_shard_state = r.gauge(
+            METRIC_FRONTEND_SHARD_STATE,
+            "Sharded-frontend acceptor process state "
+            "(0 starting, 1 serving, 2 degraded, 3 down)",
+            labelnames=("shard",),
         )
         self.health = r.gauge(
             METRIC_HEALTH,

@@ -14,7 +14,9 @@ knob / method           the failure it injects
 ``drop_clients()``      every live connection severed, the listener
                         still accepting
 ``mute = True``         half-open socket: connections stay up and are
-                        read, but no request is ever answered
+                        read, but no request is ever answered (the
+                        submits read meanwhile are counted in
+                        ``unanswered_submits``)
 ``reply_delay_s``       every reply delayed (a slow pool)
 ``abort_replies``       the connection severed instead of the next
                         replies (an int counts them down, True: all)
@@ -52,6 +54,8 @@ class ChaosStratumPool(MockStratumPool):
         self.abort_replies: "bool | int" = 0
         #: answer every mining.submit with a rejection.
         self.reject_submits = False
+        #: mining.submit requests read while muted, never answered.
+        self.unanswered_submits = 0
 
     # ------------------------------------------------------------ scripting
     def kill(self) -> None:
@@ -100,6 +104,9 @@ class ChaosStratumPool(MockStratumPool):
         await super()._send_reply(writer, reply)
 
     def _dispatch(self, msg: dict) -> Optional[dict]:
+        if self.mute and msg.get("method") == "mining.submit":
+            # _send_reply drops the verdict: the request is read and kept.
+            self.unanswered_submits += 1
         if self.reject_submits and msg.get("method") == "mining.submit":
             # The base validator records the share (tests read
             # ``pool.shares``); its verdict is then overruled.

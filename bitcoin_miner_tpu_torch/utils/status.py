@@ -5,10 +5,13 @@ HTTP server with one request per connection ("Connection: close"):
 
 - ``/metrics``: the session counters and the telemetry registry in
   Prometheus exposition format (``# HELP``/``# TYPE``, counters
-  ``_total``);
+  ``_total``), and with a sharded pool frontend the children's samples
+  labelled ``shard=<index>`` (scraped off the event loop);
 - ``/telemetry``: the registry's JSON snapshot, histograms with p50/p95/
-  p99, and with a multi-pool fabric its snapshot under ``pool_fabric``
-  (the active slot, weights, failovers, each slot's state and window);
+  p99, with a multi-pool fabric its snapshot under ``pool_fabric``
+  (the active slot, weights, failovers, each slot's state and window),
+  and with a sharded frontend the supervisor's under ``frontend_shards``
+  (each shard's pid, state, restarts and prefix range);
 - ``/healthz``: the health model's verdict, 200, or 503 with the reasons
   when a component is stalled;
 - ``/trace``: the span buffer as Chrome trace-event JSON;
@@ -21,12 +24,11 @@ HTTP server with one request per connection ("Connection: close"):
   a 400 naming it;
 - any other path: :func:`stats_snapshot` as JSON.
 
-The reference's shard payload comes with the sharded pool frontend. A
-request line or header over the
-reader's 64 KiB limit gets no answer and an orderly close: the server
-half-closes, then reads and drops what the client sent (bounded in bytes
-and time) before closing, so the client reads an empty response, not a
-connection reset. Bound to 127.0.0.1 unless a host is given.
+A request line or header over the reader's 64 KiB limit gets no answer
+and an orderly close: the server half-closes, then reads and drops what
+the client sent (bounded in bytes and time) before closing, so the
+client reads an empty response, not a connection reset. Bound to
+127.0.0.1 unless a host is given.
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ class StatusServer:
         registry: Optional[Any] = None, telemetry: Optional[Any] = None,
         health: Optional[Any] = None, slo: Optional[Any] = None,
         tsdb: Optional[Any] = None, fabric: Optional[Any] = None,
+        shards: Optional[Any] = None,
     ) -> None:
         self.stats = stats
         self.host = host
@@ -143,6 +146,10 @@ class StatusServer:
         self.tsdb = tsdb
         #: the multi-pool fabric whose snapshot ``/telemetry`` carries.
         self.fabric = fabric
+        #: the sharded frontend's supervisor (``poolserver/shard.py``):
+        #: its ``snapshot()`` rides ``/telemetry`` and its children's
+        #: relabelled samples (``metrics_text()``) follow ``/metrics``.
+        self.shards = shards
         self._server: Optional[asyncio.AbstractServer] = None
 
     async def start(self) -> None:
@@ -233,6 +240,10 @@ class StatusServer:
                 # What the gauges cannot carry: each slot's window, the
                 # measured weights, the active slot, the failovers.
                 payload["pool_fabric"] = self.fabric.snapshot()
+            if self.shards is not None:
+                # Each shard's pid, state and prefix range: the pid is
+                # what a harness kills one acceptor by.
+                payload["frontend_shards"] = self.shards.snapshot()
             return json.dumps(payload, default=str).encode()
         if tel is None:
             return None
@@ -268,7 +279,12 @@ class StatusServer:
                 status, body = await asyncio.get_running_loop()\
                     .run_in_executor(None, self._query_payload, query_string)
             elif path == "/metrics":
-                body = prometheus_text(self.stats, self.registry).encode()
+                text = prometheus_text(self.stats, self.registry)
+                if self.shards is not None:
+                    # Off the loop: N bounded scrapes of the children.
+                    text += await asyncio.get_running_loop()\
+                        .run_in_executor(None, self.shards.metrics_text)
+                body = text.encode()
                 ctype = b"text/plain; version=0.0.4"
             elif path == "/healthz" and self.health is not None:
                 # Off the loop: the rule engine takes a lock, and a scrape

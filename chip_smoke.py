@@ -134,6 +134,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    fabric proxy (``--upstream A --upstream B``) with the internal worker:
    every share reaches the pool that announced its job, each pool gets a
    valid share (``frontend_fabric_proxy``);
+7f. the sharded pool frontend, started as a user starts it, ``python -m
+   bitcoin_miner_tpu_torch --serve-pool 127.0.0.1:PORT --serve-shards 2
+   --serve-difficulty 0.00390625 --status-port S`` (two acceptor
+   processes on one ``SO_REUSEPORT`` port, local templates, each child
+   probing the native validator), mined by one ``cuda-tile`` miner as
+   ``--pool stratum+tcp://127.0.0.1:PORT --workers 4`` builds it, for
+   20 s: its rate against ``stratum_session_telemetry``'s, the verdicts
+   of each shard (accepted equal to the miner's with its submits held
+   until none is in flight, none invalid or duplicate), its extranonce1 inside its shard's prefix range,
+   ``/healthz``'s ``frontend_shard`` ok, the parent's ``/metrics`` with
+   both shards' samples and no series twice, and each child's validator
+   (native wherever this process loads the library;
+   ``frontend_shards_session``); in the same session the shard holding
+   the miner is SIGKILLed: its gauge ``down`` within a liveness tick,
+   ``/healthz`` DEGRADED and never 503, the respawn at the identical
+   prefix range with a new pid and ``restarts`` 1, the seconds from the
+   kill to the miner's next accepted share (a new session, in its
+   shard's range) and the card's idle seconds in them, no share accepted
+   twice (no header twice among the accepted, no verdict but accepted or
+   stale, and the frontend's accepts since the kill the miner's but for
+   the submits in flight at it; ``frontend_shard_kill``); then the load probe (``python -m
+   bitcoin_miner_tpu_torch.probes.load_probe --connect``, 4 processes,
+   512 sessions, 25 submits each at difficulty 1e-12) against one
+   process and against 2 and 4 shards: validated shares a second (all
+   the probes' shares over the union of their submit windows), the
+   sessions per shard, every extranonce1 unique and no share invalid,
+   and the CPU share of the probes and of each acceptor beside
+   ``os.cpu_count()`` (``frontend_shards_load``);
 8. holds the scans' fused ``lowest`` output (the sharded scans' minimum,
    folded into the scan's last block) against the plain scan and
    ``shard_min_plain``: the tile scan at K = 1, 2, 4, 8 in the baseline and
@@ -171,8 +199,9 @@ With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
 
-Phases 3 to 7e, 9's sweeps, session and ladder, and 10's probe run are the
-main path: the launch counts are set to 0 just before each and read just
+Phases 3 to 7f (but for the load probe, host work with no kernel), 9's
+sweeps, session and ladder, and 10's probe run are the main path (the
+sharded frontend's kill is counted in its session's phase): the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. No tile hasher launches the
 hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
 is one scan launch per shard (per dispatch on one card), with no launch
@@ -187,7 +216,8 @@ and every perf ledger. Every phase prints a JSON line; the kernel table and the 
 follow, and
 the last line is ``{"ok": true, "device": {...}}``. Without a card, without
 the package beside it, or when any phase fails, it exits non-zero and
-prints no result.
+prints no result; each failed phase, with its error, is then also the
+last thing on standard error.
 """
 
 from __future__ import annotations
@@ -201,6 +231,7 @@ import io
 import json
 import os
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -271,6 +302,18 @@ FRONTEND_CLIENTS = 256
 FRONTEND_LOAD_S = 10
 FRONTEND_PROXY_S = 30.0
 NATIVE_SUBMITS = 2000
+#: The sharded frontend's phases: the shards of the card-mined session and
+#: its measured window; the load probe's shard counts, its sessions split
+#: over its processes, each session's submits (enough that every process
+#: submits for seconds, so that the processes' rates overlap and sum) at
+#: a difficulty every hash meets.
+SHARDS = 2
+SHARD_WINDOW_S = 20.0
+SHARD_LOAD_COUNTS = (1, 2, 4)
+SHARD_LOAD_SESSIONS = 512
+SHARD_LOAD_PROBES = 4
+SHARD_LOAD_SHARES = 25
+SHARD_LOAD_DIFFICULTY = 1e-12
 #: ntime passes of the telemetry session's job: (NTIME_ROLL + 1) × 2^32
 #: nonces, ~10 s at the session's rate, outlast the 3 shares and the
 #: window; the job then runs out and the pool's next one comes
@@ -476,6 +519,7 @@ class Smoke:
         self.pkg = pkg
         self.dev = torch.device("cuda", 0)
         self.failed: list = []
+        self.errors: dict = {}  # failed phase -> its error and trace tail
         self.launches: dict = {}  # on the main path
         self.seen: set = set()  # kernels launched in any phase
         self.kernels: dict = {}
@@ -500,8 +544,24 @@ class Smoke:
                   "seconds": round(time.perf_counter() - t0, 3), **out})
         except Exception as e:  # noqa: BLE001 — reported, and fails the run
             self.failed.append(name)
-            emit({"phase": name, "ok": False, "error": repr(e),
-                  "trace": traceback.format_exc().splitlines()[-6:]})
+            self.errors[name] = {"error": repr(e),
+                                 "trace": traceback.format_exc()
+                                 .splitlines()[-6:]}
+            emit({"phase": name, "ok": False, **self.errors[name]})
+            print(f"chip_smoke: phase {name} failed: {e!r}", file=sys.stderr,
+                  flush=True)
+
+    def report_failures(self) -> int:
+        """The failed phases, on standard output and, last, on standard
+        error (where a caller that keeps only the end of that stream still
+        sees which phase failed and why, past the later phases' logs).
+        Returns the exit code, 1."""
+        emit({"failed_phases": self.failed})
+        for name in self.failed:
+            print(f"chip_smoke: FAILED {name}: "
+                  f"{json.dumps(self.errors[name])}", file=sys.stderr,
+                  flush=True)
+        return 1
 
     def note_launches(self) -> None:
         self.seen.update(c.name for c in self.pkg.csrc.counters() if c.value)
@@ -1581,6 +1641,45 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         no_hitbuf_pair(counts)
         return {**result, "launches": launched(counts)}
 
+    shard_kill_result: list = []
+
+    def frontend_shards_session():
+        """:func:`frontend_shards`: a miner on the card behind two
+        acceptor processes; its rate against
+        ``stratum_session_telemetry``'s. The kill that follows in the
+        same session is the next phase's."""
+        exact = s.job(header, pkg.difficulty_to_target(1 / 256), 0, DISPATCH)
+        tile_ms = s.time_ms(lambda: pkg.scan_tile(
+            exact, n_steps=DISPATCH // 8192, block=8192), 20)
+        s.reset_counts()
+        result, kill = asyncio.run(asyncio.wait_for(
+            frontend_shards(pkg, tile_ms), 420))
+        counts = s.read_counts()
+        shard_kill_result.append(kill)
+        assert counts["scan_tile"] > 0 and not any(
+            n for name, n in counts.items() if "_k" in name), counts
+        no_hitbuf_pair(counts)
+        ref = s.sweep_mhs.get("stratum_session_telemetry")
+        if ref:
+            result.update({"stratum_session_telemetry_mhs": ref,
+                           "mhs_vs_telemetry_session": result["mhs"] / ref})
+        return {**result, "scan_tile_exact_ms": tile_ms,
+                "launches": launched(counts)}
+
+    def frontend_shard_kill():
+        """:func:`shard_kill`, run inside the previous phase's session
+        (its launches are counted there)."""
+        assert shard_kill_result, "frontend_shards_session did not run"
+        kill = shard_kill_result[0]
+        if isinstance(kill, BaseException):
+            raise kill
+        return kill
+
+    def frontend_shards_load():
+        """:func:`shard_load`: the load probe against one process and
+        against 2 and 4 shards (host work: no kernel)."""
+        return asyncio.run(asyncio.wait_for(shard_load(pkg), 420))
+
     def perf_cli_roundtrip():
         """:func:`perf_roundtrip` on ``dispatcher_sweep``'s rows: their
         fingerprint must name this card and its power limit."""
@@ -1990,8 +2089,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         s.phase("genesis_sweep_vshare", genesis_sweep_vshare)
         mesh_phases()
         if s.failed:
-            emit({"failed_phases": s.failed})
-            return 1
+            return s.report_failures()
         print(name_power, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2249,7 +2347,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
     s.phase("device_and_build", device_and_build)
     if s.failed:
-        return 1
+        return s.report_failures()
     if mesh_only:
         return run_mesh_phases()
     s.phase("kernels_vs_plain", kernels_vs_plain)
@@ -2279,6 +2377,9 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("frontend_internal_worker", frontend_internal_worker)
     s.phase("frontend_proxy_session", frontend_proxy_session)
     s.phase("frontend_fabric_proxy", frontend_fabric_proxy)
+    s.phase("frontend_shards_session", frontend_shards_session)
+    s.phase("frontend_shard_kill", frontend_shard_kill)
+    s.phase("frontend_shards_load", frontend_shards_load)
     s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
     for name, fn in (("served_hasher_session", served_hasher_session),
                      ("grpc_fleet_session", grpc_fleet_session),
@@ -2303,8 +2404,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
     s.phase("timings", timing_phase)
     if s.failed:
-        emit({"failed_phases": s.failed})
-        return 1
+        return s.report_failures()
 
     hitbuf_src = "bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu"
 
@@ -2331,6 +2431,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     unlaunched = [name for name in main_path if not s.launches.get(name)]
     if unlaunched:
         emit({"failed_phases": [], "never_launched_on_main_path": unlaunched})
+        print(f"chip_smoke: never launched on the main path: {unlaunched}",
+              file=sys.stderr, flush=True)
         return 1
     s.note_launches()
     table = []
@@ -4092,6 +4194,642 @@ async def frontend_fabric(pkg) -> dict:
             "failovers": fabric["failovers"], "active": fabric["active"]}
 
 
+def free_port_block(n: int) -> int:
+    """The first of ``n`` consecutive free ports: a sharded frontend's
+    status port and its children's (``status_port + 1 + i``)."""
+    for _ in range(100):
+        base = free_port()
+        if base + n > 65536:
+            continue
+        socks = []
+        try:
+            for p in range(base, base + n):
+                sock = socket.socket()
+                socks.append(sock)
+                sock.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sock in socks:
+                sock.close()
+    raise RuntimeError(f"no block of {n} free ports")
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie is gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def cpu_seconds(pid: int) -> tuple:
+    """(user, system) CPU seconds of a live process, from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rpartition(")")[2].split()
+    tick = os.sysconf("SC_CLK_TCK")
+    return int(fields[11]) / tick, int(fields[12]) / tick
+
+
+class Frontend:
+    """``python -m bitcoin_miner_tpu_torch --serve-pool 127.0.0.1:PORT
+    --serve-difficulty D --status-port S --health-interval 0.5
+    [--serve-shards N]`` as a user runs it, in a process of its own (its
+    shards are spawned children of that process), its log in
+    :func:`out_dir`. The smoke never builds the supervisor in its own
+    process: ``spawn`` would run this script again in every child."""
+
+    def __init__(self, pkg, shards: int, difficulty: float) -> None:
+        self.pkg = pkg
+        self.shards = shards
+        self.port = free_port()
+        self.status = free_port_block(shards + 1)
+        name = f"frontend_{shards}_shards_{self.port}"
+        self.log_path = os.path.join(out_dir(), name + ".log")
+        argv = [sys.executable, "-m", "bitcoin_miner_tpu_torch",
+                "--serve-pool", f"127.0.0.1:{self.port}",
+                "--serve-difficulty", repr(difficulty),
+                "--status-port", str(self.status),
+                "--health-interval", "0.5", "--report-interval", "5",
+                "--flightrec-out",
+                os.path.join(out_dir(), name + "_flightrec.json"),
+                "--incident-dir", os.path.join(out_dir(), "incidents")]
+        if shards > 1:
+            argv += ["--serve-shards", str(shards)]
+        self.pids: set = set()
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            argv, stdout=self._log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def log_tail(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    async def shard_view(self) -> list:
+        """``/telemetry``'s ``frontend_shards``: each shard's pid, state,
+        restarts and prefix range."""
+        _code, body = await http_get(self.status, "/telemetry")
+        view = json.loads(body)["frontend_shards"]["shards"]
+        self.pids.update(s["pid"] for s in view)
+        return view
+
+    async def ready(self, seconds: float = 90.0):
+        """Wait until every shard serves (one process: until the port
+        accepts); returns the shard view (None for one process)."""
+        deadline = time.perf_counter() + seconds
+        while True:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"frontend exited rc {self.proc.returncode}"
+                                   f": {self.log_tail()}")
+            try:
+                if self.shards > 1:
+                    view = await self.shard_view()
+                    if all(s["state"] == "serving" for s in view):
+                        return view
+                else:
+                    _r, writer = await asyncio.open_connection(
+                        "127.0.0.1", self.port)
+                    writer.close()
+                    code, _ = await http_get(self.status, "/healthz")
+                    if code == 200:
+                        return None
+            except (OSError, ValueError, KeyError):
+                pass
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"frontend not serving: {self.log_tail()}")
+            await asyncio.sleep(0.1)
+
+    async def metrics(self) -> dict:
+        """The frontend's ``/metrics`` as ``{"verdicts": {shard: {result:
+        n}}, "sessions": {shard: n}, "duplicate_series": [...]}`` (shard
+        None for one process): no series may appear twice."""
+        _code, body = await http_get(self.status, "/metrics")
+        seen, dups = set(), []
+        verdicts: dict = {}
+        sessions: dict = {}
+        for line in body.decode().splitlines():
+            key = self.pkg.sample_key(line)
+            if key is None:
+                continue
+            if key in seen:
+                dups.append(line)
+            seen.add(key)
+            name, labels = key[0], dict(key[1])
+            value = float(line.rpartition(" ")[2])
+            shard = labels.get("shard")
+            if self.shards > 1 and shard is None:
+                continue  # the parent's own (idle) families
+            if name == "tpu_miner_frontend_shares_total":
+                verdicts.setdefault(shard, {})[labels["result"]] = value
+            elif name == "tpu_miner_frontend_sessions":
+                sessions[shard] = value
+        return {"verdicts": verdicts, "sessions": sessions,
+                "duplicate_series": dups}
+
+    def validators(self) -> dict:
+        """Each acceptor's share validator, from its log lines: native
+        (with its backend) or the hashlib oracle."""
+        out: dict = {}
+        with open(self.log_path) as f:
+            for line in f:
+                if "native share validation" not in line:
+                    continue
+                shard = re.search(r" shard(\d+) ", line)
+                backend = re.search(r"active \(backend: (\w+)\)", line)
+                out.setdefault(shard.group(1) if shard else "frontend",
+                               []).append(f"native:{backend.group(1)}"
+                                          if backend else "hashlib")
+        return out
+
+    def stop(self) -> dict:
+        """SIGTERM the frontend and wait for it; none of its children may
+        outlive it (any left is killed, and reported)."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            rc = self.proc.wait(30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(10)
+        left = sorted(pid for pid in self.pids if pid_alive(pid))
+        for pid in left:
+            os.kill(pid, signal.SIGKILL)
+        self._log.close()
+        return {"rc": rc, "children_left": left}
+
+
+class LaunchSampler:
+    """The tile kernel's launch count sampled every 5 ms on the event
+    loop: when the card was last handed work."""
+
+    def __init__(self, pkg) -> None:
+        self.pkg = pkg
+        self.samples: list = []
+        self._task = asyncio.create_task(self._run())
+
+    async def _run(self) -> None:
+        while True:
+            self.samples.append((time.perf_counter(),
+                                 tile_launches(self.pkg)))
+            await asyncio.sleep(0.005)
+
+    async def stop(self) -> None:
+        self._task.cancel()
+        await asyncio.gather(self._task, return_exceptions=True)
+
+    def between(self, t0: float, t1: float) -> tuple:
+        """(launches in [t0, t1], the longest stretch in it with none)."""
+        inside = [(t, n) for t, n in self.samples if t0 <= t <= t1]
+        if not inside:
+            return 0, t1 - t0
+        launches = inside[-1][1] - inside[0][1]
+        longest, last_t, last_n = 0.0, t0, inside[0][1]
+        for t, n in inside:
+            if n != last_n:
+                last_t, last_n = t, n
+            longest = max(longest, t - last_t)
+        return launches, max(longest, t1 - last_t)
+
+
+def non_accepted(verdicts: dict) -> dict:
+    """The verdicts other than accepted, summed over the shards."""
+    out: dict = {}
+    for by_result in verdicts.values():
+        for result, n in by_result.items():
+            if result != "accepted" and n:
+                out[result] = out.get(result, 0) + n
+    return out
+
+
+class AcceptedWork:
+    """Every share the pool accepted from one miner, by the header it was
+    mined over: a header twice is work paid twice, whichever acceptor
+    (or incarnation of one) accepted it. It wraps the miner's client's
+    ``submit_share``, which the session calls for every share, and counts
+    the submits awaiting their verdict (``inflight``). :meth:`settled`
+    holds new submits back until none is in flight: the moment at which
+    the pool's counts and the miner's must agree."""
+
+    def __init__(self, client) -> None:
+        self.headers: dict = {}
+        self.inflight = 0
+        self.held: list = []  # seconds each settle held the submits back
+        self._open = asyncio.Event()
+        self._open.set()
+        submit = client.submit_share
+
+        async def counted(share):
+            await self._open.wait()
+            self.inflight += 1
+            try:
+                ok = await submit(share)
+            finally:
+                # The session counts the verdict in this same step.
+                self.inflight -= 1
+            if ok:
+                self.headers[share.header80] = self.headers.get(
+                    share.header80, 0) + 1
+            return ok
+
+        client.submit_share = counted
+
+    def twice(self) -> list:
+        return [h.hex() for h, n in self.headers.items() if n > 1]
+
+    async def settled(self, read, seconds: float = 60.0):
+        """``await read()`` with the miner's new submits held back and
+        every earlier one answered (a submit waits for its verdict at most
+        the client's request timeout); then the submits go on."""
+        self._open.clear()
+        t0 = time.perf_counter()
+        try:
+            while self.inflight:
+                assert time.perf_counter() < t0 + seconds, (
+                    f"{self.inflight} submits still in flight")
+                await asyncio.sleep(0.005)
+            return await read()
+        finally:
+            self._open.set()
+            self.held.append(time.perf_counter() - t0)
+
+
+async def frontend_shards(pkg, tile_ms: float) -> tuple:
+    """``--serve-pool 127.0.0.1:PORT --serve-shards 2 --serve-difficulty
+    0.00390625 --status-port S --health-interval 0.5`` in its own process
+    (local templates, each child probing the native validator), and one
+    downstream miner on the card as ``--pool stratum+tcp://127.0.0.1:PORT
+    --workers 4`` builds it. ``SO_REUSEPORT`` puts its one session on one
+    shard, which ``_shard_of`` names from its extranonce1. After 3 shares
+    it mines :data:`SHARD_WINDOW_S` s: its rate, the frontend's verdicts
+    per shard with the miner's submits held until none is in flight
+    (:meth:`AcceptedWork.settled`), the session's prefix
+    inside its shard's range, ``/healthz``'s ``frontend_shard``, the
+    parent's ``/metrics`` (both shards' samples, no series twice) and
+    each child's validator. Then it SIGKILLs that shard
+    (:func:`shard_kill`). Returns (session, kill); kill is the exception
+    that failed it, if one did."""
+    frontend = Frontend(pkg, SHARDS, FRONTEND_DIFFICULTY)
+    tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
+    miner = task = None
+    try:
+        view = await frontend.ready()
+        miner = pkg.cli.make_miner(cli_args(pkg, [
+            "--pool", f"stratum+tcp://127.0.0.1:{frontend.port}", "--user",
+            "shards", "--workers", "4"],
+            flightrec_out=os.path.join(out_dir(),
+                                       "frontend_shards_flightrec.json")))
+        hasher = miner.dispatcher.hasher
+        assert isinstance(hasher, pkg.TileCudaHasher), hasher
+        assert hasher.device.type == "cuda", hasher.device
+        stats = miner.dispatcher.stats
+        work = AcceptedWork(miner.client)
+        task = asyncio.create_task(miner.run())
+        await until(task, lambda: stats.shares_accepted >= 3,
+                    "3 accepted shares", stats.summary, 240)
+
+        def mark():
+            return time.perf_counter(), tile_launches(pkg), stats.hashes
+
+        a = mark()
+        await until(task, lambda: time.perf_counter() - a[0]
+                    >= SHARD_WINDOW_S, "window", stats.summary,
+                    SHARD_WINDOW_S + 60)
+        b = mark()
+        e1 = miner.client.extranonce1
+        shard = pkg.load_probe._shard_of(e1, 2, SHARDS)
+        prefix = int.from_bytes(e1[-2:], "big")
+        lo, hi = view[shard]["prefix_range"]
+        assert lo <= prefix < hi, (e1.hex(), view)
+        # With no submit in flight, the shard's accepted count is the
+        # miner's.
+        m = await work.settled(frontend.metrics)
+        assert m["verdicts"].get(str(shard), {}).get(
+            "accepted") == stats.shares_accepted, (
+            m["verdicts"], stats.summary())
+        assert not m["duplicate_series"], m["duplicate_series"][:5]
+        assert set(m["sessions"]) == {"0", "1"}, m["sessions"]
+        other = str(1 - shard)
+        assert not m["verdicts"].get(other, {}).get("accepted"), m
+        bad = non_accepted(m["verdicts"])
+        assert not {k: n for k, n in bad.items() if k != "stale"}, bad
+        code, body = await http_get(frontend.status, "/healthz")
+        health = json.loads(body)
+        assert code == 200 and health["components"]["frontend_shard"][
+            "state"] == "ok", health
+        validators = frontend.validators()
+        assert set(validators) == {"0", "1"}, validators
+        if pkg.native.native_available():
+            assert all(v == [f"native:{pkg.native.backend_name()}"]
+                       for v in validators.values()), validators
+        assert stats.hw_errors == 0 and stats.shares_rejected == 0, (
+            stats.summary())
+        assert not work.twice(), work.twice()[:5]
+        window = b[0] - a[0]
+        session = {
+            "window_seconds": window,
+            "mhs": (b[1] - a[1]) * DISPATCH / window / 1e6,
+            "mhs_dispatcher_hashes": (b[2] - a[2]) / window / 1e6,
+            "accepted": stats.shares_accepted,
+            "rejected": stats.shares_rejected,
+            "stale": stats.shares_stale,
+            "frontend_verdicts": m["verdicts"],
+            "invalid": sum(n for k, n in bad.items() if k != "stale"),
+            "duplicate": bad.get("duplicate", 0),
+            "extranonce1": e1.hex(), "session_shard": shard,
+            "prefix": prefix, "prefix_range": [lo, hi],
+            "shards": view, "validators": validators,
+            "healthz_frontend_shard": health["components"][
+                "frontend_shard"]["state"],
+            "metrics_shard_sessions": m["sessions"],
+            "duplicate_series": len(m["duplicate_series"]),
+            "shares_accepted_twice": len(work.twice()),
+            "submits_held_s": work.held[-1]}
+        try:
+            kill = await shard_kill(pkg, frontend, miner, task, shard,
+                                    work, tile_ms)
+        except Exception as e:  # noqa: BLE001 — the next phase reports it
+            kill = e
+        return session, kill
+    finally:
+        if miner is not None:
+            miner.stop()
+            await asyncio.gather(task, return_exceptions=True)
+        stopped = frontend.stop()
+        tel.flightrec.disarm()
+        assert stopped["rc"] == 0 and not stopped["children_left"], (
+            stopped, frontend.log_tail())
+
+
+async def shard_kill(pkg, frontend, miner, task, victim: int, work,
+                     tile_ms: float) -> dict:
+    """SIGKILL the shard that holds the miner's session: its gauge reads
+    ``down`` within one liveness tick (1 s), ``/healthz`` reads the
+    ``frontend_shard`` component DEGRADED and never answers 503, the next
+    tick respawns it at the identical prefix range with a new pid and
+    ``restarts`` 1, and the miner reconnects (to whichever shard the
+    kernel picks; the respawned one hands out its first extranonce1
+    again) and gets a share accepted in a new session, inside that
+    shard's range. Prints the seconds from the kill to that share and the
+    card's idle seconds in them. No share is accepted twice: no header
+    twice among the accepted (``work``, an :class:`AcceptedWork`), no
+    verdict but accepted or stale on any shard and none rejected at the
+    miner, and the frontend's accepts since the kill are the miner's
+    give or take only the submits in flight at the kill, whose answers
+    the dying shard may or may not have sent."""
+    stats = miner.dispatcher.stats
+    client = miner.client
+    old = (await frontend.shard_view())[victim]
+    pre = (await frontend.metrics())["verdicts"]
+    other_base = pre.get(str(1 - victim), {}).get("accepted", 0)
+    sampler = LaunchSampler(pkg)
+    try:
+        # Read in one step of the event loop with the kill: no answer of
+        # the session's lands in between.
+        at_kill = {"accepted": stats.shares_accepted,
+                   "rejected": stats.shares_rejected,
+                   "stale": stats.shares_stale,
+                   "reconnects": client.reconnects,
+                   "inflight": work.inflight}
+        t_kill = time.perf_counter()
+        os.kill(old["pid"], signal.SIGKILL)
+        down_after = degraded = None
+        codes = set()
+        deadline = t_kill + 60
+        while True:
+            view = await frontend.shard_view()
+            entry = view[victim]
+            if entry["state"] == "down" and down_after is None:
+                down_after = time.perf_counter() - t_kill
+            code, body = await http_get(frontend.status, "/healthz")
+            codes.add(code)
+            component = json.loads(body)["components"].get(
+                "frontend_shard", {})
+            if component.get("state") == "degraded" and degraded is None:
+                degraded = {"after_s": time.perf_counter() - t_kill,
+                            "reason": component.get("reason")}
+            if entry["restarts"] == 1 and entry["state"] == "serving":
+                break
+            assert time.perf_counter() < deadline, (view, codes)
+            await asyncio.sleep(0.05)
+        respawned_after = time.perf_counter() - t_kill
+        await until(task, lambda: client.reconnects > at_kill["reconnects"]
+                    and client.connected.is_set(), "a new session",
+                    stats.summary, 60)
+        accepted_new = stats.shares_accepted
+        await until(task, lambda: stats.shares_accepted > accepted_new,
+                    "a share in the new session", stats.summary, 120)
+        t_next = time.perf_counter()
+    finally:
+        await sampler.stop()
+    gap = t_next - t_kill
+    launches, longest = sampler.between(t_kill, t_next)
+    new_e1 = client.extranonce1
+    new_shard = pkg.load_probe._shard_of(new_e1, 2, SHARDS)
+    view = await frontend.shard_view()
+    lo, hi = view[new_shard]["prefix_range"]
+    prefix = int.from_bytes(new_e1[-2:], "big")
+    assert down_after is not None and down_after <= 1.6, down_after
+    assert degraded is not None and 503 not in codes, (degraded, codes)
+    assert (entry["prefix_range"], entry["restarts"]) == (
+        old["prefix_range"], 1) and entry["pid"] != old["pid"], (old, entry)
+    assert lo <= prefix < hi, (new_e1.hex(), view)
+    # With no submit in flight, the frontend's accepts since the kill (all
+    # of the surviving shard's past its count before, all of the respawned
+    # one's) and the miner's differ by no more than the answers the dead
+    # shard sent for the submits in flight at the kill.
+    after = await work.settled(frontend.metrics)
+    frontend_new = sum(v.get("accepted", 0) for v in
+                       after["verdicts"].values()) - other_base
+    miner_new = stats.shares_accepted - at_kill["accepted"]
+    assert 0 <= miner_new - frontend_new <= at_kill["inflight"], (
+        frontend_new, miner_new, at_kill, after["verdicts"])
+    assert after["verdicts"].get(str(new_shard), {}).get("accepted"), after
+    for verdicts in (pre, after["verdicts"]):
+        bad = non_accepted(verdicts)
+        assert not {k: n for k, n in bad.items() if k != "stale"}, verdicts
+    assert stats.shares_rejected == at_kill["rejected"], stats.summary()
+    assert not work.twice(), work.twice()[:5]
+    assert not after["duplicate_series"], after["duplicate_series"][:5]
+    assert stats.hw_errors == 0
+    return {"victim": victim, "victim_pid": old["pid"],
+            "respawned_pid": entry["pid"], "restarts": entry["restarts"],
+            "prefix_range": entry["prefix_range"],
+            "down_after_s": down_after, "healthz_degraded": degraded,
+            "healthz_codes": sorted(codes),
+            "respawned_serving_after_s": respawned_after,
+            "next_share_after_s": gap, "new_session_shard": new_shard,
+            "new_extranonce1": new_e1.hex(),
+            "launches_in_gap": launches,
+            "idle_seconds": max(0.0, gap - launches * tile_ms / 1e3),
+            "longest_without_launch_s": longest,
+            "submits_in_flight_at_kill": at_kill["inflight"],
+            "submits_held_s": work.held[-1],
+            "frontend_accepted_since_kill": frontend_new,
+            "miner_accepted_since_kill": miner_new,
+            # lost on the dead connection, or mined for it and not
+            # submitted on the next
+            "miner_stale_since_kill": stats.shares_stale - at_kill["stale"],
+            "shares_accepted_twice": len(work.twice()),
+            "accepted_headers": len(work.headers),
+            "frontend_verdicts_before": pre,
+            "frontend_verdicts_after": after["verdicts"]}
+
+
+def run_probes(port: int, shards: int) -> dict:
+    """:data:`SHARD_LOAD_PROBES` processes of ``python -m
+    bitcoin_miner_tpu_torch.probes.load_probe --connect 127.0.0.1:PORT
+    --shards N --assert-unique-e1 --assert-no-invalid``, all at once,
+    :data:`SHARD_LOAD_SESSIONS` sessions between them: their lines, and
+    each process's CPU seconds (and of them, in the kernel), alone and
+    over its wall time (``wait4``)."""
+    per = SHARD_LOAD_SESSIONS // SHARD_LOAD_PROBES
+    procs = []
+    for _ in range(SHARD_LOAD_PROBES):
+        procs.append((time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "bitcoin_miner_tpu_torch.probes.load_probe",
+             "--connect", f"127.0.0.1:{port}", "--clients", str(per),
+             "--shares", str(SHARD_LOAD_SHARES), "--shards", str(shards),
+             "--assert-unique-e1", "--assert-no-invalid"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))))
+    # Reaped as they end, in any order (a probe writes a line or two: its
+    # pipes do not fill meanwhile).
+    ended: dict = {}
+    deadline = time.perf_counter() + 180
+    while len(ended) < len(procs):
+        for i, (t0, proc) in enumerate(procs):
+            if i in ended:
+                continue
+            pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+            if pid:
+                ended[i] = (time.perf_counter() - t0, status, usage)
+        if time.perf_counter() > deadline:
+            for _t0, proc in procs:
+                proc.kill()
+            raise TimeoutError("a load probe did not finish")
+        time.sleep(0.02)
+    lines, cpu_share, cpu_s, sys_s = [], [], [], []
+    for i, (_t0, proc) in enumerate(procs):
+        wall, status, usage = ended[i]
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        out, err = proc.communicate()
+        assert proc.returncode == 0, (proc.returncode, err[-2000:])
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+        cpu_s.append(usage.ru_utime + usage.ru_stime)
+        sys_s.append(usage.ru_stime)
+        cpu_share.append(cpu_s[-1] / wall)
+    return {"lines": lines, "cpu_share": cpu_share, "cpu_seconds": cpu_s,
+            "system_seconds": sys_s}
+
+
+async def sample_cpu(pids: list, samples: list) -> None:
+    """Append (epoch seconds, each process's CPU seconds) to ``samples``
+    every 20 ms until cancelled: a process's CPU share inside a window
+    that other processes report on the host's clock."""
+    while True:
+        samples.append((time.time(), [sum(cpu_seconds(pid))
+                                      for pid in pids]))
+        await asyncio.sleep(0.02)
+
+
+async def shard_load(pkg) -> dict:
+    """For N in :data:`SHARD_LOAD_COUNTS`: ``--serve-pool 127.0.0.1:PORT
+    --serve-difficulty 1e-12`` (N = 1) or with ``--serve-shards N``, in
+    its own process, driven by :func:`run_probes` (honest miners whose
+    every hash meets the difficulty: the validator's throughput). Per N:
+    validated shares/s (every probe's accepted shares over the union of
+    their submit windows, from the first start to the last end; the
+    windows, relative to that start, and the span all of them share
+    beside it), sessions per shard, the frontend's accepted count
+    against the probes', CPU seconds per wall second of the probes and
+    of each acceptor (over the probes' wall time, and sampled over the
+    union of the submit windows), and the CPU (and of it, in the kernel) each
+    side spent per validated share."""
+    rows = {}
+    for n in SHARD_LOAD_COUNTS:
+        frontend = Frontend(pkg, n, SHARD_LOAD_DIFFICULTY)
+        try:
+            view = await frontend.ready()
+            acceptors = ([s["pid"] for s in view] if view
+                         else [frontend.proc.pid])
+            cpu0 = [cpu_seconds(pid) for pid in acceptors]
+            samples: list = []
+            sampler = asyncio.create_task(sample_cpu(acceptors, samples))
+            t0 = time.perf_counter()
+            try:
+                probes = await asyncio.get_running_loop().run_in_executor(
+                    None, run_probes, frontend.port, n)
+            finally:
+                sampler.cancel()
+                await asyncio.gather(sampler, return_exceptions=True)
+            wall = time.perf_counter() - t0
+            cpu1 = [cpu_seconds(pid) for pid in acceptors]
+            m = await frontend.metrics()
+            validators = frontend.validators()
+        finally:
+            stopped = frontend.stop()
+        assert stopped["rc"] == 0 and not stopped["children_left"], stopped
+        if pkg.native.native_available():
+            assert validators and all(
+                v == [f"native:{pkg.native.backend_name()}"]
+                for v in validators.values()), validators
+        lines = probes["lines"]
+        per = SHARD_LOAD_SESSIONS // SHARD_LOAD_PROBES
+        spread: dict = {}
+        for line in lines:
+            assert line["accepted"] == per * SHARD_LOAD_SHARES, line
+            assert line["invalid"] == 0, line
+            assert line["unique_extranonce1"] == per, line
+            for shard, k in line.get("sessions_per_shard", {}).items():
+                spread[shard] = spread.get(shard, 0) + k
+        assert "unattributed" not in spread, spread
+        accepted = sum(line["accepted"] for line in lines)
+        first = min(line["submit_window"][0] for line in lines)
+        last = max(line["submit_window"][1] for line in lines)
+        union = last - first
+        acceptor_cpu = [sum(b) - sum(a) for a, b in zip(cpu0, cpu1)]
+        # The samples that bracket the union (20 ms wider at most).
+        ta, ca = ([x for x in samples if x[0] <= first] or samples[:1])[-1]
+        tb, cb = ([x for x in samples if x[0] >= last] or samples[-1:])[0]
+        frontend_accepted = sum(v.get("accepted", 0)
+                                for v in m["verdicts"].values())
+        assert frontend_accepted == accepted, (frontend_accepted, accepted)
+        assert not non_accepted(m["verdicts"]), m["verdicts"]
+        assert not m["duplicate_series"], m["duplicate_series"][:5]
+        rows[str(n)] = {
+            "shares_per_s": accepted / union,
+            "submit_windows_s": [[line["submit_window"][0] - first,
+                                  line["submit_window"][1] - first]
+                                 for line in lines],
+            "submit_union_s": union,
+            "submit_overlap_s": max(0.0, min(
+                line["submit_window"][1] for line in lines) - max(
+                line["submit_window"][0] for line in lines)),
+            "shares_per_s_by_probe": [line["value"] for line in lines],
+            "accepted": accepted, "invalid": 0,
+            "sessions": SHARD_LOAD_SESSIONS,
+            "sessions_per_shard": spread,
+            "probe_cpu_share": probes["cpu_share"],
+            "probe_cpu_us_per_share": sum(probes["cpu_seconds"])
+            / accepted * 1e6,
+            "probe_system_us_per_share": sum(probes["system_seconds"])
+            / accepted * 1e6,
+            "acceptor_cpu_share": [c / wall for c in acceptor_cpu],
+            "acceptor_cpu_share_in_union": [(b - a) / (tb - ta)
+                                            for a, b in zip(ca, cb)],
+            "acceptor_cpu_us_per_share": sum(acceptor_cpu) / accepted * 1e6,
+            "acceptor_system_us_per_share": sum(
+                b[1] - a[1] for a, b in zip(cpu0, cpu1)) / accepted * 1e6,
+            "probes_wall_s": wall, "validators": validators}
+    return {"shards": rows, "cpu_count": os.cpu_count(),
+            "probes": SHARD_LOAD_PROBES,
+            "shares_per_session": SHARD_LOAD_SHARES,
+            "difficulty": SHARD_LOAD_DIFFICULTY}
+
+
 async def until(task, done, what: str, summary, seconds: float) -> None:
     """Wait for ``done()``; fail if the session's task ends first or
     ``seconds`` pass."""
@@ -4151,8 +4889,10 @@ class _Package:
         )
         from bitcoin_miner_tpu_torch.testing.chaos_hasher import ChaosHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
+        from bitcoin_miner_tpu_torch.probes import load_probe
         from bitcoin_miner_tpu_torch.probes import sass
         from bitcoin_miner_tpu_torch.telemetry import pipeline
+        from bitcoin_miner_tpu_torch.telemetry.tsdb import sample_key
         from bitcoin_miner_tpu_torch.testing.fake_node import (
             REGTEST_NBITS,
             FakeNode,
@@ -4215,6 +4955,7 @@ class _Package:
         self.make_cuda_fleet, self.ChaosHasher = make_cuda_fleet, ChaosHasher
         self.native, self.NativeCpuHasher = native, NativeCpuHasher
         self.get_hasher, self.poolserver = get_hasher, poolserver
+        self.load_probe, self.sample_key = load_probe, sample_key
 
     @staticmethod
     def hasher_service():

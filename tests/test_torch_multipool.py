@@ -124,6 +124,13 @@ def accepted(pool):
     return sum(1 for s in pool.shares if s.accepted)
 
 
+def pool_answers(slot):
+    """The verdicts the slot has read from its pool (local timeouts and
+    lost connections excluded)."""
+    return sum(1 for e in slot.window._events
+               if e[1] in port_mp._POOL_ANSWERS)
+
+
 def spec(port, weight=None, scheme="stratum+tcp"):
     frag = f"#w={weight}" if weight is not None else ""
     return port_mp.parse_pool_spec(f"{scheme}://127.0.0.1:{port}{frag}")
@@ -440,9 +447,15 @@ def test_half_open_socket_degrades_and_fails_over():
         task = asyncio.create_task(miner.run())
         await tick_until(fabric, slot_a)
         await wait_for(lambda: accepted(a) >= 2)
-        # Half-open: pool a keeps the sockets and answers nothing.
+        # Half-open: pool a keeps the sockets and answers nothing. Wait
+        # until it holds a submit read after the mute, and every answer it
+        # gave before the mute has reached the slot: no verdict left on
+        # the wire can restart the stall clock before the tick below.
         a.mute = True
-        await wait_for(lambda: slot_a.inflight >= 1)
+        await wait_for(lambda: a.unanswered_submits >= 1
+                       and slot_a.inflight >= 1
+                       and pool_answers(slot_a)
+                       >= len(a.shares) - a.unanswered_submits)
         gen_at_stall = len(fabric.dispatch_log)
         before_b = accepted(b)
         now[0] += fabric.stall_after_s + 1.0

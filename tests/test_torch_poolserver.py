@@ -14,6 +14,7 @@ worker on ``TileCudaHasher(device="cpu")`` behind ``UpstreamProxy``
 2`` on it running chain 0 alone, and the command line."""
 
 import asyncio
+import dataclasses
 import json
 import os
 import shutil
@@ -46,6 +47,7 @@ from bitcoin_miner_tpu_torch.poolserver import (
     LocalTemplateSource,
     PoolFrontend,
     PrefixAllocator,
+    ShardSupervisor,
     SpaceExhausted,
     StratumPoolServer,
     UpstreamProxy,
@@ -1461,6 +1463,9 @@ class TestCommandLine:
             ref.serve_vardiff_interval
         assert isinstance(frontend.local_source, LocalTemplateSource)
         assert frontend.internal_worker is None and frontend.port == 0
+        args = _serve_args(tmp_path)
+        assert cli._serve_option(args, "serve_shards") == \
+            ref.serve_shards == 0
 
     def test_flags_reach_the_server(self, tmp_path):
         frontend = cli.make_frontend(_serve_args(
@@ -1488,7 +1493,7 @@ class TestCommandLine:
         assert [s.spec.weight for s in two.fabric.slots] == [2.0, 1.0]
 
     @pytest.mark.parametrize("argv,match", [
-        (["--serve-shards", "2"], "sharded pool frontend is not ported"),
+        (["--serve-shards", "2"], "needs an explicit port"),
         (["--serve-difficulty", "0"], "must be > 0"),
         (["--serve-vardiff", "-1"], "must be > 0"),
         (["--serve-prefix-bytes", "4"], "extranonce2_size"),
@@ -1613,6 +1618,180 @@ class TestCommandLine:
         stats = frontend.stats
         assert stats.shares_accepted == frontend.internal_worker.session.accepted
         assert stats.hw_errors == 0 and stats.shares_rejected == 0
+
+
+def _sharded_args(tmp_path, *extra, address="127.0.0.1:3999"):
+    return cli.build_parser().parse_args([
+        "--serve-pool", address, "--serve-shards", "3",
+        "--flightrec-out", str(tmp_path / "fr.json"), "--incident-dir",
+        str(tmp_path / "inc"), *extra])
+
+
+class TestShardedCommandLine:
+    """``--serve-shards N``: the supervisor and its refusals, as the
+    reference's ``_cmd_serve_pool_sharded`` builds and refuses them."""
+
+    def test_shards_build_the_supervisor(self, tmp_path):
+        sup = cli.make_frontend(_sharded_args(
+            tmp_path, "--status-port", "9100", "--serve-difficulty", "0.5",
+            "--serve-extranonce2-size", "6", "--serve-prefix-bytes", "3",
+            "--serve-job-interval", "5", "--serve-vardiff", "12",
+            "--upstream", "stratum+ssl://pool.example:4000", "--user", "u",
+            "--tls-no-verify", "--health-interval", "2"))
+        assert isinstance(sup, ShardSupervisor) and sup.shard_supervisor \
+            is sup
+        cfgs = sup.configs
+        assert [(c.index, c.n_shards, c.status_port) for c in cfgs] == [
+            (0, 3, 9101), (1, 3, 9102), (2, 3, 9103)]
+        c = cfgs[0]
+        assert (c.host, c.port, c.difficulty, c.extranonce2_size,
+                c.prefix_bytes, c.job_interval_s, c.health_interval_s,
+                c.vardiff_target_spm, c.vardiff_interval_s) == (
+                    "127.0.0.1", 3999, 0.5, 6, 3, 5.0, 2.0, 12.0, 30.0)
+        assert (c.upstream_host, c.upstream_port, c.upstream_tls,
+                c.upstream_tls_verify, c.username) == (
+                    "pool.example", 4000, True, False, "u")
+        assert c.slo_objectives_path is None
+
+    @pytest.mark.parametrize("available,expected", [(True, True),
+                                                    (False, None)])
+    def test_children_load_the_parents_validator(self, tmp_path,
+                                                 monkeypatch, available,
+                                                 expected):
+        """Where the parent loads the native validator every child must
+        load it (a divergence: the reference's children fall back to
+        hashlib unseen); without it each child probes, as the
+        reference's do."""
+        from bitcoin_miner_tpu_torch.backends import native
+
+        monkeypatch.setattr(native, "native_available", lambda: available)
+        sup = cli.make_frontend(_sharded_args(tmp_path))
+        assert [c.native_validation for c in sup.configs] == [expected] * 3
+
+    @pytest.mark.parametrize("n", ["0", "1"])
+    def test_one_shard_is_one_process(self, tmp_path, n):
+        frontend = cli.make_frontend(_serve_args(tmp_path, "--serve-shards",
+                                                 n))
+        assert isinstance(frontend, PoolFrontend)
+
+    def test_port_zero_is_refused(self, tmp_path):
+        """The port binds ``HOST:0`` as an ephemeral port (a divergence);
+        every shard must bind one address, so shards refuse it. (The
+        reference reads ``HOST:0`` as its default port 3334.)"""
+        with pytest.raises(SystemExit, match="needs an explicit port"):
+            cli.make_frontend(_sharded_args(tmp_path,
+                                            address="127.0.0.1:0"))
+
+    @pytest.mark.parametrize("argv,match", [
+        (["--upstream", "stratum+tcp://a:1", "--upstream",
+          "stratum+tcp://b:2"], "multiple --upstream"),
+        (["--internal-worker"], "--internal-worker"),
+        (["--upstream", "http://a:1"], "stratum"),
+    ], ids=["several-upstreams", "internal-worker", "scheme"])
+    def test_refusals_are_the_references(self, tmp_path, argv, match):
+        from bitcoin_miner_tpu.cli import main as ref_main
+
+        with pytest.raises(SystemExit, match=match):
+            cli.make_frontend(_sharded_args(tmp_path, *argv))
+        with pytest.raises(SystemExit, match=match):
+            ref_main(["--serve-pool", "127.0.0.1:3999", "--serve-shards",
+                      "3", "--flightrec-out", str(tmp_path / "ref.json"),
+                      *argv])
+
+    def test_more_shards_than_prefixes_fails_at_the_cli(self, tmp_path):
+        with pytest.raises(SystemExit, match="empty"):
+            cli.make_frontend(_sharded_args(
+                tmp_path, "--serve-prefix-bytes", "1", "--serve-shards",
+                "300"))
+
+    def test_run_session_picks_up_the_shard_supervisor(self, tmp_path,
+                                                       capsys):
+        """``run_session`` over a supervisor whose children are local
+        HTTP stubs (no process spawned): ``/telemetry`` carries
+        ``frontend_shards``, ``/metrics`` the children's samples labelled
+        ``shard``, ``/healthz`` the ``frontend_shard`` component, the
+        observatory scrapes each child as ``shard-<i>``, and ``top``
+        renders its per-shard panel from those series as the reference's
+        dashboard does."""
+        from bitcoin_miner_tpu.telemetry import dashboard as ref_dashboard
+        from bitcoin_miner_tpu_torch.telemetry import dashboard
+        from tests.test_torch_shard import FakeCtx, _StubChild
+
+        children = [_StubChild(
+            f"tpu_miner_frontend_sessions {i + 2}\n"
+            f'tpu_miner_frontend_shares_total{{result="accepted"}} {7 * i}\n')
+            for i in range(2)]
+        status = _free_port()
+        args = cli.build_parser().parse_args([
+            "--serve-pool", "127.0.0.1:3999", "--serve-shards", "2",
+            "--status-port", str(status), "--health-interval", "0.2",
+            "--report-interval", "1", "--flightrec-out",
+            str(tmp_path / "fr.json"), "--incident-dir",
+            str(tmp_path / "inc")])
+        sup = cli.make_frontend(args)
+        sup.configs = [dataclasses.replace(c, status_port=child.port)
+                       for c, child in zip(sup.configs, children)]
+        sup._ctx = FakeCtx()
+        sup.liveness_interval_s = 0.1
+
+        async def get(path):
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           status)
+            writer.write(f"GET {path} HTTP/1.1\r\n\r\n".encode())
+            await writer.drain()
+            raw = await asyncio.wait_for(reader.read(), 10)
+            writer.close()
+            return raw.partition(b"\r\n\r\n")[2]
+
+        async def main():
+            task = asyncio.create_task(cli.run_session(sup, args))
+            try:
+                await wait_until(
+                    lambda: {s.state for s in sup._shards.values()}
+                    == {"serving"}, "shards serving", 20)
+                for _ in range(200):
+                    query = json.loads(await get(
+                        "/query?name=tpu_miner_frontend_sessions"))
+                    procs = {s["labels"].get("process")
+                             for s in query["series"]}
+                    if {"shard-0", "shard-1"} <= procs:
+                        break
+                    await asyncio.sleep(0.05)
+                for _ in range(100):
+                    health = json.loads(await get("/healthz"))
+                    if "frontend_shard" in health["components"]:
+                        break
+                    await asyncio.sleep(0.05)
+                telemetry = json.loads(await get("/telemetry"))
+                metrics = (await get("/metrics")).decode()
+                query = json.loads(await get("/query?window_s=60"))
+                loop = asyncio.get_running_loop()
+                rc = await loop.run_in_executor(None, cli.main, [
+                    "top", "--status-url", f"http://127.0.0.1:{status}",
+                    "--once", "--window", "60"])
+            finally:
+                sup.stop()
+                await asyncio.wait_for(task, 30)
+            return telemetry, metrics, health, query, rc
+
+        try:
+            telemetry, metrics, health, query, rc = run(main())
+        finally:
+            for child in children:
+                child.close()
+        shards = telemetry["frontend_shards"]
+        assert shards["n_shards"] == 2 and shards["port"] == 3999
+        assert [s["prefix_range"] for s in shards["shards"]] == [
+            [0, 32768], [32768, 65536]]
+        assert 'tpu_miner_frontend_sessions{shard="1"} 3' in metrics
+        assert 'tpu_miner_frontend_shard_state{shard="0"} 1' in metrics
+        assert health["components"]["frontend_shard"]["state"] == "ok"
+        top = capsys.readouterr().out
+        assert rc == 0 and "frontend (per process):" in top
+        assert "shard-0" in top and "shard-1" in top
+        assert dashboard.render_top(query) == \
+            ref_dashboard.render_top(query)
+        assert {s.state for s in sup._shards.values()} == {"down"}
 
 
 # ----------------------------------------------------- health component

@@ -300,6 +300,126 @@ def test_telemetry_without_a_fabric_has_no_fabric_key():
     assert "tpu_miner_pool_slot_state" in payload
 
 
+class _Shards:
+    """A sharded frontend's supervisor as the status server sees it: a
+    snapshot, and the children's relabelled samples (slow with
+    ``delay``)."""
+
+    def __init__(self, delay: float = 0.0) -> None:
+        self.delay = delay
+        self.scrapes = 0
+
+    def snapshot(self) -> dict:
+        return {"n_shards": 2, "host": "127.0.0.1", "port": 3999,
+                "shards": [{"shard": i, "pid": 4100 + i, "state": "serving",
+                            "restarts": i, "prefix_range": [32768 * i,
+                                                            32768 * (i + 1)],
+                            "status_port": 9101 + i} for i in range(2)]}
+
+    def metrics_text(self) -> str:
+        self.scrapes += 1
+        if self.delay:
+            threading.Event().wait(self.delay)
+        return ('# aggregated from shard /metrics (shard label added by '
+                'the supervisor)\n'
+                'tpu_miner_frontend_sessions{shard="0"} 3\n'
+                'tpu_miner_frontend_shares_total{result="accepted",'
+                'shard="1"} 7\n')
+
+
+def test_telemetry_and_metrics_carry_the_shards_like_the_reference():
+    """``/telemetry`` holds the supervisor's snapshot under
+    ``frontend_shards`` and ``/metrics`` ends with its children's
+    samples, in the port's server as in the reference's."""
+    async def main(status_mod, pipeline, dispatcher):
+        tel = pipeline.PipelineTelemetry()
+        tel.frontend_shard_state.labels(shard="0").set(1)
+        server = status_mod.StatusServer(
+            dispatcher.MinerStats(), port=0, registry=tel.registry,
+            telemetry=tel, shards=_Shards())
+        await server.start()
+        try:
+            telemetry = json.loads(split(await scrape(server.port,
+                                                      "/telemetry"))[1])
+            metrics = split(await scrape(server.port, "/metrics"))[1]
+            return telemetry, metrics.decode()
+        finally:
+            await server.stop()
+
+    ref = run(main(ref_status, ref_pipeline, ref_dispatcher))
+    port = run(main(port_status, port_pipeline, port_dispatcher))
+    assert port[0]["frontend_shards"] == ref[0]["frontend_shards"] == \
+        _Shards().snapshot()
+    assert port[1].endswith(_Shards().metrics_text())
+    assert ref[1].endswith(_Shards().metrics_text())
+    body = port[1].split("# aggregated from shard")[0]
+    assert 'tpu_miner_frontend_shard_state{shard="0"} 1' in body
+    families = parse_prometheus(body)
+    assert "tpu_miner_frontend_shard_state" in families
+
+
+def test_unsharded_telemetry_has_no_shards_key():
+    async def main():
+        server, _, _ = _server()
+        await server.start()
+        try:
+            return json.loads(split(await scrape(server.port,
+                                                 "/telemetry"))[1])
+        finally:
+            await server.stop()
+
+    assert "frontend_shards" not in run(main())
+
+
+def test_shard_scrape_runs_off_the_event_loop():
+    """The children's scrape (here 0.5 s) runs in the executor: a request
+    made while it is in flight is answered first."""
+    async def main():
+        shards = _Shards(delay=0.5)
+        server, _, _ = _server(shards=shards)
+        await server.start()
+        try:
+            order = []
+
+            async def get(path):
+                raw = await scrape(server.port, path)
+                order.append(path)
+                return raw
+
+            slow = asyncio.create_task(get("/metrics"))
+            while not shards.scrapes:
+                await asyncio.sleep(0.01)
+            await get("/anything")
+            await slow
+            return order
+        finally:
+            await server.stop()
+
+    assert run(main()) == ["/anything", "/metrics"]
+
+
+@pytest.mark.parametrize("oversized", [
+    b"A" * (128 * 1024),
+    b"GET /metrics HTTP/1.1\r\nX-Long: " + b"B" * (128 * 1024)
+    + b"\r\n\r\n"], ids=["request_line", "header"])
+def test_oversized_request_closes_in_order_with_shards(oversized):
+    """The shard routes ride the port's handler: an oversized request to
+    a sharded frontend's server is still half-closed and drained, never
+    reset, and the server serves ``/metrics`` with the shards after."""
+    async def main():
+        server, _, _ = _server(shards=_Shards())
+        await server.start()
+        try:
+            assert await scrape(server.port, request=oversized) == b""
+            status, body = split(await scrape(server.port, "/metrics"))
+            assert status == "HTTP/1.1 200 OK"
+            assert b'shard="1"' in body
+        finally:
+            await server.stop()
+
+    run(main())
+
+
 def test_routes_without_telemetry_answer_the_snapshot():
     async def main():
         stats = port_dispatcher.MinerStats()

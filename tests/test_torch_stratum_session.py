@@ -23,6 +23,8 @@ from bitcoin_miner_tpu_torch import cli
 from bitcoin_miner_tpu_torch.backends.cpu import CpuHasher
 from bitcoin_miner_tpu_torch.backends.cuda import TileCudaHasher
 from bitcoin_miner_tpu_torch.core.sha256 import sha256d
+from bitcoin_miner_tpu_torch.miner.dispatcher import Share
+from bitcoin_miner_tpu_torch.miner.job import StratumJobParams
 from bitcoin_miner_tpu_torch.miner.runner import (
     GbtMiner,
     GetworkMiner,
@@ -542,5 +544,52 @@ def test_checkpoint_cleared_on_disconnect(tmp_path):
         await asyncio.gather(task, return_exceptions=True)
         await pool.stop()
         assert "old:key" not in json.load(open(path))["jobs"]
+
+    run(main())
+
+
+def test_shares_of_a_dropped_connection_are_not_submitted():
+    """A share mined on a job installed before a disconnect carries the
+    dropped connection's extranonce1. A pool whose sessions all announce
+    the same job ids (the sharded frontend's local templates) would judge
+    it against the new session's extranonce1: it is counted stale (lost)
+    and never submitted. A share of the new connection's job, under the
+    same job id, is submitted. (The reference submits both.)"""
+    async def main():
+        miner = StratumMiner("127.0.0.1", 1, "w", hasher=CpuHasher())
+        submitted = []
+
+        async def submit(share):
+            submitted.append(share)
+            return True
+
+        client, stats = miner.client, miner.dispatcher.stats
+        client.submit_share = submit
+        client.extranonce2_size = 4
+        params = StratumJobParams.from_notify(
+            ["t1", "00" * 32, "01000000", "00000000", [], "20000000",
+             "1d00ffff", "66000001", True])
+
+        def share(nonce):
+            return Share(job_id="t1", extranonce2=b"\0" * 4,
+                         ntime=0x66000001, nonce=nonce, header80=b"",
+                         hash_int=0, is_block=False)
+
+        client.extranonce1 = bytes.fromhex("f00d0000")
+        await miner._on_job(params)
+        old = share(1)
+        await miner._on_share(old)
+        await miner._on_disconnect()
+        client.extranonce1 = bytes.fromhex("f00d8000")
+        await miner._on_share(share(2))  # the new job not yet installed
+        await miner._on_share(old)
+        await miner._on_job(params)
+        new = share(3)
+        await miner._on_share(new)
+        assert [s.nonce for s in submitted] == [1, 3]
+        assert (stats.shares_accepted, stats.shares_stale) == (2, 2)
+        tel = miner.dispatcher.telemetry
+        assert tel.pool_acks.labels(result="lost").value == 2
+        assert tel.submits_inflight.value == 0
 
     run(main())

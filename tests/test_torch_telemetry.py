@@ -169,13 +169,15 @@ def test_registry_refuses_a_changed_geometry():
 
 # ------------------------------------------------------------ pipeline bundle
 def test_bundle_families_are_the_references():
-    """Every family the port registers is the reference's own: name, kind,
-    help, label names and buckets, so its exposition lines are too."""
+    """The port registers every family of the reference's bundle and no
+    other, each with the reference's name, kind, help, label names and
+    buckets, so its exposition lines are the reference's too."""
     ref = ref_pipeline.PipelineTelemetry()
     port = port_pipeline.PipelineTelemetry()
     ref_fams = {f.name: f for f in ref.registry.families()}
     port_fams = port.registry.families()
     assert len(port_fams) == len(port_pipeline.BUNDLE_METRICS)
+    assert sorted(f.name for f in port_fams) == sorted(ref_fams)
     for fam in port_fams:
         other = ref_fams[fam.name]
         assert (fam.kind, fam.help, fam.labelnames, fam._child_kwargs) == (
@@ -628,11 +630,7 @@ def test_health_sample_matches_reference():
         tel.share_efficiency.set(0.9)
         model = health.HealthModel(tel, stats=stats, **kw)
         samples.append(model.sample())
-    port_keys = set(samples[1])
-    assert {k: samples[0][k] for k in port_keys} == samples[1]
-    # What the reference reads beyond these belongs to modules the port
-    # does not have: it is empty or absent there too.
-    assert all(not samples[0][k] for k in set(samples[0]) - port_keys)
+    assert samples[1] == samples[0]
 
 
 def test_pool_fabric_families_are_the_references():
@@ -658,6 +656,31 @@ def test_pool_fabric_families_are_the_references():
     assert rendered[1] == rendered[0]
     assert 'tpu_miner_pool_failover_total{reason="disconnect"} 2' in \
         rendered[1][1]
+
+
+def test_frontend_shard_family_is_the_references():
+    """The sharded frontend's gauge sits in the bundle just after the
+    fleet's, with the reference's levels, and the same operations render
+    the same lines and the same health sample."""
+    assert port_pipeline.FRONTEND_SHARD_LEVELS == \
+        ref_pipeline.FRONTEND_SHARD_LEVELS
+    names = port_pipeline.BUNDLE_METRICS
+    i = names.index("fleet_reclaims")
+    assert names[i + 1] == "frontend_shard_state"
+    out = []
+    for pipeline, health, kw in (
+            (ref_pipeline, ref_health, {"relay_probe": _no_relay}),
+            (port_pipeline, port_health, {})):
+        tel = pipeline.PipelineTelemetry()
+        for shard, state in (("0", "serving"), ("1", "down"),
+                             ("1", "starting"), ("2", "degraded")):
+            tel.frontend_shard_state.labels(shard=shard).set(
+                pipeline.FRONTEND_SHARD_LEVELS[state])
+        sample = health.HealthModel(tel, **kw).sample()
+        out.append((tel.frontend_shard_state.render(),
+                    sample["frontend_shards"]))
+    assert out[1] == out[0]
+    assert out[1][1] == {"0": 1.0, "1": 0.0, "2": 2.0}
 
 
 def _pools_snapshot(slots):
