@@ -86,6 +86,7 @@ from ..parallel.mesh import (
     merge_device_hits,
 )
 from ..telemetry import TelemetryBound
+from ..telemetry.tracing import host_range
 from .base import (
     Hasher,
     STREAM_FLUSH,
@@ -448,7 +449,8 @@ class CudaHasher(TelemetryBound, Hasher):
                 live[0] -= 1
                 tel.ring_occupancy.dec()
                 c0 = time.perf_counter_ns() if tel.enabled else 0
-                self._collect(out, st["jc"], base, limit, st["found"])
+                with host_range("ring_collect"):
+                    self._collect(out, st["jc"], base, limit, st["found"])
                 if tel.enabled:
                     end = time.perf_counter_ns()
                     tel.ring_collect.observe((end - c0) / 1e9)
@@ -505,8 +507,9 @@ class CudaHasher(TelemetryBound, Hasher):
                     limit = min(self.batch_size, req.count - off)
                     base = req.nonce_start + off
                     enq_ns = time.perf_counter_ns() if tel.enabled else 0
-                    pending.append((self._scan_fn(st["jc"], base, limit),
-                                    base, limit, st, enq_ns))
+                    with host_range("device_dispatch"):
+                        out = self._scan_fn(st["jc"], base, limit)
+                    pending.append((out, base, limit, st, enq_ns))
                     live[0] += 1
                     tel.ring_occupancy.inc()
                     off += limit

@@ -626,8 +626,10 @@ def run_bench(hasher: Hasher, count: int,
     """Sweep ``count`` nonces of the genesis header centred on its nonce
     at the difficulty-1 target, through the hasher's streaming path, and
     verify the solve on the CPU oracle. ``hashes`` counts every chain's
-    hashes (nonces × vshare); ``version_hits`` are the sibling chains'
-    hits as (version, nonce) pairs."""
+    hashes (nonces × vshare); ``dispatches`` the requests, which held
+    ``batch_nonces_min`` to ``batch_nonces_max`` nonces each;
+    ``version_hits`` are the sibling chains' hits as (version, nonce)
+    pairs."""
     header76 = bytes.fromhex(GENESIS_HEADER_HEX)[:76]
     target = nbits_to_target(GENESIS_NBITS)
     start = max(0, GENESIS_NONCE - count // 2)
@@ -642,7 +644,9 @@ def run_bench(hasher: Hasher, count: int,
         header76 + GENESIS_NONCE.to_bytes(4, "little"), target)
     return {
         "nonce_start": start, "hashes": report.hashes_done,
-        "dispatches": report.dispatches, "seconds": seconds,
+        "dispatches": report.dispatches,
+        "batch_nonces_min": report.min_count,
+        "batch_nonces_max": report.max_count, "seconds": seconds,
         "mhs": report.hashes_done / seconds / 1e6, "nonces": report.nonces,
         "version_hits": report.version_hits, "found": found,
         "verified": verified,

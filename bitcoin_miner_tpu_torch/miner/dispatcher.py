@@ -52,6 +52,7 @@ from ..backends.base import (
 from ..core.target import hash_to_int
 from ..parallel.ranges import ExtranonceCounter, NONCE_SPACE, split_range
 from ..telemetry import PipelineTelemetry, get_telemetry, share_key
+from ..telemetry.tracing import host_range
 from .job import Job
 
 if TYPE_CHECKING:
@@ -573,6 +574,8 @@ class Dispatcher:
                     req_q.put(STREAM_FLUSH)
                 item: WorkItem = await queue.get()
                 slice_t0 = tel.tracer.now_ns() if tel.tracer.enabled else 0
+                slice_range = host_range("feeder_slice")
+                slice_range.__enter__()
                 try:
                     off = 0
                     while off < item.nonce_count:
@@ -594,6 +597,7 @@ class Dispatcher:
                         ))
                         off += count
                 finally:
+                    slice_range.__exit__(None, None, None)
                     if slice_t0:
                         tel.tracer.complete(
                             "feeder_slice", slice_t0, cat="pipeline",
@@ -766,7 +770,7 @@ class Dispatcher:
         header80 = item.header76 + nonce.to_bytes(4, "little")
         tel = self.telemetry
         with tel.span("cpu_verify", cat="share", job_id=item.job.job_id,
-                      nonce=f"{nonce:#010x}"):
+                      nonce=f"{nonce:#010x}"), host_range("cpu_verify"):
             h = hash_to_int(self.oracle.sha256d(header80))
         if h > item.job.share_target:
             self.stats.hw_errors += 1

@@ -75,6 +75,7 @@ from .runner import (
     _is_stale_reason,
     _record_submit,
     _submit_cancelled,
+    _submit_range,
     _submit_started,
 )
 
@@ -1147,6 +1148,7 @@ class MultipoolMiner:
         self.accounting.set_difficulty(target_to_difficulty(job.share_target))
         return installed.generation
 
+    @_submit_range
     async def _on_share(self, share: Share) -> None:
         await self.fabric.submit(share)
 

@@ -20,6 +20,7 @@ default hasher is the tile kernel on the card (``cuda-tile``).
 from __future__ import annotations
 
 import asyncio
+import functools
 import logging
 import time
 from collections import Counter
@@ -29,6 +30,7 @@ from ..backends.base import Hasher
 from ..core.target import target_to_difficulty
 from ..protocol.stratum import StratumClient, StratumError
 from ..telemetry import ShareAccountant, share_key
+from ..telemetry.tracing import host_range
 from ..utils.backoff import DecorrelatedJitterBackoff
 from .dispatcher import Dispatcher, Share
 from .job import Job, StratumJobParams
@@ -38,6 +40,19 @@ if TYPE_CHECKING:
     from .scheduler import AdaptiveBatchScheduler
 
 logger = logging.getLogger(__name__)
+
+
+def _submit_range(on_share):
+    """A miner's share handler inside a ``submit`` host range (a profiler
+    range only while a profile is armed; it spans the awaits until the
+    verdict)."""
+
+    @functools.wraps(on_share)
+    async def handler(self, share: Share) -> None:
+        with host_range("submit"):
+            await on_share(self, share)
+
+    return handler
 
 
 def _submit_started(telemetry: Any) -> int:
@@ -264,6 +279,7 @@ class StratumMiner:
             await self._on_job(self._last_params)
 
     # --------------------------------------------------------- shares → pool
+    @_submit_range
     async def _on_share(self, share: Share) -> None:
         stats = self.dispatcher.stats
         telemetry = self.dispatcher.telemetry
@@ -396,6 +412,7 @@ class GetworkMiner:
                 self.dispatcher.set_job(job)
             await asyncio.sleep(self.poll_interval)
 
+    @_submit_range
     async def _on_share(self, share: Share) -> None:
         stats = self.dispatcher.stats
         if share.job_id != self._current_job_id:
@@ -545,6 +562,7 @@ class GbtMiner:
                 # so a server that does not park cannot spin us.
                 await asyncio.sleep(min(1.0, self.poll_interval))
 
+    @_submit_range
     async def _on_share(self, share: Share) -> None:
         stats = self.dispatcher.stats
         gbt = self._current

@@ -184,12 +184,15 @@ def scheduler_for(hasher: Any, **overrides: Any) -> AdaptiveBatchScheduler:
 class SweepReport:
     """Outcome of one :func:`stream_sweep`: the header's own hits, the
     sibling chains' hits as (version, nonce) pairs, the hashes computed
-    (nonces × chains) and the requests made."""
+    (nonces × chains), the requests made and the least and most nonces a
+    request held."""
 
     nonces: List[int]
     hashes_done: int
     dispatches: int
     version_hits: List[Tuple[int, int]]
+    min_count: int = 0
+    max_count: int = 0
 
 
 def stream_sweep(
@@ -209,6 +212,7 @@ def stream_sweep(
     if scheduler is None and batch_size is None:
         batch_size = dispatch_granularity(hasher, default=1 << 24)
     dispatches = [0]
+    sizes: List[int] = []
 
     def requests() -> Iterator[ScanRequest]:
         off = 0
@@ -217,6 +221,7 @@ def stream_sweep(
                  else batch_size)
             n = min(n, count - off)
             dispatches[0] += 1
+            sizes.append(n)
             yield ScanRequest(
                 header76=header76, nonce_start=nonce_start + off,
                 count=n, target=target, max_hits=max_hits,
@@ -234,4 +239,5 @@ def stream_sweep(
         hashes += sres.result.hashes_done
     return SweepReport(
         nonces=sorted(nonces), hashes_done=hashes, dispatches=dispatches[0],
-        version_hits=version_hits)
+        version_hits=version_hits, min_count=min(sizes, default=0),
+        max_count=max(sizes, default=0))

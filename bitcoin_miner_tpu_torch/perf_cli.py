@@ -17,12 +17,19 @@ append-only ledger of :mod:`.telemetry.perfledger` (schema
   dispatch pays (a ``Dispatcher.sweep`` on the ``cpu`` backend, the
   scheduler's decision loop, the metric hot path, the share accountant),
   with the sweep's telemetry-off control leg;
-- ``capture`` is refused: the reference's runs ``bench.py`` under the JAX
-  profiler and ``benchmarks/trace_report.py`` over the profile, and this
-  package has neither counterpart yet.
+- ``capture``: one measurement window's bundle under ``OUT/<row-id>/``,
+  keyed to one ledger row id: the bench (``python -m
+  bitcoin_miner_tpu_torch.bench``, its options after ``--``) with
+  ``--profile`` and ``--trace-out``, ``probes.trace_report`` over the
+  profile, with ``--status-url`` a snapshot of a live status server's
+  surfaces and its lifecycle exemplars, the ledger row with its artifact
+  pointers, and the ``tpu-miner-capture/1`` manifest; its last line is
+  ``{"metric": "window_capture", ...}`` and its rc the bench's (a failed
+  post-processor is a manifest note, not an exit code).
 
-The default ledger is ``build/perf_ledger.jsonl`` in the checkout, a
-directory git ignores, so no run writes into a tracked file unasked.
+The default ledger is ``build/perf_ledger.jsonl`` and the default capture
+root ``build/captures`` in the checkout, a directory git ignores, so no
+run writes into a tracked file unasked.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 from typing import Dict, List, Optional
@@ -43,6 +51,7 @@ from .telemetry.perfledger import (
     gate_report,
     gate_rows,
     load_rows,
+    new_row_id,
     trajectory,
 )
 
@@ -51,12 +60,16 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the default ledger: under ``build/``, which git ignores.
 DEFAULT_LEDGER = os.path.join(REPO_ROOT, "build", "perf_ledger.jsonl")
 
-#: why ``perf capture`` is refused.
-CAPTURE_REFUSED = (
-    "perf capture is not available in this package: the reference's "
-    "capture runs bench.py under the JAX profiler and "
-    "benchmarks/trace_report.py over the profile, and neither has a "
-    "counterpart here yet. Record a measured row with `perf record`.")
+#: the default root of ``perf capture``'s bundles: under ``build/`` too.
+DEFAULT_CAPTURES = os.path.join(REPO_ROOT, "build", "captures")
+
+#: the bench options ``perf capture`` sets itself: given after ``--`` they
+#: are refused.
+CAPTURE_SETS = ("--profile", "--trace-out", "--ledger", "--ledger-id")
+
+#: the live surfaces a capture with ``--status-url`` snapshots.
+CAPTURE_ROUTES = ("metrics", "healthz", "flightrec", "telemetry",
+                  "lifecycle")
 
 # ---------------------------------------------------------------- proxy
 #: fixed shapes: the proxy's workload is the same every run, so the
@@ -193,6 +206,152 @@ def run_proxy_microbench(
     return rows
 
 
+# -------------------------------------------------------------- capture
+def _fetch_url(url: str, path: str, timeout: float = 5.0) -> bool:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            body = resp.read()
+    except Exception:  # noqa: BLE001 — a snapshot is best-effort
+        return False
+    with open(path, "wb") as fh:
+        fh.write(body)
+    return True
+
+
+def _exemplar_links(lifecycle_path: str, per_metric: int = 3) -> Dict:
+    """The lifecycle snapshot's sampled exemplars, cut to manifest size:
+    per metric the ``per_metric`` highest values, each with its value,
+    timestamp, trace id and share key. An unreadable or reshaped snapshot
+    gives ``{}``."""
+    try:
+        with open(lifecycle_path, "r", encoding="utf-8") as fh:
+            raw = json.load(fh).get("exemplars")
+        if not isinstance(raw, dict):
+            return {}
+        links: Dict = {}
+        for metric, samples in sorted(raw.items()):
+            if not isinstance(samples, list):
+                continue
+            tail = sorted((x for x in samples if isinstance(x, dict)),
+                          key=lambda x: float(x.get("value", 0.0)),
+                          reverse=True)[:per_metric]
+            if tail:
+                links[metric] = [{k: x[k] for k in ("value", "ts", "trace",
+                                                    "key") if k in x}
+                                 for x in tail]
+        return links
+    except (OSError, ValueError, AttributeError):
+        return {}
+
+
+def run_capture(args, bench_args: List[str]) -> int:
+    """One window's bundle under ``OUT/<row-id>/``: the bench under the
+    profiler with its span trace, the trace report over the profile, the
+    live surfaces with ``--status-url``, the ledger row (this function
+    appends it, with every artifact pointer, under the bundle's id) and
+    the manifest. Each step after the bench is non-fatal: its failure is
+    a note in the manifest's ``errors``. Returns the bench's rc (1 when it
+    printed no line or did not end in time)."""
+    from .bench import _extract_json
+    from .probes import trace_report
+    from .telemetry.tracing import atomic_json_dump
+
+    row_id = new_row_id()
+    outdir = os.path.join(args.out, row_id)
+    profile_dir = os.path.join(outdir, "profile")
+    os.makedirs(profile_dir, exist_ok=True)
+    manifest: Dict = {
+        "schema": "tpu-miner-capture/1",
+        "ledger_id": row_id,
+        "ledger": args.ledger,
+        "started": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "errors": [],
+    }
+    artifacts: Dict = {"dir": outdir}
+
+    trace_path = os.path.join(outdir, "trace.json")
+    cmd = [sys.executable, "-m", "bitcoin_miner_tpu_torch.bench",
+           "--profile", profile_dir, "--trace-out", trace_path, *bench_args]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    rc = 1
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=args.bench_timeout, env=env)
+        headline = _extract_json(proc.stdout)
+        manifest["bench"] = headline
+        manifest["bench_rc"] = proc.returncode
+        if headline is not None:
+            rc = proc.returncode
+        else:
+            manifest["errors"].append("bench printed no JSON line: "
+                                      + (proc.stderr or "").strip()[-300:])
+    except (subprocess.TimeoutExpired, OSError) as e:
+        manifest["bench"] = None
+        manifest["errors"].append(f"bench failed: {type(e).__name__}: {e}")
+    if os.path.exists(trace_path):
+        artifacts["trace"] = trace_path
+    if os.listdir(profile_dir):
+        artifacts["profile"] = profile_dir
+        report_md = os.path.join(outdir, "trace_report.md")
+        try:
+            tr_rc, manifest["trace_report"] = trace_report.run(
+                profile_dir, md_out=report_md, evidence=args.evidence)
+            if tr_rc:
+                manifest["errors"].append(
+                    "trace_report: " + manifest["trace_report"]["error"])
+            if os.path.exists(report_md):
+                artifacts["trace_report_md"] = report_md
+        except Exception as e:  # noqa: BLE001 — a note, not an exit code
+            manifest["errors"].append(
+                f"trace_report failed: {type(e).__name__}: {e}")
+
+    if args.status_url:
+        base = args.status_url.rstrip("/")
+        for route in CAPTURE_ROUTES:
+            path = os.path.join(outdir, f"{route}.txt" if route == "metrics"
+                                else f"{route}.json")
+            if _fetch_url(f"{base}/{route}", path):
+                artifacts[route] = path
+            else:
+                manifest["errors"].append(f"snapshot of /{route} failed")
+        if "lifecycle" in artifacts:
+            manifest["exemplars"] = _exemplar_links(artifacts["lifecycle"])
+
+    headline = manifest.get("bench")
+    if headline is not None and headline.get("metric"):
+        row = dict(headline)
+        row.setdefault("measured",
+                       time.strftime("%Y-%m-%dT%H:%MZ", time.gmtime()))
+        platform = ("cuda" if headline.get("device") not in (None, "cpu")
+                    else "cpu")
+        try:
+            PerfLedger(args.ledger).append(
+                dict(row, rc=manifest.get("bench_rc")),
+                fingerprint=env_fingerprint(platform=platform),
+                artifacts=dict(artifacts), row_id=row_id)
+        except (LedgerError, OSError) as e:
+            manifest["errors"].append(f"ledger append failed: {e}")
+        if args.evidence and row.get("value", 0) > 0:
+            try:
+                with open(args.evidence, "a", encoding="utf-8") as fh:
+                    fh.write(json.dumps(row) + "\n")
+            except OSError as e:
+                manifest["errors"].append(f"evidence append failed: {e}")
+
+    manifest["artifacts"] = artifacts
+    manifest_path = os.path.join(outdir, "capture.json")
+    atomic_json_dump(manifest, manifest_path)
+    print(json.dumps({
+        "metric": "window_capture", "ledger_id": row_id,
+        "manifest": manifest_path, "ok": rc == 0,
+        "errors": manifest["errors"],
+    }), flush=True)
+    return rc
+
+
 # ------------------------------------------------------------------ cli
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -253,8 +412,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run only this proxy bench (repeatable)")
     px.add_argument("--json", action="store_true")
 
-    sub.add_parser("capture", help="refused in this package: "
-                   + CAPTURE_REFUSED)
+    cap = sub.add_parser(
+        "capture",
+        help="one window's bundle: the bench under the profiler, the "
+             "trace report, a status snapshot, one ledger row id")
+    add_ledger(cap)
+    cap.add_argument("--out", default=DEFAULT_CAPTURES,
+                     help="capture root; the bundle goes under "
+                          "OUT/<row-id>/ (default: %(default)s)")
+    cap.add_argument("--status-url", default=None,
+                     help="a live --status-port base URL to snapshot "
+                          "(/" + ", /".join(CAPTURE_ROUTES) + ")")
+    cap.add_argument("--evidence", default=None, metavar="FILE",
+                     help="also append the bench's line and the trace "
+                          "report's to this JSONL file")
+    cap.add_argument("--bench-timeout", type=float, default=900.0,
+                     help="seconds before the bench's process is killed "
+                          "(default: %(default)s)")
+    cap.add_argument("bench_args", nargs="*",
+                     help="the bench's options, after -- (e.g. -- "
+                          "--vshare 2); " + ", ".join(CAPTURE_SETS)
+                          + " are the capture's own")
     return p
 
 
@@ -356,11 +534,23 @@ def cmd_proxy(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv[:1] == ["capture"]:
-        # Refused whatever its options: they are bench.py's.
-        print(CAPTURE_REFUSED, file=sys.stderr)
-        return 2
+    # A positional with nargs="*" refuses options among its values: the
+    # bench's options go after "--".
+    extra: List[str] = []
+    if "--" in argv:
+        split = argv.index("--")
+        argv, extra = argv[:split], argv[split + 1:]
     args = build_parser().parse_args(argv)
+    if args.cmd == "capture":
+        bench_args = list(args.bench_args) + extra
+        own = [a for a in bench_args if a.split("=")[0] in CAPTURE_SETS]
+        if own:
+            print(f"perf capture sets {', '.join(CAPTURE_SETS)} itself; "
+                  f"refused: {' '.join(own)}", file=sys.stderr)
+            return 2
+        return run_capture(args, bench_args)
+    if extra:
+        build_parser().error(f"unrecognized arguments: {' '.join(extra)}")
     if args.cmd == "record":
         return cmd_record(args)
     if args.cmd == "report":

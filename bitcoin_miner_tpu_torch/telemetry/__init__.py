@@ -45,6 +45,7 @@ from .pipeline import (  # noqa: F401
     METRIC_CHIP_DISPATCHES,
     METRIC_CHIP_INFLIGHT,
     METRIC_CONSTS_CACHE,
+    METRIC_DEVICE_BUSY,
     METRIC_DISPATCH_GAP,
     METRIC_FEDERATE_SCRAPES,
     METRIC_FLEET_CHILD_STATE,

@@ -37,6 +37,10 @@ from .tracing import Tracer
 METRIC_DISPATCH_GAP = "tpu_miner_dispatch_gap_seconds"
 #: One device scan batch, enqueue (or entry) to result in hand.
 METRIC_SCAN_BATCH = "tpu_miner_scan_batch_seconds"
+#: Fraction of a probe's wall time with a dispatch in flight. Only the
+#: pipeline probe sets it (it needs a bounded wall window); the bundle does
+#: not register it, so a live miner's ``/metrics`` never shows a stale 0.
+METRIC_DEVICE_BUSY = "tpu_miner_device_busy_ratio"
 #: The ring's blocking wait for its oldest dispatch (on the tile path it
 #: includes the dispatch's ``rescan_steps`` launch and its wait).
 METRIC_RING_COLLECT = "tpu_miner_ring_collect_seconds"

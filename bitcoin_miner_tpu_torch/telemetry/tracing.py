@@ -18,6 +18,13 @@ pump threads and the fan-out's per-card pumps are separate tracks. A
 disabled tracer costs one predicate per call. The buffer is bounded; past
 the bound new events are dropped and counted (``dropped_events``).
 
+While ``torch.profiler`` records the process (:func:`profile_pipeline`),
+:func:`host_range` also opens a ``record_function`` range under a span's
+name around the host work of a dispatch, a collect, a feeder slice, a CPU
+verify and a submit, so that a reader of the card's trace can say what the
+host did between two kernels on the profiler's own clock. Otherwise it is
+a shared no-op.
+
 Every tracer owns a process ``trace_id``; each event is stamped with the
 id in force on its thread (``args["trace"]``), and a thread adopts
 another id for a block with :meth:`Tracer.context` (the fan-out's pump
@@ -50,6 +57,49 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+#: Whether :func:`profile_pipeline` is in force: only then does
+#: :func:`host_range` open a profiler range. Process-wide, as the
+#: profiler it serves is.
+_profiling = False
+
+
+@contextlib.contextmanager
+def profile_pipeline(cuda: bool):
+    """``torch.profiler.profile`` of the CPU, and of the card with
+    ``cuda``, for the block, with :func:`host_range` opening its ranges.
+    Every thread's host work is recorded where the torch build can
+    (``profile_all_threads``): the dispatcher's pump threads drive the
+    ring. Yields the profiler, whose trace the caller exports."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    global _profiling
+    try:
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:  # an older build: the calling thread's ranges only
+        config = None
+    activities = [ProfilerActivity.CPU,
+                  *([ProfilerActivity.CUDA] if cuda else [])]
+    with profile(activities=activities, experimental_config=config) as prof:
+        _profiling = True
+        try:
+            yield prof
+        finally:
+            _profiling = False
+
+
+def host_range(name: str):
+    """A context manager over host work named as its span: a
+    ``torch.profiler.record_function(name)`` range while
+    :func:`profile_pipeline` is in force, else the shared no-op. Work whose
+    start and end are seen in different frames calls ``__enter__`` and
+    ``__exit__(None, None, None)`` itself."""
+    if not _profiling:
+        return _NULL_SPAN
+    from torch.profiler import record_function
+
+    return record_function(name)
 
 
 def atomic_json_dump(obj: Any, path: str) -> str:

@@ -85,8 +85,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``/query``'s ``scan_batch`` series, ``top --once``, ``slo
    --status-url`` exiting 1, one incident bundle and its ledger row
    (``stratum_session_observatory``); the ``perf`` subcommand's proxy,
-   record (the card in the fingerprint), report, gate and refused capture
-   (``perf_cli_roundtrip``); and, with grpcio, a served worker with
+   record (the card in the fingerprint), report, gate and a capture
+   refusing an option it sets itself (``perf_cli_roundtrip``); the bench
+   as a user runs it, ``python -m bitcoin_miner_tpu_torch.bench`` in a
+   child: one JSON line with rc 0 on the card (``cuda-tile``, the card's
+   name, the genesis nonce verified, 256 tile launches, a pipeline block)
+   and, at the same time, with the card hidden: rc 1 and ``value`` 0, no
+   host backend's number (``bench_json``); ``perf capture`` of the default
+   bench: a manifest without errors keyed to its ledger row, and the
+   trace report of ``torch.profiler``'s trace counting the bench's
+   ``scan_tile`` and ``rescan_steps`` launches, with the card's busy share
+   and its longest gaps labelled with what the host did (``perf_capture``);
+   and, with grpcio, a served worker with
    ``--status-port`` mined through by a parent session naming it
    ``--worker HOST:PORT@STATUSPORT``, whose ``/query`` must hold the
    worker's series (``served_worker_federation``);
@@ -127,7 +137,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    broadcast's p99 and the internal rate under that load
    (``frontend_internal_worker``); the mock pool ← ``--upstream``
    frontend with its internal worker ← a downstream ``StratumMiner`` on
-   the same card, 30 s: every share valid at the pool, its accepted
+   the same card, 10 s: every share valid at the pool, its accepted
    count equal to the proxy's forwards and upstream accepts, the two
    prefixes disjoint, both rates and their sum against the single
    session's (``frontend_proxy_session``); two mock pools behind the
@@ -140,7 +150,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    processes on one ``SO_REUSEPORT`` port, local templates, each child
    probing the native validator), mined by one ``cuda-tile`` miner as
    ``--pool stratum+tcp://127.0.0.1:PORT --workers 4`` builds it, for
-   20 s: its rate against ``stratum_session_telemetry``'s, the verdicts
+   10 s: its rate against ``stratum_session_telemetry``'s, the verdicts
    of each shard (accepted equal to the miner's with its submits held
    until none is in flight, none invalid or duplicate), its extranonce1 inside its shard's prefix range,
    ``/healthz``'s ``frontend_shard`` ok, the parent's ``/metrics`` with
@@ -157,7 +167,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the submits in flight at it; ``frontend_shard_kill``); then the load probe (``python -m
    bitcoin_miner_tpu_torch.probes.load_probe --connect``, 4 processes,
    512 sessions, 25 submits each at difficulty 1e-12) against one
-   process and against 2 and 4 shards: validated shares a second (all
+   process and against 4 shards: validated shares a second (all
    the probes' shares over the union of their submit windows), the
    sessions per shard, every extranonce1 unique and no share invalid,
    and the CPU share of the probes and of each acceptor beside
@@ -202,7 +212,10 @@ single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 Phases 3 to 7f (but for the load probe, host work with no kernel), 9's
 sweeps, session and ladder, and 10's probe run are the main path (the
 sharded frontend's kill is counted in its session's phase): the launch counts are set to 0 just before each and read just
-after, and each kernel must have launched. No tile hasher launches the
+after, and each kernel must have launched. The bench's children count
+their own launches over the timed sweep and print them (``launches``),
+which ``bench_json`` checks and the trace report of ``perf_capture``
+confirms; the kernel table does not add them. No tile hasher launches the
 hit-buffer kernel there: its rescans are ``rescan_steps``. Each dispatch
 is one scan launch per shard (per dispatch on one card), with no launch
 after it: the scans' last blocks merge the hit buffers and take each
@@ -223,6 +236,7 @@ last thing on standard error.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import ctypes
 import functools
@@ -300,7 +314,7 @@ FRONTEND_DIFFICULTY = 1 / 256
 FRONTEND_WINDOW_S = 20.0
 FRONTEND_CLIENTS = 256
 FRONTEND_LOAD_S = 10
-FRONTEND_PROXY_S = 30.0
+FRONTEND_PROXY_S = 10.0
 NATIVE_SUBMITS = 2000
 #: The sharded frontend's phases: the shards of the card-mined session and
 #: its measured window; the load probe's shard counts, its sessions split
@@ -308,8 +322,8 @@ NATIVE_SUBMITS = 2000
 #: submits for seconds, so that the processes' rates overlap and sum) at
 #: a difficulty every hash meets.
 SHARDS = 2
-SHARD_WINDOW_S = 20.0
-SHARD_LOAD_COUNTS = (1, 2, 4)
+SHARD_WINDOW_S = 10.0
+SHARD_LOAD_COUNTS = (1, 4)
 SHARD_LOAD_SESSIONS = 512
 SHARD_LOAD_PROBES = 4
 SHARD_LOAD_SHARES = 25
@@ -320,6 +334,8 @@ SHARD_LOAD_DIFFICULTY = 1e-12
 #: JOB_PAUSE_S later, a real gap of the busy clock.
 NTIME_ROLL = 15
 JOB_PAUSE_S = 0.25
+#: seconds a bench child may take (its libraries are built by then).
+BENCH_TIMEOUT_S = 300
 
 
 @functools.cache
@@ -1677,13 +1693,26 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
     def frontend_shards_load():
         """:func:`shard_load`: the load probe against one process and
-        against 2 and 4 shards (host work: no kernel)."""
+        against 4 shards (host work: no kernel)."""
         return asyncio.run(asyncio.wait_for(shard_load(pkg), 420))
 
     def perf_cli_roundtrip():
         """:func:`perf_roundtrip` on ``dispatcher_sweep``'s rows: their
         fingerprint must name this card and its power limit."""
         return perf_roundtrip(pkg, s.sweep_rows, name_power)
+
+    bench_lines: list = []
+
+    def bench_json_phase():
+        """:func:`bench_json`: the bench's children launch on the card in
+        their own processes; their launches are not counted here."""
+        out = bench_json(torch.cuda.get_device_name(0), s.sweep_mhs.get(1))
+        bench_lines.append(out["line"])
+        return out
+
+    def perf_capture_phase():
+        """:func:`perf_capture`, its rate against ``bench_json``'s."""
+        return perf_capture(pkg, bench_lines[0] if bench_lines else None)
 
     def genesis_sweep_batch3x():
         """The whole genesis sweep as ``--bench --batch-3x --sublanes 24``
@@ -2371,6 +2400,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
     s.phase("dispatcher_sweep", dispatcher_sweep)
     s.phase("stratum_session_observatory", stratum_session_observatory)
     s.phase("perf_cli_roundtrip", perf_cli_roundtrip)
+    s.phase("bench_json", bench_json_phase)
+    s.phase("perf_capture", perf_capture_phase)
     s.phase("fabric_session", fabric_session)
     s.phase("fabric_session_vshare", fabric_session_vshare)
     s.phase("native_oracle", native_oracle)
@@ -3730,8 +3761,9 @@ def perf_roundtrip(pkg, rows: list, card) -> dict:
     """The ``perf`` subcommand through ``cli.main``, every ledger in
     :func:`out_dir`: ``proxy``; ``record`` of ``rows``, whose fingerprint
     must name ``card`` (``nvidia-smi``'s name and power limit); ``report``;
-    ``gate`` of each ledger against itself (passes); ``capture`` refused
-    with its reason."""
+    ``gate`` of each ledger against itself (passes); ``capture`` refusing
+    a bench option it sets itself (``--profile``), with its reason (the
+    ``perf_capture`` phase runs it)."""
     proxy = os.path.join(out_dir(), "perf_proxy.jsonl")
     ledger = os.path.join(out_dir(), "perf_run.jsonl")
     evidence = os.path.join(out_dir(), "dispatcher_sweep.jsonl")
@@ -3764,8 +3796,11 @@ def perf_roundtrip(pkg, rows: list, card) -> dict:
         rc, gate, _ = perf("gate", "--ledger", path, "--baseline", path)
         assert rc == 0 and "gate: ok" in gate, gate
         gates[name] = gate.strip().splitlines()[-1]
-    rc, _, err = perf("capture")
-    assert rc != 0 and "not available" in err, (rc, err)
+    capture_root = os.path.join(out_dir(), "capture_refused")
+    rc, _, err = perf("capture", "--out", capture_root, "--", "--profile",
+                      capture_root)
+    assert rc == 2 and "--profile" in err, (rc, err)
+    assert not os.path.exists(capture_root), capture_root
     return {"proxy_best_s": best,
             "proxy_sweep_telemetry_on_vs_off":
                 best["dispatcher_sweep"] / best["dispatcher_sweep_notel"],
@@ -3775,6 +3810,108 @@ def perf_roundtrip(pkg, rows: list, card) -> dict:
                          for row in recorded],
             "report": report.strip().splitlines(), "gates": gates,
             "capture_rc": rc, "capture_refusal": err.strip()}
+
+
+def run_bench_child(env: dict = None) -> tuple:
+    """``python -m bitcoin_miner_tpu_torch.bench`` with its defaults as a
+    child of the checkout (the supervisor, whose own child sweeps on the
+    card): (rc, its standard output's lines, the end of its standard
+    error)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "bitcoin_miner_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})))
+    return (proc.returncode, proc.stdout.strip().splitlines(),
+            proc.stderr[-2000:])
+
+
+def one_json_line(rc: int, lines: list, err: str) -> dict:
+    """The one line of a bench's standard output, as JSON."""
+    assert len(lines) == 1, (rc, lines, err)
+    return json.loads(lines[0])
+
+
+def bench_json(card: str, sweep_mhs: float) -> dict:
+    """The bench as a user runs it, twice at once: on the card, where it
+    must print one line (rc 0, ``cuda-tile``, ``device`` the card's name,
+    the genesis nonce verified, one ``scan_tile`` launch per 2^24 nonces
+    and a rescan at most per dispatch, a ``pipeline`` block without
+    ``error``), and with the card hidden (``CUDA_VISIBLE_DEVICES=""``),
+    where it must print one line with ``value`` 0 and rc 1, never a host
+    backend's number. ``value`` against the same call's ``genesis_sweep``
+    rate (``sweep_mhs``), the same measurement: printed, not gated."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        card_run = pool.submit(run_bench_child)
+        hidden_run = pool.submit(run_bench_child,
+                                 {"CUDA_VISIBLE_DEVICES": ""})
+        rc, lines, err = card_run.result()
+        hidden = hidden_run.result()
+    line = one_json_line(rc, lines, err)
+    assert rc == 0 and line["value"] > 0, (rc, line, err)
+    assert line["backend"] == "cuda-tile" and line["device"] == card, line
+    assert line["verified"] is True and "error" not in line, line
+    assert "error" not in line["pipeline"], line["pipeline"]
+    launches = line["launches"]
+    assert launches["scan_tile"] == (1 << 32) // DISPATCH, launches
+    assert 0 < launches.get("rescan_steps", 0) <= launches["scan_tile"], (
+        launches)
+    assert launches.keys() <= {"scan_tile", "rescan_steps"}, launches
+    for key in ("vs_baseline", "best_measured_tpu", "pool"):
+        assert key not in line, line
+    no_card = one_json_line(*hidden)
+    assert hidden[0] == 1 and no_card["value"] == 0, hidden
+    assert "native" not in no_card["backend"] and "error" in no_card, hidden
+    return {"line": line, "value_vs_genesis_sweep": line["value"] / sweep_mhs
+            if sweep_mhs else None, "genesis_sweep_mhs": sweep_mhs,
+            "hidden_card": {"rc": hidden[0], "line": no_card}}
+
+
+def perf_capture(pkg, bench_line: dict) -> dict:
+    """``perf capture --out D --ledger L`` with the default bench, through
+    ``cli.main``, D and L in :func:`out_dir`: rc 0 and ``ok``, the
+    manifest without errors and keyed to the ledger's one row, the trace
+    report's ``scan_tile`` launches the bench's (one per 2^24 nonces: the
+    profiler sees kernels launched through ``ctypes``) and its
+    ``rescan_steps`` launches the bench's too. Prints the kernel families,
+    the card's busy share, the five longest gaps with what the host did,
+    and the rate under the profiler against ``bench_json``'s
+    (``bench_line``)."""
+    root = os.path.join(out_dir(), "capture")
+    ledger = os.path.join(root, "ledger.jsonl")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = pkg.cli.main(["perf", "capture", "--out", root, "--ledger",
+                           ledger, "--bench-timeout", str(BENCH_TIMEOUT_S)])
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert rc == 0 and summary["metric"] == "window_capture" and summary[
+        "ok"], (rc, summary)
+    with open(summary["manifest"]) as f:
+        manifest = json.load(f)
+    assert manifest["schema"] == "tpu-miner-capture/1", manifest
+    assert manifest["errors"] == [], manifest["errors"]
+    with open(ledger) as f:
+        rows = [json.loads(line) for line in f]
+    assert [row["id"] for row in rows] == [manifest["ledger_id"]], rows
+    assert rows[0]["fingerprint"]["platform"] == "cuda", rows[0]
+    bench, report = manifest["bench"], manifest["trace_report"]
+    families = report["device"]["families"]
+    launches = bench["launches"]
+    assert families["scan_tile"]["launches"] == launches["scan_tile"] == (
+        1 << 32) // DISPATCH, (families, launches)
+    assert families["rescan_steps"]["launches"] == launches[
+        "rescan_steps"], (families, launches)
+    assert report["device_name"] == bench["device"], report
+    return {"ledger_id": manifest["ledger_id"],
+            "artifacts": sorted(manifest["artifacts"]),
+            "mhs": bench["value"],
+            "mhs_vs_bench_json": bench["value"] / bench_line["value"]
+            if bench_line else None,
+            "window_ms": report["window_ms"],
+            "busy_share": report["device"]["busy_share"],
+            "busy_share_of_span": report["device"]["busy_share_of_span"],
+            "families": families, "gaps": report["device"]["gaps"],
+            "host_annotations": report["host_annotations"]}
 
 
 def validator_parity(pkg, n: int) -> dict:
@@ -4029,10 +4166,11 @@ async def frontend_proxy(pkg) -> dict:
     127.0.0.1:0 --upstream stratum+tcp://POOL --internal-worker --workers
     4`` ← a downstream ``StratumMiner`` as ``--pool stratum+tcp://FRONTEND
     --workers 4`` builds it: two tile hashers on one card. After both have
-    shares they mine :data:`FRONTEND_PROXY_S` s; then, at a moment with no
-    forward in flight, the pool's accepted count must equal the proxy's
-    forwards and upstream accepts. Every share valid at the pool, in one of
-    the two sessions' disjoint slices, none twice."""
+    shares they mine :data:`FRONTEND_PROXY_S` s; then the internal worker
+    stops and the miner's submits are held (:class:`AcceptedWork`), and
+    once every forward is answered the pool's accepted count must equal
+    the proxy's forwards and upstream accepts. Every share valid at the
+    pool, in one of the two sessions' disjoint slices, none twice."""
     pool = pkg.MockStratumPool(difficulty=FRONTEND_DIFFICULTY)
     await pool.start()
     await pool.announce_job(fabric_pool_job(pkg, "proxy-1"))
@@ -4063,6 +4201,7 @@ async def frontend_proxy(pkg) -> dict:
                                        "frontend_proxy_miner_flightrec.json")))
         assert miner.dispatcher.hasher.device.type == "cuda"
         mstats = miner.dispatcher.stats
+        work = AcceptedWork(miner.client)
         mtask = asyncio.create_task(miner.run())
         await until(ftask, lambda: mstats.shares_accepted >= 3
                     and iw.session.accepted >= 3, "3 shares from each",
@@ -4077,22 +4216,32 @@ async def frontend_proxy(pkg) -> dict:
                     >= FRONTEND_PROXY_S, "window", istats.summary,
                     FRONTEND_PROXY_S + 60)
         b = mark()
-        await until(ftask, lambda: proxy.forwarded == proxy.upstream_accepted
-                    + proxy.upstream_rejected == pool_accepted()
-                    + sum(1 for sh in pool.shares if not sh.accepted),
-                    "a moment with no forward in flight",
-                    lambda: (proxy.forwarded, proxy.upstream_accepted,
-                             len(pool.shares)), 30)
-        counts = {"pool_accepted": pool_accepted(),
-                  "pool_rejected": len(pool.shares) - pool_accepted(),
-                  "forwarded": proxy.forwarded,
-                  "upstream_accepted": proxy.upstream_accepted,
-                  "upstream_rejected": proxy.upstream_rejected}
         prefixes = {
             "internal": iw.session.extranonce1[len(pool.extranonce1):],
             "downstream": next(
                 s for s in server.sessions.values()
                 if not s.internal).extranonce1[len(pool.extranonce1):]}
+
+        async def answered() -> dict:
+            await until(ftask, lambda: proxy.forwarded
+                        == proxy.upstream_accepted + proxy.upstream_rejected
+                        == pool_accepted() + sum(
+                            1 for sh in pool.shares if not sh.accepted),
+                        "every forward answered",
+                        lambda: (proxy.forwarded, proxy.upstream_accepted,
+                                 len(pool.shares)), 30)
+            return {"pool_accepted": pool_accepted(),
+                    "pool_rejected": len(pool.shares) - pool_accepted(),
+                    "forwarded": proxy.forwarded,
+                    "upstream_accepted": proxy.upstream_accepted,
+                    "upstream_rejected": proxy.upstream_rejected}
+
+        # The internal worker stops and the downstream miner's new submits
+        # are held, both sessions open, while the counts are read: at
+        # hundreds of shares a second a moment with no forward in flight
+        # may not come while both mine.
+        iw.dispatcher.stop()
+        counts = await work.settled(answered)
     finally:
         if miner is not None:
             miner.stop()

@@ -5,8 +5,9 @@ validate the same or raise the same ``LedgerError``s; the reference's
 read-only, load through both loaders to the same rows, keys and
 trajectories; the same seeded rows give the same gate verdicts and
 reports; a row either package appends loads in the other. The port's
-fingerprint names torch and the card, never JAX; ``perf capture`` is
-refused with its reason; every ledger of these tests is in ``tmp_path``."""
+fingerprint names torch and the card, never JAX; ``perf capture`` refuses,
+with its reason, a bench option it sets itself (``test_torch_trace_report.py``
+runs it); every ledger of these tests is in ``tmp_path``."""
 
 import hashlib
 import io
@@ -320,13 +321,18 @@ def test_the_proxy_sweep_verifies_its_hits():
         port_perf_cli.PROXY_SWEEP_BATCH)
 
 
-@pytest.mark.parametrize("argv", [["capture"],
-                                  ["capture", "--out", "x", "--", "-v"]])
+@pytest.mark.parametrize("argv", [
+    ["capture", "--out", "{x}", "--", "--profile", "{x}"],
+    ["capture", "--out", "{x}", "--", "--sweep-bits", "12", "--ledger={x}"]])
 def test_capture_is_refused_with_its_reason(argv, tmp_path, capsys):
-    rc, out, err = _perf(argv, capsys)
+    x = os.path.join(str(tmp_path), "x")
+    rc, out, err = _perf([a.replace("{x}", x) for a in argv], capsys)
     assert rc == 2 and not out
-    assert "perf capture is not available" in err and "bench.py" in err
-    assert not os.path.exists(os.path.join(str(tmp_path), "x"))
+    assert "perf capture sets --profile, --trace-out, --ledger" in err
+    flag = next(a.split("=")[0] for a in argv
+                if a.split("=")[0] in port_perf_cli.CAPTURE_SETS)
+    assert "refused: " + flag in err
+    assert not os.path.exists(x)
 
 
 def test_perf_needs_a_subcommand(capsys):
