@@ -1418,9 +1418,12 @@ def cmd_session(miner, args: argparse.Namespace) -> int:
     return 0
 
 
-#: Subcommands, given as the first argument: each operates on evidence
-#: files or a status surface, not a backend, so no mining flag applies.
+#: Subcommands, given as the first argument: each operates on source
+#: trees, evidence files or a status surface, not a backend, so no mining
+#: flag applies. ``python -m`` dispatches ``lint`` before this module is
+#: imported (``__main__.py``), so that process never loads torch.
 SUBCOMMANDS = {
+    "lint": ("analysis", "main"),
     "perf": ("perf_cli", "main"),
     "slo": ("telemetry.slo", "main"),
     "top": ("telemetry.dashboard", "top_main"),

@@ -645,10 +645,11 @@ class _StreamSession:
         self.req_q[i] = None
 
     # ------------------------------------------------------- assignment
-    def _assign(self, seq: int) -> None:
+    def _assign(self, seq: int) -> int:
         """Request ``seq`` to a child: a quarantined child due for its
         probe takes it as the probe, else the stride pick. With no child
-        left the fleet is dead: raise the aggregate."""
+        left the fleet is dead: raise the aggregate. Returns the child's
+        index."""
         sup = self.sup
         now = sup._clock()
         st: Optional[ChildState] = None
@@ -676,6 +677,7 @@ class _StreamSession:
             # depth + 1 arrive), and an assignment during a drain missed
             # the broadcast flush: either way the ring must give it back.
             q.put(STREAM_FLUSH)
+        return i
 
     def _reclaim(self, i: int, reason: str) -> None:
         """Everything child ``i`` held, assigned but unanswered, to the
@@ -693,8 +695,15 @@ class _StreamSession:
             "fleet_reclaim", child=sup.chip_labels[i], reason=reason,
             requests=len(seqs),
             nonce_starts=[self.pending[s].nonce_start for s in seqs[:8]])
-        for seq in seqs:
-            self._assign(seq)
+        takers = {self._assign(seq) for seq in seqs}
+        # The reclaimed requests are the oldest outstanding, so the
+        # reorder buffer waits on them: a ring child that took them below
+        # its emit threshold would hold them, while no newer request
+        # comes, until the hang detector took it for hung. Flush them out.
+        for j in takers:
+            q = self.req_q[j]
+            if q is not None:
+                q.put(STREAM_FLUSH)
 
     def _fail_child(self, i: int, reason: str,
                     error: Optional[BaseException]) -> None:

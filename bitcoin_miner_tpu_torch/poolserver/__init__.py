@@ -5,6 +5,8 @@ the server's own slice, and its sharded form: N acceptor processes on one
 port, each over a static range of the prefix space (``shard.py``).
 Counterpart of ``bitcoin_miner_tpu/poolserver``."""
 
+# miner-lint: import-safe
+
 from .jobs import (
     FabricUpstreamProxy,
     FrontendJob,

@@ -18,6 +18,8 @@ kinds of source feed the server:
   meets the upstream target is forwarded with that mapping, unhashed.
 """
 
+# miner-lint: import-safe
+
 from __future__ import annotations
 
 import asyncio

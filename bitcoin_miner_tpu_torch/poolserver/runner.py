@@ -6,6 +6,8 @@ Counterpart of ``bitcoin_miner_tpu/poolserver/runner.py``, with the
 drives for every session mode.
 """
 
+# miner-lint: import-safe
+
 from __future__ import annotations
 
 import asyncio

@@ -36,6 +36,8 @@ socket is dropped, not drained), and work spawned off a read loop is
 tracked and cancelled on disconnect.
 """
 
+# miner-lint: import-safe
+
 from __future__ import annotations
 
 import asyncio
@@ -508,6 +510,7 @@ class StratumPoolServer:
                 time.perf_counter() - t0
             )
 
+    # miner-lint: sync-hot-path
     def _push(self, session: ClientSession, line: bytes) -> None:
         """Write one line to a session without awaiting: the transport
         buffers it, and a session whose unread backlog passes
@@ -668,6 +671,7 @@ class StratumPoolServer:
         )
 
     # ------------------------------------------------------------ dispatch
+    # miner-lint: sync-hot-path
     def _dispatch(
         self, session: ClientSession, msg: dict
     ):

@@ -32,6 +32,8 @@ child's import path imports ``torch`` (and so this module imports
 nothing of ``cli``): a child starts in about a second.
 """
 
+# miner-lint: import-safe
+
 from __future__ import annotations
 
 import asyncio

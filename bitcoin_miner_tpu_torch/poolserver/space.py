@@ -16,6 +16,8 @@ static sub-ranges, a pure function of ``(range, n, i)``, for acceptor
 processes that share one listen port.
 """
 
+# miner-lint: import-safe
+
 from __future__ import annotations
 
 import heapq

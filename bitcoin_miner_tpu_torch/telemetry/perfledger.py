@@ -43,6 +43,7 @@ from typing import (
     Optional,
     Sequence,
     TextIO,
+    Tuple,
     Union,
 )
 
@@ -273,6 +274,38 @@ def _card() -> Optional[str]:
     return lines[0].strip() if out.returncode == 0 and lines else None
 
 
+def _torch_build() -> Tuple[Optional[str], Optional[str]]:
+    """torch's version and the CUDA version it was built for, without
+    importing torch: from the loaded module where this process has one,
+    else from the installed ``torch/version.py``. Host tooling that
+    stamps rows (``perf record``, the load probe) never loads torch."""
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        return str(torch.__version__), torch.version.cuda
+    import ast
+    import importlib.util
+
+    spec = importlib.util.find_spec("torch")
+    if spec is None or not spec.submodule_search_locations:
+        return None, None
+    facts: Dict = {}
+    path = os.path.join(list(spec.submodule_search_locations)[0],
+                        "version.py")
+    try:
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+    except (OSError, SyntaxError):
+        return None, None
+    for node in tree.body:
+        target = (node.targets[0] if isinstance(node, ast.Assign)
+                  else node.target if isinstance(node, ast.AnnAssign)
+                  else None)
+        if isinstance(target, ast.Name) and isinstance(node.value,
+                                                       ast.Constant):
+            facts[target.id] = node.value.value
+    return facts.get("__version__"), facts.get("cuda")
+
+
 def env_fingerprint(platform: Optional[str] = None) -> Dict:
     """The environment a measurement ran under: enough to decide later
     whether two numbers are comparable and, when they aren't, why.
@@ -283,20 +316,26 @@ def env_fingerprint(platform: Optional[str] = None) -> Dict:
     no JAX or TPU library, so a TPU row of the reference never shares a
     fingerprint with a card row. ``platform`` is declared by the caller,
     who knows what it ran on; by default ``cuda`` where torch sees a
-    card, else ``cpu``. The reference's relay probe has no counterpart:
-    this package has no relay."""
+    card (a process without torch loaded: where the build has CUDA and
+    ``nvidia-smi`` names a card), else ``cpu``. It never imports torch.
+    The reference's relay probe has no counterpart: this package has no
+    relay."""
     import platform as platform_mod
     import socket
 
-    import torch
-
+    version, cuda = _torch_build()
+    card = _card()
+    if platform is None:
+        torch = sys.modules.get("torch")
+        on_card = (torch.cuda.is_available() if torch is not None
+                   else cuda is not None and card is not None)
+        platform = "cuda" if on_card else "cpu"
     fp: Dict = {
         "python": platform_mod.python_version(),
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "card": _card(),
-        "platform": platform or (
-            "cuda" if torch.cuda.is_available() else "cpu"),
+        "torch": version,
+        "cuda": cuda,
+        "card": card,
+        "platform": platform,
         "host": socket.gethostname(),
         "git_rev": _git_rev(),
     }

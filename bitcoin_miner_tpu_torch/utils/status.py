@@ -336,7 +336,7 @@ def serve_status_in_thread(server: StatusServer) -> Callable[[], None]:
     thread.start()
     started.wait(timeout=10.0)
     if error:
-        raise error[0]
+        raise error[0]  # miner-lint: disable=first-error-wins -- one loop thread, one start() attempt: at most one entry, not a parallel collect
 
     def stop() -> None:
         try:

@@ -9,6 +9,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    tile kernel's layouts it drives), printing ptxas' registers, spills and
    shared memory, the SASS shared-memory stores and loads, and the blocks
    per SM of every tile library;
+1b. runs miner-lint as a gate runs it, ``python -m bitcoin_miner_tpu_torch
+   lint --json --baseline bitcoin_miner_tpu_torch/analysis/
+   lint_baseline.json`` in a child from the checkout's root (host work
+   only; ``miner_lint``): rc 0, no finding beyond the empty baseline,
+   more than 50 files scanned, the 16 rules of ``--list-rules``, and, in
+   a second child running the same lint, neither torch nor jax loaded
+   (the lint's own ``device-claiming-import`` holds the port's boundary:
+   no file of the package or of these scripts imports jax or the JAX
+   package);
 2. holds every kernel against its plain PyTorch version on the card at the
    main path's shapes (2^24-nonce dispatches, the genesis job, a limit
    that cuts a step, a base near 2^32, a hit-buffer overflow), the tile
@@ -336,6 +345,29 @@ NTIME_ROLL = 15
 JOB_PAUSE_S = 0.25
 #: seconds a bench child may take (its libraries are built by then).
 BENCH_TIMEOUT_S = 300
+#: miner_lint: the repo's findings ratchet and the lint's rules (the 15
+#: per-file rules and the project rule ``metric-doc-drift``).
+LINT_BASELINE = "bitcoin_miner_tpu_torch/analysis/lint_baseline.json"
+LINT_RULES = (
+    "await-state-snapshot", "blocking-in-async", "device-claiming-import",
+    "first-error-wins", "lock-across-await", "lock-order-cycle",
+    "metric-doc-drift", "metric-vocabulary", "signal-handler-safety",
+    "spawn-unpicklable", "swallowed-cancel", "sync-hot-path-await",
+    "thread-discipline", "unbounded-metric-labels",
+    "unbounded-per-connection-task", "unjittered-retry-loop")
+#: miner_lint's second child: the same lint in a process that then says
+#: which of torch and jax it loaded.
+LINT_MODULES_CODE = """\
+import json, runpy, sys
+sys.argv = ["bitcoin_miner_tpu_torch", "lint", "--baseline", sys.argv[1]]
+rc = None
+try:
+    runpy.run_module("bitcoin_miner_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "torch": "torch" in sys.modules,
+                  "jax": "jax" in sys.modules}))
+"""
 
 
 @functools.cache
@@ -527,6 +559,52 @@ def nvidia_smi(query: str, units: bool = True) -> str:
         ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0].strip()
+
+
+def miner_lint() -> dict:
+    """Phase 1b: the port's miner-lint over its default roots, in two
+    children started together from the checkout's root (see the module's
+    docstring), and ``--list-rules``. Host work only: it needs no card,
+    and runs the same on a machine without one."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    lint = [sys.executable, "-m", "bitcoin_miner_tpu_torch", "lint"]
+    t0 = time.perf_counter()
+    gate = subprocess.Popen(lint + ["--json", "--baseline", LINT_BASELINE],
+                            cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    loaded = subprocess.Popen(
+        [sys.executable, "-c", LINT_MODULES_CODE, LINT_BASELINE], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        table = subprocess.run(lint + ["--list-rules"], cwd=root,
+                               capture_output=True, text=True, timeout=120)
+        out, err = gate.communicate(timeout=120)
+        mods_out, mods_err = loaded.communicate(timeout=120)
+    finally:
+        for proc in (gate, loaded):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    assert gate.returncode == 0, (gate.returncode, out[-2000:], err[-2000:])
+    doc = json.loads(out)
+    assert doc["schema"] == "tpu-miner-lint/1", doc["schema"]
+    assert doc["baseline"]["new"] == 0 and not doc["baseline"]["stale"], (
+        doc["baseline"], doc["findings"][:5])
+    assert doc["files_scanned"] > 50, doc["files_scanned"]
+    assert table.returncode == 0, table.stderr[-2000:]
+    rules = sorted(line.split()[0] for line in table.stdout.splitlines()
+                   if line.strip())
+    assert rules == sorted(LINT_RULES), rules
+    assert loaded.returncode == 0, (loaded.returncode, mods_err[-2000:])
+    modules = json.loads(mods_out.strip().splitlines()[-1])
+    assert modules == {"rc": 0, "torch": False, "jax": False}, modules
+    return {"lint_seconds": round(seconds, 3),
+            "duration_s": doc["duration_s"],
+            "files_scanned": doc["files_scanned"],
+            "findings": len(doc["findings"]),
+            "tracked": doc["baseline"]["tracked"], "rules": len(rules),
+            "torch_loaded": modules["torch"], "jax_loaded": modules["jax"]}
 
 
 class Smoke:
@@ -2375,6 +2453,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return {"card": name_power, "rows": rows}
 
     s.phase("device_and_build", device_and_build)
+    s.phase("miner_lint", miner_lint)
     if s.failed:
         return s.report_failures()
     if mesh_only:
@@ -4388,7 +4467,8 @@ class Frontend:
     [--serve-shards N]`` as a user runs it, in a process of its own (its
     shards are spawned children of that process), its log in
     :func:`out_dir`. The smoke never builds the supervisor in its own
-    process: ``spawn`` would run this script again in every child."""
+    process: ``spawn`` would run this script again in every child. The
+    phases build it with ``asyncio.to_thread``: ``Popen`` blocks."""
 
     def __init__(self, pkg, shards: int, difficulty: float) -> None:
         self.pkg = pkg
@@ -4620,7 +4700,8 @@ async def frontend_shards(pkg, tile_ms: float) -> tuple:
     each child's validator. Then it SIGKILLs that shard
     (:func:`shard_kill`). Returns (session, kill); kill is the exception
     that failed it, if one did."""
-    frontend = Frontend(pkg, SHARDS, FRONTEND_DIFFICULTY)
+    frontend = await asyncio.to_thread(
+        Frontend, pkg, SHARDS, FRONTEND_DIFFICULTY)
     tel = pkg.pipeline.set_telemetry(pkg.pipeline.PipelineTelemetry())
     miner = task = None
     try:
@@ -4899,7 +4980,8 @@ async def shard_load(pkg) -> dict:
     side spent per validated share."""
     rows = {}
     for n in SHARD_LOAD_COUNTS:
-        frontend = Frontend(pkg, n, SHARD_LOAD_DIFFICULTY)
+        frontend = await asyncio.to_thread(
+            Frontend, pkg, n, SHARD_LOAD_DIFFICULTY)
         try:
             view = await frontend.ready()
             acceptors = ([s["pid"] for s in view] if view

@@ -187,6 +187,33 @@ def test_the_fingerprint_names_torch_never_jax():
     assert port_ledger.env_fingerprint(platform="gpu")["platform"] == "gpu"
 
 
+def test_the_fingerprint_loads_no_torch():
+    """A host tool that stamps a row (``perf record``, the load probe)
+    reads torch's version and CUDA build without importing torch: the
+    same facts as a process that loaded it."""
+    import subprocess
+    import sys
+
+    import torch
+
+    code = (
+        "import json, sys\n"
+        "from bitcoin_miner_tpu_torch.telemetry.perfledger import "
+        "env_fingerprint\n"
+        "print(json.dumps([env_fingerprint(), 'torch' in sys.modules]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    fp, loaded = json.loads(out.stdout)
+    assert not loaded
+    assert fp["torch"] == torch.__version__
+    assert fp.get("cuda") == torch.version.cuda
+    assert fp["platform"] == ("cuda" if torch.cuda.is_available() else "cpu")
+    assert {k: v for k, v in port_ledger.env_fingerprint().items()
+            if k not in ("card",)} == {k: v for k, v in fp.items()
+                                       if k not in ("card",)}
+
+
 def test_the_fingerprint_carries_the_card(monkeypatch):
     """Where ``nvidia-smi`` answers, its name and power limit go in."""
     import subprocess

@@ -12,8 +12,10 @@ validating pool accepts."""
 
 import asyncio
 import json
+import queue
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -304,6 +306,79 @@ class TestRingChildren:
             st.latencies.extend([0.01] * 8)
         assert_oracle_exact(list(fleet.scan_stream(iter(requests(30)))))
         assert all(s.quarantines == 0 for s in fleet.states)
+
+
+    @pytest.mark.parametrize("depth", [1, 2])
+    def test_reclaimed_requests_are_flushed_out_of_a_survivor_ring(
+            self, depth):
+        """A dead worker's requests, and each failed half-open probe's, go
+        to the survivor, whose ring holds them below its emit threshold
+        while the dispatcher, its window full, sends nothing newer. The
+        reclaim flushes them out; the reference's (and this package's
+        before) left them there until the hang detector quarantined the
+        survivor too (depth 1), or the whole fleet (depth 2)."""
+        survivor = RingChild(depth)
+        dead = GoneRingChild(depth, answered=2, surfaces_after_s=0.3)
+        fleet = FleetSupervisor([survivor, dead], stall_after_s=2.0,
+                                quarantine_base_s=0.05, quarantine_cap_s=0.2)
+        out = windowed_stream(fleet, requests(40), fleet.stream_depth + 1)
+        assert_oracle_exact(out)
+        assert fleet.states[0].quarantines == 0
+        assert fleet.states[1].quarantines >= 2  # its probes failed too
+
+
+class GoneRingChild(RingChild):
+    """A ring child that answers ``answered`` requests of its first stream
+    and is then gone: each stream fails ``surfaces_after_s`` after its
+    next request, as a killed worker's stream (and each probe of it)
+    surfaces once the client's unavailability deadline passes."""
+
+    def __init__(self, depth, answered, surfaces_after_s):
+        super().__init__(depth)
+        self.budget = answered
+        self.surfaces_after_s = surfaces_after_s
+
+    def scan_stream(self, reqs):
+        budget, self.budget = self.budget, 0
+
+        def until_gone():
+            n = 0
+            for req in reqs:
+                if req is not STREAM_FLUSH:
+                    n += 1
+                    if n > budget:
+                        time.sleep(self.surfaces_after_s)
+                        raise ConnectionError("worker unavailable")
+                yield req
+
+        yield from super().scan_stream(until_gone())
+
+
+def windowed_stream(fleet, reqs, window):
+    """``fleet.scan_stream`` fed as the dispatcher feeds it: from another
+    thread, at most ``window`` requests ahead of the results consumed."""
+    fed: "queue.SimpleQueue" = queue.SimpleQueue()
+    slots = threading.Semaphore(window)
+
+    def feeder():
+        for req in reqs:
+            slots.acquire()
+            fed.put(req)
+        fed.put(None)
+
+    def source():
+        while (req := fed.get()) is not None:
+            yield req
+
+    thread = threading.Thread(target=feeder, name="test-feeder", daemon=True)
+    thread.start()
+    out = []
+    for res in fleet.scan_stream(source()):
+        out.append(res)
+        slots.release()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+    return out
 
 
 class TestCapacityWeights:
