@@ -1423,6 +1423,7 @@ def cmd_session(miner, args: argparse.Namespace) -> int:
 #: flag applies. ``python -m`` dispatches ``lint`` before this module is
 #: imported (``__main__.py``), so that process never loads torch.
 SUBCOMMANDS = {
+    "frontier": ("probes.frontier", "main"),
     "lint": ("analysis", "main"),
     "perf": ("perf_cli", "main"),
     "slo": ("telemetry.slo", "main"),

@@ -155,6 +155,19 @@ def tile_library(vshare: int, variant: str = "baseline", cgroup: int = 0,
                          INTERLEAVE=interleave, **form)
 
 
+def driven_layouts() -> List[Tuple[int, str, int, int]]:
+    """The layouts beyond each K's baseline that the chip smoke test builds
+    and drives, and the bulk parity gate and the layout ranker with it, as
+    (K, variant, cgroup, interleave): each variant but the baseline at K =
+    1, 2, 4, 8 with its default chain passes; chain passes of 2 at K = 4;
+    two nonces in flight at K = 2."""
+    return ([(k, v, 0, 1) for v in VARIANTS[1:] for k in (1, 2, 4, 8)]
+            + [(4, v, 2, 1) for v in ("baseline", "wsplit", "wstage",
+                                      "vroll")]
+            + [(2, v, 0, 2) for v in ("regchain", "wstage", "vroll",
+                                      "vroll-db")])
+
+
 def job_words(header76: bytes, target: int,
               versions: Optional[Sequence[int]] = None) -> np.ndarray:
     """The 16k+11 per-job words of the job block (everything but

@@ -23,6 +23,7 @@ dispatch.
 
 from __future__ import annotations
 
+import functools
 import os
 import re
 import subprocess
@@ -30,6 +31,7 @@ from collections import Counter
 from typing import Dict, List, NamedTuple, Optional
 
 from ..ops import csrc
+from . import ptxas
 
 PIPES = ("alu", "fma", "other")
 _ALU = frozenset((
@@ -141,20 +143,20 @@ def cuobjdump() -> str:
 
 
 def listing(path) -> str:
-    """``cuobjdump -sass`` of a built library."""
-    return subprocess.run([cuobjdump(), "-sass", str(path)], check=True,
+    """``cuobjdump -sass`` of a built library (its name carries a digest of
+    its sources and flags, so a process lists each library once)."""
+    return _listing(str(path))
+
+
+@functools.lru_cache(maxsize=None)
+def _listing(path: str) -> str:
+    return subprocess.run([cuobjdump(), "-sass", path], check=True,
                           capture_output=True, text=True, timeout=300).stdout
 
 
 def ptxas_registers(log: str) -> Dict[str, int]:
-    """Registers per kernel (mangled name) in a ``-Xptxas -v`` build log."""
-    out: Dict[str, int] = {}
-    kernel = None
-    for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", line)
-        if entry:
-            kernel = entry.group(1)
-        regs = re.search(r"Used (\d+) registers", line)
-        if kernel is not None and regs:
-            out[kernel] = int(regs.group(1))
-    return out
+    """Registers per kernel (mangled name) in a ``-Xptxas -v`` build log
+    (:func:`.ptxas.entries`)."""
+    return {name: fields["registers"]
+            for name, fields in ptxas.entries(log).items()
+            if "registers" in fields}

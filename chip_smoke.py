@@ -114,8 +114,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    stratum+tcp://B --pool gbt+http://N --workers 4 --status-port P
    --health-interval 1`` with the routing defaults (10 s quanta, stall
    bound and request timeout): two chaos pools at difficulty 1 and the
-   fake node at regtest's nbits; after 25 s A goes mute (a half-open
-   socket) wherever the dispatcher is and the session mines 30 s more,
+   fake node at regtest's nbits; after 5 s A goes mute (a half-open
+   socket) wherever the dispatcher is and the session mines 10 s more,
    printing what that leads to (A's state, failovers, seconds without a
    launch); then a second session in which A goes mute once it owns the
    dispatcher with its shares flowing and keeps it for the next quantum.
@@ -138,7 +138,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    --serve-difficulty 0.00390625 --serve-job-interval 5 --workers 4
    --status-port P`` through ``cli.run_session`` (local templates, the
    tile kernel on the card): ≥ 100 shares accepted by its own frontend
-   over a 20 s window, none invalid, no hardware error, the native
+   over a 10 s window, none invalid, no hardware error, the native
    validator in force; its rate against ``stratum_session_telemetry``'s,
    the validation quantiles, ``/healthz``'s ``frontend`` component and
    the three frontend objectives of ``/slo``; then 256 downstream
@@ -146,7 +146,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    broadcast's p99 and the internal rate under that load
    (``frontend_internal_worker``); the mock pool ← ``--upstream``
    frontend with its internal worker ← a downstream ``StratumMiner`` on
-   the same card, 10 s: every share valid at the pool, its accepted
+   the same card, 5 s: every share valid at the pool, its accepted
    count equal to the proxy's forwards and upstream accepts, the two
    prefixes disjoint, both rates and their sum against the single
    session's (``frontend_proxy_session``); two mock pools behind the
@@ -159,7 +159,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    processes on one ``SO_REUSEPORT`` port, local templates, each child
    probing the native validator), mined by one ``cuda-tile`` miner as
    ``--pool stratum+tcp://127.0.0.1:PORT --workers 4`` builds it, for
-   10 s: its rate against ``stratum_session_telemetry``'s, the verdicts
+   5 s: its rate against ``stratum_session_telemetry``'s, the verdicts
    of each shard (accepted equal to the miner's with its submits held
    until none is in flight, none invalid or duplicate), its extranonce1 inside its shard's prefix range,
    ``/healthz``'s ``frontend_shard`` ok, the parent's ``/metrics`` with
@@ -175,7 +175,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    stale, and the frontend's accepts since the kill the miner's but for
    the submits in flight at it; ``frontend_shard_kill``); then the load probe (``python -m
    bitcoin_miner_tpu_torch.probes.load_probe --connect``, 4 processes,
-   512 sessions, 25 submits each at difficulty 1e-12) against one
+   512 sessions, 15 submits each at difficulty 1e-12) against one
    process and against 4 shards: validated shares a second (all
    the probes' shares over the union of their submit windows), the
    sessions per shard, every extranonce1 unique and no share invalid,
@@ -214,9 +214,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``ops_per_nonce``) and the bound of those instructions at the same peak
    rates (``sass_bound_ms``).
 
+12. runs the bulk parity gate (``probes.parity.run_gate``) in this
+   process at 2^20 hashes a leg: the ``scan`` hit sets of ``CudaHasher``
+   and ``TileCudaHasher`` (every layout and compile form at K=1) against
+   the native oracle at target 2^248, the hit-buffer kernel's and the tile
+   kernel's word7 candidates against hashlib, and the sibling chains at K
+   = 2, 4, 8 in every layout built there; zero mismatches, every library
+   it names launched (``bulk_parity``); ranks the layouts with ``python
+   -m bitcoin_miner_tpu_torch frontier`` on the card (≥ 20 candidates,
+   nvcc's ptxas and SASS, the top 10), times its top 3 through the
+   tuner's worker over 2^28 genesis nonces, each finding the nonce, and
+   prints the rank correlation of its predictions with ``timings``' times
+   at K = 1, 2, 4, 8 and the model's constants fitted to them
+   (``layout_frontier``); runs ``python -m bitcoin_miner_tpu_torch.
+   probes.tune --limit 4`` at 2^26 nonces in its child processes, every
+   row ok (``tune_sweep``). The gate's and the ranker's launches check
+   kernels: they are not the main path's and are not counted there.
+
 With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
 (on a machine with several cards, where the shards are the cards).
+With ``--phases NAME[,NAME...]`` it runs ``device_and_build`` and the
+named phases (:data:`PHASES`) in the smoke's order, with every phase
+they need (:data:`PHASE_NEEDS`: ``timings`` the phases whose plain
+versions it times, ``layout_frontier`` ``timings``), the same checks and
+the same last line; the main path's never-launched check and the kernel
+table need every phase and are left out. An unknown name exits 2 with
+the list of phases. Before its last lines every run prints its seconds
+against its 1200 s budget and its five longest phases
+(``smoke_seconds``, ``budget_s``, ``longest``).
 
 Phases 3 to 7f (but for the load probe, host work with no kernel), 9's
 sweeps, session and ladder, and 10's probe run are the main path (the
@@ -300,13 +326,17 @@ OBS_FAST_WINDOW, OBS_SLOW_WINDOW = 4, 12
 #: the next 10 s quantum (so that A still owns it when the 10 s stall
 #: bound passes: a stall is a failover only for the slot that owns the
 #: dispatcher, and after a GBT quantum at regtest A's shares take ~20 s
-#: to flow), and seconds mined after the mute; fabric_session_vshare's
-#: seconds.
+#: to flow), and seconds mined after the mute (at least: the session held
+#: to a failover mines on until it happens, ~17 s after the mute);
+#: fabric_session_vshare's seconds (at least: it mines on until each slot
+#: has owned the dispatcher). These fixed windows were 25 s, 30 s and 20 s
+#: until the smoke took the bulk parity gate, the ranker and the tuner
+#: into its time limit.
 FABRIC_DIFFICULTY = 1.0
-FABRIC_PRE_MUTE_S = 25.0
+FABRIC_PRE_MUTE_S = 5.0
 FABRIC_WAIT_ACTIVE_S = 120.0
-FABRIC_POST_MUTE_S = 30.0
-FABRIC_VSHARE_S = 20.0
+FABRIC_POST_MUTE_S = 10.0
+FABRIC_VSHARE_S = 10.0
 OBS_OBJECTIVES = {"schema": "tpu-miner-slo-objectives/1", "objectives": [
     {"name": "submit-rtt-1us", "kind": "latency", "target": 0.99,
      "threshold_s": 1e-6, "signal": "tpu_miner_submit_rtt_seconds",
@@ -318,24 +348,28 @@ REMOVED_KERNELS = ("shard_min", "hitbuf_compact")
 #: at the card's rate), the internal worker's measured window, the
 #: downstream sessions that load the event loop and for how long, the
 #: proxy sessions' window, and the seeded submits held against both
-#: validators.
+#: validators. The two windows were 20 s and 10 s until the smoke took
+#: the bulk parity gate, the ranker and the tuner into its time limit.
 FRONTEND_DIFFICULTY = 1 / 256
-FRONTEND_WINDOW_S = 20.0
+FRONTEND_WINDOW_S = 10.0
 FRONTEND_CLIENTS = 256
 FRONTEND_LOAD_S = 10
-FRONTEND_PROXY_S = 10.0
+FRONTEND_PROXY_S = 5.0
 NATIVE_SUBMITS = 2000
 #: The sharded frontend's phases: the shards of the card-mined session and
 #: its measured window; the load probe's shard counts, its sessions split
 #: over its processes, each session's submits (enough that every process
 #: submits for seconds, so that the processes' rates overlap and sum) at
-#: a difficulty every hash meets.
+#: a difficulty every hash meets. The window was 10 s, and 25 submits a
+#: session, until the smoke took the bulk parity gate, the ranker and the
+#: tuner into its time limit (fewer submits weigh the sessions' set-up
+#: more: the shares a second read lower).
 SHARDS = 2
-SHARD_WINDOW_S = 10.0
+SHARD_WINDOW_S = 5.0
 SHARD_LOAD_COUNTS = (1, 4)
 SHARD_LOAD_SESSIONS = 512
 SHARD_LOAD_PROBES = 4
-SHARD_LOAD_SHARES = 25
+SHARD_LOAD_SHARES = 15
 SHARD_LOAD_DIFFICULTY = 1e-12
 #: ntime passes of the telemetry session's job: (NTIME_ROLL + 1) × 2^32
 #: nonces, ~10 s at the session's rate, outlast the 3 shares and the
@@ -368,6 +402,125 @@ except SystemExit as e:
 print(json.dumps({"rc": rc, "torch": "torch" in sys.modules,
                   "jax": "jax" in sys.modules}))
 """
+
+
+#: bulk_parity: log2 hashes a leg (the gate's default, ~10^6) and leg D's
+#: chain counts.
+PARITY_BITS = 20
+PARITY_KS = (2, 4, 8)
+#: tune_sweep: configurations of each backend's grid, and log2 nonces
+#: timed per configuration.
+TUNE_CONFIGS = 4
+TUNE_BITS = 26
+#: The smoke's seconds: the time limit it runs under with no option.
+BUDGET_S = 1200
+#: Every phase, in the order the smoke runs them. ``device_and_build``
+#: runs first in every run; ``--phases`` picks the others
+#: (:func:`phase_closure`).
+PHASES = (
+    "device_and_build", "miner_lint", "kernels_vs_plain",
+    "variants_vs_plain", "genesis_sweep", "stratum_session",
+    "cuda_backend_window", "genesis_sweep_vshare",
+    "cuda_backend_window_vshare", "stratum_session_vshare",
+    "stratum_session_degraded", "genesis_sweep_variants",
+    "stratum_session_variant", "easy_target_scan", "gbt_session",
+    "getwork_session", "stratum_session_failover",
+    "stratum_session_telemetry", "genesis_sweep_batch3x",
+    "telemetry_overhead", "dispatcher_sweep", "stratum_session_observatory",
+    "perf_cli_roundtrip", "bench_json", "perf_capture", "fabric_session",
+    "fabric_session_vshare", "native_oracle", "frontend_internal_worker",
+    "frontend_proxy_session", "frontend_fabric_proxy",
+    "frontend_shards_session", "frontend_shard_kill",
+    "frontend_shards_load", "fleet_sweep_reclaim", "served_hasher_session",
+    "grpc_fleet_session", "served_worker_federation", "lowest_vs_plain",
+    "forms_vs_plain", "genesis_sweep_forms", "int_probe_vs_plain",
+    "int_probe", "mesh_vs_single", "genesis_sweep_mesh",
+    "genesis_sweep_fanout", "stratum_session_mesh_native",
+    "mesh_native_ladder", "timings", "bulk_parity", "layout_frontier",
+    "tune_sweep",
+)
+#: Phases that read what other phases left behind (the plain versions'
+#: outputs, a rate to compare with, a session's rows), and those phases.
+PHASE_NEEDS = {
+    "variants_vs_plain": ("kernels_vs_plain",),
+    "forms_vs_plain": ("kernels_vs_plain",),
+    "fleet_sweep_reclaim": ("genesis_sweep", "cuda_backend_window"),
+    "served_hasher_session": ("stratum_session",),
+    "dispatcher_sweep": ("genesis_sweep",),
+    "perf_cli_roundtrip": ("dispatcher_sweep",),
+    "bench_json": ("genesis_sweep",),
+    "perf_capture": ("bench_json",),
+    "stratum_session_observatory": ("stratum_session_telemetry",),
+    "fabric_session": ("stratum_session_telemetry",),
+    "frontend_shard_kill": ("frontend_shards_session",),
+    "genesis_sweep_mesh": ("genesis_sweep", "genesis_sweep_vshare"),
+    "genesis_sweep_fanout": ("genesis_sweep",),
+    "timings": ("kernels_vs_plain", "int_probe_vs_plain", "int_probe"),
+    "layout_frontier": ("timings",),
+}
+#: Phases that serve a worker over gRPC: they run where grpcio is
+#: installed, and are reported as not run elsewhere.
+GRPC_PHASES = ("served_hasher_session", "grpc_fleet_session",
+               "served_worker_federation")
+#: The multi-device phases (printed after the shards they run over).
+MESH_PHASES = ("mesh_vs_single", "genesis_sweep_mesh",
+               "genesis_sweep_fanout", "stratum_session_mesh_native",
+               "mesh_native_ladder")
+
+
+def phase_closure(names) -> list:
+    """The phases a run of ``names`` runs, in the smoke's order:
+    ``device_and_build``, the named phases and every phase they need
+    (:data:`PHASE_NEEDS`), transitively. Raises ValueError naming the
+    unknown names and listing :data:`PHASES`."""
+    names = list(names)
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        raise ValueError(f"unknown phase(s) {', '.join(unknown)}; the "
+                         f"phases are: {', '.join(PHASES)}")
+    want = {"device_and_build"}
+    todo = list(names)
+    while todo:
+        name = todo.pop()
+        if name not in want:
+            want.add(name)
+            todo.extend(PHASE_NEEDS.get(name, ()))
+    return [name for name in PHASES if name in want]
+
+
+def parse_options(argv: list) -> dict:
+    """``--mesh-only``, ``--phases NAME[,NAME...]``: the phases to run
+    (None: all of them). Raises ValueError on an unknown option or phase,
+    or on both options together."""
+    out = {"mesh_only": False, "phases": None}
+    args = list(argv)
+    while args:
+        arg = args.pop(0)
+        if arg == "--mesh-only":
+            out["mesh_only"] = True
+        elif arg == "--phases" or arg.startswith("--phases="):
+            value = arg.partition("=")[2] if "=" in arg else (
+                args.pop(0) if args else "")
+            names = [n.strip() for n in value.split(",") if n.strip()]
+            if not names:
+                raise ValueError("--phases needs NAME[,NAME...]; the phases "
+                                 f"are: {', '.join(PHASES)}")
+            out["phases"] = phase_closure(names)
+        else:
+            raise ValueError(f"unknown option {arg!r}; use --phases "
+                             "NAME[,NAME...] or --mesh-only")
+    if out["mesh_only"] and out["phases"] is not None:
+        raise ValueError("--mesh-only and --phases do not combine")
+    return out
+
+
+def budget_line(seconds: dict, smoke_seconds: float) -> dict:
+    """The run's seconds against :data:`BUDGET_S`: in all, in its phases,
+    and its five longest phases."""
+    longest = sorted(seconds.items(), key=lambda kv: -kv[1])[:5]
+    return {"smoke_seconds": round(smoke_seconds, 1), "budget_s": BUDGET_S,
+            "phases_seconds": round(sum(seconds.values()), 1),
+            "longest": [[name, round(t, 1)] for name, t in longest]}
 
 
 @functools.cache
@@ -451,68 +604,23 @@ def tile_chains(name: str) -> int:
     return int(k.group(1)) if k else 1
 
 
-def kernel_of(mangled: str) -> tuple:
-    """(kernel, mode) of a mangled kernel name: the ``..._kernel`` function
-    and word7/exact from its ``bool WORD7`` template argument, or the int32
-    probe's ILP from its ``int ILP`` one."""
-    probe = re.search(r"int_probe_kernelILi(\d+)E", mangled)
-    if probe:
-        return "int_probe_kernel", f"ilp{probe.group(1)}"
-    kernel = re.search(r"(scan_tile_(?:param_|staged_)?kernel"
-                       r"|scan_hitbuf_kernel|rescan_steps_kernel)",
-                       mangled).group(1)
-    mode = re.search(r"Lb([01])E", mangled)
-    return kernel, (("word7" if mode.group(1) == "1" else "exact")
-                    if mode else None)
-
-
-def ptxas_table(logs: dict) -> list:
-    """Registers, spill bytes and static shared memory of every kernel in
-    ptxas' ``-v`` logs, one row per library and entry function."""
-    rows = []
-    for lib, log in logs.items():
-        row = None
-        for line in log.splitlines():
-            entry = re.search(r"Compiling entry function '(\S+)'", line)
-            if entry:
-                kernel, mode = kernel_of(entry.group(1))
-                row = {"library": lib, "kernel": kernel, "mode": mode}
-                rows.append(row)
-                continue
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", line)
-            regs = re.search(r"Used (\d+) registers", line)
-            smem = re.search(r"(\d+) bytes smem", line)
-            if row is not None and spill:
-                row["spill_stores"] = int(spill.group(1))
-                row["spill_loads"] = int(spill.group(2))
-            if row is not None and regs:
-                row["registers"] = int(regs.group(1))
-            if row is not None and smem:
-                row["static_smem"] = int(smem.group(1))
-    return rows
-
-
 #: SASS opcodes counted per kernel: shared-memory stores and loads (the
 #: staged plane), global, local (spill) and constant loads.
 SASS_OPS = ("STS", "LDS", "LDG", "STL", "LDL", "LDC", "ULDC")
 
 
-def sass_listings(sass, libraries: dict) -> dict:
+def sass_listings(pkg, libraries: dict) -> dict:
     """Per library (name → path), the ``cuobjdump -sass`` listing's kernels
-    (``sass.functions``, ``sass`` being ``probes.sass``) by ``kernel/mode``;
-    one process per library, all at once."""
-    procs = {name: subprocess.Popen([sass.cuobjdump(), "-sass", str(path)],
-                                    stdout=subprocess.PIPE, text=True)
-             for name, path in libraries.items()}
-    out = {}
-    for name, proc in procs.items():
-        text, _ = proc.communicate(timeout=300)
-        if proc.returncode:
-            raise RuntimeError(f"cuobjdump failed on {name}")
-        out[name] = {"/".join(map(str, kernel_of(fn))): insns
-                     for fn, insns in sass.functions(text).items()}
-    return out
+    (``probes.sass.functions``) by ``kernel/mode``
+    (``probes.ptxas.kernel_of``); one process per library, 16 at once
+    (``probes.sass.listing``, which keeps each listing for the ranker)."""
+    sass = pkg.sass
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        texts = dict(zip(libraries, pool.map(sass.listing,
+                                             libraries.values())))
+    return {name: {"/".join(map(str, pkg.ptxas.kernel_of(fn))): insns
+                   for fn, insns in sass.functions(text).items()}
+            for name, text in texts.items()}
 
 
 def count_ops(kernels: dict) -> dict:
@@ -529,13 +637,9 @@ def count_ops(kernels: dict) -> dict:
 
 def tile_layouts(tile) -> list:
     """The tile kernel's layouts the smoke test drives, as (K, variant,
-    cgroup, interleave) (``tile`` is ``ops.sha256_tile``): each new variant
-    at K = 1, 2, 4, 8 with its default chain passes; chain passes of 2 at
-    K = 4; two nonces in flight at K = 2."""
-    return ([(k, v, 0, 1) for v in tile.VARIANTS[1:] for k in (1, 2, 4, 8)]
-            + [(4, v, 2, 1) for v in ("baseline", "wsplit", "wstage", "vroll")]
-            + [(2, v, 0, 2) for v in ("regchain", "wstage", "vroll",
-                                      "vroll-db")])
+    cgroup, interleave) (``tile`` is ``ops.sha256_tile``:
+    ``driven_layouts``)."""
+    return tile.driven_layouts()
 
 
 def tile_occupancy(csrc, name: str) -> dict:
@@ -623,6 +727,8 @@ class Smoke:
         self.rescans: dict = {}
         self.sweep_mhs: dict = {}  # phase -> its sweep rate
         self.sweep_rows: list = []  # dispatcher_sweep's ledger rows
+        self.seconds: dict = {}  # phase -> its seconds
+        self.t0 = time.perf_counter()
         n = torch.cuda.device_count()
         #: the shards of the multi-device phases: every card, or one card
         #: named SHARDS_ON_ONE_CARD times.
@@ -634,9 +740,11 @@ class Smoke:
         t0 = time.perf_counter()
         try:
             out = fn() or {}
+            self.seconds[name] = time.perf_counter() - t0
             emit({"phase": name, "ok": True,
-                  "seconds": round(time.perf_counter() - t0, 3), **out})
+                  "seconds": round(self.seconds[name], 3), **out})
         except Exception as e:  # noqa: BLE001 — reported, and fails the run
+            self.seconds[name] = time.perf_counter() - t0
             self.failed.append(name)
             self.errors[name] = {"error": repr(e),
                                  "trace": traceback.format_exc()
@@ -645,11 +753,16 @@ class Smoke:
             print(f"chip_smoke: phase {name} failed: {e!r}", file=sys.stderr,
                   flush=True)
 
+    def budget(self) -> None:
+        """Print :func:`budget_line` of the run so far."""
+        emit(budget_line(self.seconds, time.perf_counter() - self.t0))
+
     def report_failures(self) -> int:
         """The failed phases, on standard output and, last, on standard
         error (where a caller that keeps only the end of that stream still
         sees which phase failed and why, past the later phases' logs).
         Returns the exit code, 1."""
+        self.budget()
         emit({"failed_phases": self.failed})
         for name in self.failed:
             print(f"chip_smoke: FAILED {name}: "
@@ -664,6 +777,16 @@ class Smoke:
         self.note_launches()
         for c in self.pkg.csrc.counters():
             c.reset()
+
+    def side_counts(self) -> dict:
+        """Every kernel's launches since :meth:`reset_counts`, by a phase
+        whose launches hold kernels against an oracle or time them: read
+        and set to 0, never added to the main path's counts or to the
+        kernels seen."""
+        counts = {c.name: c.value for c in self.pkg.csrc.counters()}
+        for c in self.pkg.csrc.counters():
+            c.reset()
+        return counts
 
     def read_counts(self) -> dict:
         """Every kernel's launches since :meth:`reset_counts`, added to the
@@ -744,9 +867,13 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def plain_ms(self, fn) -> float:
+    def plain_ms(self, fn, warm: bool = True) -> float:
+        """Host time of one run of a plain version, after a run to warm up
+        unless ``warm`` is False (the same call at the same shapes ran
+        already)."""
         torch = self.torch
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -754,7 +881,7 @@ class Smoke:
         return (time.perf_counter() - t0) * 1e3
 
 
-def run(torch, pkg, mesh_only: bool = False) -> int:
+def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
     s = Smoke(torch, pkg)
     name_power = nvidia_smi("name,power.limit")
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
@@ -806,7 +933,8 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             logs = pkg.csrc.build(list(pkg.csrc.BASELINE))
             return {"card": name_power, "cards": torch.cuda.device_count(),
                     "build_seconds": round(time.perf_counter() - t0, 3),
-                    "libraries": len(logs), "ptxas": ptxas_table(logs)}
+                    "libraries": len(logs),
+                    "ptxas": pkg.ptxas.ptxas_table(logs)}
         names = [*pkg.csrc.BASELINE, *(tile.tile_library(*l) for l in layouts),
                  *form_tiles.values(), *form_hitbufs.values(),
                  pkg.int_probe.LIBRARY]
@@ -814,7 +942,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         assert not gone, f"libraries of removed kernels: {gone}"
         logs = pkg.csrc.build(names)
         build_seconds = time.perf_counter() - t0
-        rows = ptxas_table(logs)
+        rows = pkg.ptxas.ptxas_table(logs)
         ptxas_of.update(((r["library"], r["mode"]), r) for r in rows
                         if r["kernel"] != "rescan_steps_kernel")
         ptxas_of_rows.extend(rows)
@@ -824,7 +952,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         # SASS of the staged libraries, of the K=2 baseline and regchain
         # (job words loaded from the card against kernel parameters), and
         # of the main path's scan libraries per pipe.
-        listings = sass_listings(pkg.sass, {
+        listings = sass_listings(pkg, {
             name: pkg.csrc.library_path(name)
             for name in ("scan_tile", "scan_tile_k2", "scan_hitbuf",
                          tile.tile_library(2, "regchain"),
@@ -2176,15 +2304,10 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         return {"rungs": rungs, "libraries": h.compile_count,
                 "launches": launched(counts)}
 
-    def mesh_phases():
+    def emit_shards():
         emit({"shards": [str(d) for d in s.shards],
               "over": ("every card" if len(set(s.shards)) > 1 else
                        f"one card named {len(s.shards)} times")})
-        s.phase("mesh_vs_single", mesh_vs_single)
-        s.phase("genesis_sweep_mesh", genesis_sweep_mesh)
-        s.phase("genesis_sweep_fanout", genesis_sweep_fanout)
-        s.phase("stratum_session_mesh_native", stratum_session_mesh_native)
-        s.phase("mesh_native_ladder", mesh_native_ladder)
 
     def run_mesh_phases() -> int:
         """--mesh-only: the single-device sweeps they are held against,
@@ -2194,9 +2317,12 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             pkg.TileCudaHasher(device="cuda"), 1 << 28)["mhs"]})
         s.phase("genesis_sweep", genesis_sweep)
         s.phase("genesis_sweep_vshare", genesis_sweep_vshare)
-        mesh_phases()
+        emit_shards()
+        for name in MESH_PHASES:
+            s.phase(name, functions[name])
         if s.failed:
             return s.report_failures()
+        s.budget()
         print(name_power, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2205,6 +2331,12 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
 
     def timings():
         rows = {}
+
+        def plain_ms(fn):
+            # kernels_vs_plain ran each plain version timed here, at the
+            # same shapes: no run to warm up.
+            return s.plain_ms(fn, warm=False)
+
         tile_kw = dict(n_steps=DISPATCH // 8192, block=8192)
         jobs = {k: (s.job(genesis76, diff1, GENESIS_NONCE - (1 << 23),
                           DISPATCH, k),
@@ -2214,7 +2346,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         g_job = jobs[1][0]
         # The plain tile scan is the same function for every layout: timed
         # once per K.
-        plain = {k: s.plain_ms(lambda: pkg.scan_tile_plain(
+        plain = {k: plain_ms(lambda: pkg.scan_tile_plain(
             jobs[k][0], word7=True, vshare=k, **tile_kw)) for k in jobs}
 
         def tile_row(k, variant="baseline", cgroup=0, interleave=1):
@@ -2325,13 +2457,13 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 lambda: pkg.scan_batch(*big_parts, word7=True, **big), 20),
             "ms_lowest": s.time_ms(lambda: pkg.scan_batch(
                 *big_parts, word7=True, lowest=True, **big), 20),
-            "plain_ms": s.plain_ms(
+            "plain_ms": plain_ms(
                 lambda: pkg.scan_batch_plain(*big_parts, word7=True, **big)),
             "bound_ms": bound(DISPATCH, True),
             "nonces": DISPATCH, "mode": "word7, 2^24 (cuda backend)",
             "ms_8192_exact": s.time_ms(
                 lambda: pkg.scan_batch(*tile_parts, **small), 200),
-            "plain_ms_8192_exact": s.plain_ms(
+            "plain_ms_8192_exact": plain_ms(
                 lambda: pkg.scan_batch_plain(*tile_parts, **small)),
             "bound_ms_8192_exact": bound(8192, False),
             "ms_2p32_limit_0": s.time_ms(
@@ -2369,7 +2501,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
             job, slots, _, k, nonces = s.rescans[label]
             kw = dict(k=k, tile=8192, max_hits=64)
             ms = s.time_ms(lambda: pkg.rescan_steps(job, slots, **kw), reps)
-            part = {"ms": ms, "plain_ms": s.plain_ms(
+            part = {"ms": ms, "plain_ms": plain_ms(
                         lambda: pkg.rescan_steps_plain(job, slots, **kw)),
                     "bound_ms": bound(nonces, False), "slots": len(slots),
                     "nonces": nonces, "k": k,
@@ -2406,7 +2538,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                 "ms": ms,
                 "ms_lowest": s.time_ms(lambda: pkg.scan_batch_vshare(
                     *parts, word7=True, lowest=True, **big), 20),
-                "plain_ms": s.plain_ms(lambda: pkg.scan_batch_vshare_plain(
+                "plain_ms": plain_ms(lambda: pkg.scan_batch_vshare_plain(
                     *parts, word7=True, **big)),
                 "bound_ms": bound(DISPATCH, True, k),
                 "hashes_per_s": DISPATCH * k / ms * 1e3,
@@ -2452,59 +2584,160 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                     row[key] = float(f"{v:.6g}")
         return {"card": name_power, "rows": rows}
 
-    s.phase("device_and_build", device_and_build)
-    s.phase("miner_lint", miner_lint)
-    if s.failed:
-        return s.report_failures()
-    if mesh_only:
-        return run_mesh_phases()
-    s.phase("kernels_vs_plain", kernels_vs_plain)
-    s.phase("variants_vs_plain", variants_vs_plain)
-    s.phase("genesis_sweep", genesis_sweep)
-    s.phase("stratum_session", stratum_session)
-    s.phase("cuda_backend_window", cuda_backend_window)
-    s.phase("genesis_sweep_vshare", genesis_sweep_vshare)
-    s.phase("cuda_backend_window_vshare", cuda_backend_window_vshare)
-    s.phase("stratum_session_vshare", stratum_session_vshare)
-    s.phase("stratum_session_degraded", stratum_session_degraded)
-    s.phase("genesis_sweep_variants", genesis_sweep_variants)
-    s.phase("stratum_session_variant", stratum_session_variant)
-    s.phase("easy_target_scan", easy_target_scan)
-    s.phase("gbt_session", gbt_session)
-    s.phase("getwork_session", getwork_session)
-    s.phase("stratum_session_failover", stratum_session_failover)
-    s.phase("stratum_session_telemetry", stratum_session_telemetry)
-    s.phase("genesis_sweep_batch3x", genesis_sweep_batch3x)
-    s.phase("telemetry_overhead", telemetry_overhead)
-    s.phase("dispatcher_sweep", dispatcher_sweep)
-    s.phase("stratum_session_observatory", stratum_session_observatory)
-    s.phase("perf_cli_roundtrip", perf_cli_roundtrip)
-    s.phase("bench_json", bench_json_phase)
-    s.phase("perf_capture", perf_capture_phase)
-    s.phase("fabric_session", fabric_session)
-    s.phase("fabric_session_vshare", fabric_session_vshare)
-    s.phase("native_oracle", native_oracle)
-    s.phase("frontend_internal_worker", frontend_internal_worker)
-    s.phase("frontend_proxy_session", frontend_proxy_session)
-    s.phase("frontend_fabric_proxy", frontend_fabric_proxy)
-    s.phase("frontend_shards_session", frontend_shards_session)
-    s.phase("frontend_shard_kill", frontend_shard_kill)
-    s.phase("frontend_shards_load", frontend_shards_load)
-    s.phase("fleet_sweep_reclaim", fleet_sweep_reclaim)
-    for name, fn in (("served_hasher_session", served_hasher_session),
-                     ("grpc_fleet_session", grpc_fleet_session),
-                     ("served_worker_federation", served_worker_federation)):
-        if importlib.util.find_spec("grpc") is None:
-            emit({"phase": name, "ran": False,
-                  "why": "grpcio is not installed"})
-        else:
-            s.phase(name, fn)
-    s.phase("lowest_vs_plain", lowest_vs_plain)
-    s.phase("forms_vs_plain", forms_vs_plain)
-    s.phase("genesis_sweep_forms", genesis_sweep_forms)
-    s.phase("int_probe_vs_plain", int_probe_vs_plain)
-    s.phase("int_probe", int_probe_run)
-    mesh_phases()
+    def bulk_parity():
+        """The bulk parity gate (``probes.parity.run_gate``) in this
+        process at 2^20 hashes a leg, leg D at K = 2, 4, 8: every
+        configuration with zero mismatches, and every library the gate
+        names launched. Its launches hold the kernels against the native
+        oracle and hashlib: they are not the main path's."""
+        s.reset_counts()
+        records, ok = pkg.parity.run_gate(bits=PARITY_BITS, ks=PARITY_KS,
+                                          device="cuda", emit=lambda r: None)
+        counts = s.side_counts()
+        legs = records[:-1]
+        failed = [r for r in legs if not r.get("ok")]
+        assert ok and not failed, failed[:5]
+        named = sorted({lib for r in legs for lib in r["libraries"]})
+        silent = [lib for lib in named if not counts.get(lib)]
+        assert not silent, f"named but never launched: {silent}"
+        per_leg = {}
+        for r in legs:
+            leg = per_leg.setdefault(r["leg"], {"configurations": 0,
+                                                "hashes": 0, "hits": 0,
+                                                "seconds": 0.0})
+            leg["configurations"] += 1
+            leg["hashes"] += r["hashes"]
+            leg["hits"] += r.get("hits", r.get("candidates", 0)) + r.get(
+                "chain0_hits", 0) + r.get("sibling_hits", 0)
+            leg["seconds"] += r["seconds"]
+        return {"bits": PARITY_BITS, "vshare_ks": PARITY_KS,
+                "summary": records[-1], "legs": per_leg,
+                "configurations": [
+                    {k: r.get(k) for k in (
+                        "leg", "config", "hashes", "hits", "candidates",
+                        "chain0_hits", "sibling_hits", "seconds")
+                     if r.get(k) is not None} for r in legs],
+                "libraries": len(named),
+                "launches": {lib: counts[lib] for lib in named}}
+
+    def layout_frontier():
+        """``python -m bitcoin_miner_tpu_torch frontier`` on the card
+        (nvcc, ptxas, SASS, occupancy), in this process: ≥ 20 candidates,
+        each read; its top 10; the top 3 single-card candidates timed
+        through the tuner's worker over 2^28 genesis nonces, each finding
+        the nonce; and, a finding and no gate, the rank correlation of its
+        predicted times with ``timings``' measured ones at K = 1, 2, 4, 8,
+        and the model's constants fitted to those times."""
+        frontier = pkg.frontier
+        path = os.path.join(out_dir(), "frontier.json")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = frontier.main(["--out", path, "--ledger", os.path.join(
+                out_dir(), "frontier_ledger.jsonl")])
+        assert rc == 0, text.getvalue()[-2000:]
+        with open(path) as fh:
+            doc = json.load(fh)
+        ranking = doc["ranking"]
+        assert doc["compiler"] == "nvcc" and len(ranking) >= 20, (
+            doc["compiler"], len(ranking))
+        bad = [e["name"] for e in ranking
+               if not e["ok"] or e["score"]["predicted_mhs"] is None]
+        assert not bad, f"candidates without a read or a score: {bad}"
+        top = [{"rank": e["rank"], "name": e["name"],
+                "library": e["library"], **e["score"],
+                **{k: e["static"].get(k) for k in (
+                    "registers", "spill_stores", "blocks_per_sm")}}
+               for e in ranking[:10]]
+        s.reset_counts()
+        timed = []
+        for e in [e for e in ranking if not e["config"].get("topology")][:3]:
+            cfg = e["config"]
+            config = {"backend": frontier.backend_of(cfg),
+                      "batch_bits": cfg["batch_bits"],
+                      "vshare": cfg["vshare"], "unroll": cfg["unroll"],
+                      "spec": cfg["spec"], "sweep_bits": 28,
+                      "device": "cuda"}
+            if cfg["kernel"] == "tile":
+                config.update({k: cfg[k] for k in (
+                    "sublanes", "inner_tiles", "interleave", "variant",
+                    "cgroup")})
+            else:
+                config["inner_bits"] = cfg["inner_bits"]
+            line = io.StringIO()
+            with contextlib.redirect_stdout(line):
+                pkg.tune.run_worker(config)
+            res = json.loads(line.getvalue().strip().splitlines()[-1])
+            assert res["ok"], res
+            timed.append({"name": e["name"], "mhs": res["mhs"],
+                          "predicted_mhs": e["score"]["predicted_mhs"],
+                          "measured_over_predicted":
+                              res["mhs"] / e["score"]["predicted_mhs"],
+                          "seconds": res["seconds"]})
+        counts = s.side_counts()
+        # The driven single-card tile rows at the default geometry against
+        # timings' word7 times of the same libraries.
+        measured = []
+        for e in ranking:
+            cfg = e["config"]
+            row = timing.get(e["library"])
+            if (row is None or cfg["kernel"] != "tile"
+                    or cfg.get("topology")
+                    or (cfg["sublanes"], cfg["inner_tiles"]) != (8, 8)):
+                continue
+            measured.append({"name": e["name"], "config": cfg,
+                             "static": e["static"], "ms": row["ms"],
+                             "predicted_ms": e["score"]["predicted_ms"]})
+        correlation = {}
+        for k in (1, 2, 4, 8):
+            at_k = [m for m in measured if m["config"]["vshare"] == k]
+            correlation[f"k{k}"] = {
+                "candidates": len(at_k),
+                "spearman": frontier.rank_correlation(
+                    [m["predicted_ms"] for m in at_k],
+                    [m["ms"] for m in at_k])}
+        base = timing["scan_tile"]
+        return {"card": doc["card"], "candidates": len(ranking),
+                "top10": top, "timed_top3": timed,
+                "launches": launched(counts),
+                "rank_correlation": correlation,
+                "measured_vs_predicted": [
+                    {k: m[k] for k in ("name", "ms", "predicted_ms")}
+                    for m in measured],
+                "fit": frontier.fit(measured, doc["card"]),
+                "efficiency": base["sass_bound_ms"] / base["ms"],
+                "sass_over_ops": base["sass_bound_ms"] / base["bound_ms"],
+                "scan_tile_ms": base["ms"],
+                "scan_tile_sass_bound_ms": base["sass_bound_ms"]}
+
+    def tune_sweep():
+        """``python -m bitcoin_miner_tpu_torch.probes.tune --limit 4``: the
+        first 4 configurations of each backend's grid at 2^26 nonces, in
+        its child processes, the outputs in :func:`out_dir`: rc 0, every
+        row ok (the genesis nonce found)."""
+        root = os.path.dirname(os.path.abspath(__file__))
+        paths = {name: os.path.join(out_dir(), name)
+                 for name in ("tune.json", "tuned.json", "tune_evidence.jsonl")}
+        proc = subprocess.run(
+            [sys.executable, "-m", "bitcoin_miner_tpu_torch.probes.tune",
+             "--limit", str(TUNE_CONFIGS), "--sweep-bits", str(TUNE_BITS),
+             "--attempt-timeout", "300", "--out", paths["tune.json"],
+             "--adopt", paths["tuned.json"],
+             "--evidence", paths["tune_evidence.jsonl"]],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        assert proc.returncode == 0, (proc.returncode, proc.stdout[-2000:],
+                                      proc.stderr[-2000:])
+        with open(paths["tune.json"]) as fh:
+            rows = json.load(fh)["results"]
+        assert len(rows) == 2 * TUNE_CONFIGS, rows
+        failed = [r for r in rows if not r["ok"]]
+        assert not failed, failed
+        with open(paths["tuned.json"]) as fh:
+            tuned = json.load(fh)
+        return {"rows": [{k: r.get(k) for k in (
+                    "backend", "vshare", "variant", "cgroup", "interleave",
+                    "unroll", "spec", "mhs", "seconds", "compile_s")}
+                    for r in rows], "adopted": tuned}
+
     timing = {}
 
     def timing_phase():
@@ -2512,9 +2745,83 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
         timing.update(out["rows"])
         return out
 
-    s.phase("timings", timing_phase)
+    functions = {
+        "device_and_build": device_and_build, "miner_lint": miner_lint,
+        "kernels_vs_plain": kernels_vs_plain,
+        "variants_vs_plain": variants_vs_plain,
+        "genesis_sweep": genesis_sweep, "stratum_session": stratum_session,
+        "cuda_backend_window": cuda_backend_window,
+        "genesis_sweep_vshare": genesis_sweep_vshare,
+        "cuda_backend_window_vshare": cuda_backend_window_vshare,
+        "stratum_session_vshare": stratum_session_vshare,
+        "stratum_session_degraded": stratum_session_degraded,
+        "genesis_sweep_variants": genesis_sweep_variants,
+        "stratum_session_variant": stratum_session_variant,
+        "easy_target_scan": easy_target_scan, "gbt_session": gbt_session,
+        "getwork_session": getwork_session,
+        "stratum_session_failover": stratum_session_failover,
+        "stratum_session_telemetry": stratum_session_telemetry,
+        "genesis_sweep_batch3x": genesis_sweep_batch3x,
+        "telemetry_overhead": telemetry_overhead,
+        "dispatcher_sweep": dispatcher_sweep,
+        "stratum_session_observatory": stratum_session_observatory,
+        "perf_cli_roundtrip": perf_cli_roundtrip,
+        "bench_json": bench_json_phase, "perf_capture": perf_capture_phase,
+        "fabric_session": fabric_session,
+        "fabric_session_vshare": fabric_session_vshare,
+        "native_oracle": native_oracle,
+        "frontend_internal_worker": frontend_internal_worker,
+        "frontend_proxy_session": frontend_proxy_session,
+        "frontend_fabric_proxy": frontend_fabric_proxy,
+        "frontend_shards_session": frontend_shards_session,
+        "frontend_shard_kill": frontend_shard_kill,
+        "frontend_shards_load": frontend_shards_load,
+        "fleet_sweep_reclaim": fleet_sweep_reclaim,
+        "served_hasher_session": served_hasher_session,
+        "grpc_fleet_session": grpc_fleet_session,
+        "served_worker_federation": served_worker_federation,
+        "lowest_vs_plain": lowest_vs_plain, "forms_vs_plain": forms_vs_plain,
+        "genesis_sweep_forms": genesis_sweep_forms,
+        "int_probe_vs_plain": int_probe_vs_plain, "int_probe": int_probe_run,
+        "mesh_vs_single": mesh_vs_single,
+        "genesis_sweep_mesh": genesis_sweep_mesh,
+        "genesis_sweep_fanout": genesis_sweep_fanout,
+        "stratum_session_mesh_native": stratum_session_mesh_native,
+        "mesh_native_ladder": mesh_native_ladder, "timings": timing_phase,
+        "bulk_parity": bulk_parity, "layout_frontier": layout_frontier,
+        "tune_sweep": tune_sweep,
+    }
+    assert tuple(functions) == PHASES, "PHASES and the phase functions"
+    selected = list(PHASES) if phases is None else phases
+    s.phase("device_and_build", device_and_build)
+    if "miner_lint" in selected:
+        s.phase("miner_lint", miner_lint)
     if s.failed:
         return s.report_failures()
+    if mesh_only:
+        return run_mesh_phases()
+    for name in selected[1:]:
+        if name == "miner_lint":
+            continue
+        if name in MESH_PHASES and not any(n in s.seconds
+                                           for n in MESH_PHASES):
+            emit_shards()
+        if name in GRPC_PHASES and importlib.util.find_spec("grpc") is None:
+            emit({"phase": name, "ran": False,
+                  "why": "grpcio is not installed"})
+            continue
+        s.phase(name, functions[name])
+    if s.failed:
+        return s.report_failures()
+    if phases is not None:
+        # The main path's never-launched check and the kernel table need
+        # every phase: a run of some phases stands on their own checks.
+        s.budget()
+        print(name_power, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     hitbuf_src = "bitcoin_miner_tpu_torch/ops/csrc/scan_hitbuf.cu"
 
@@ -2561,6 +2868,7 @@ def run(torch, pkg, mesh_only: bool = False) -> int:
                if k not in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms")},
         })
+    s.budget()
     emit({"kernels": table})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -5121,7 +5429,13 @@ class _Package:
         from bitcoin_miner_tpu_torch.testing.chaos_hasher import ChaosHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
         from bitcoin_miner_tpu_torch.probes import load_probe
-        from bitcoin_miner_tpu_torch.probes import sass
+        from bitcoin_miner_tpu_torch.probes import (
+            frontier,
+            parity,
+            ptxas,
+            sass,
+            tune,
+        )
         from bitcoin_miner_tpu_torch.telemetry import pipeline
         from bitcoin_miner_tpu_torch.telemetry.tsdb import sample_key
         from bitcoin_miner_tpu_torch.testing.fake_node import (
@@ -5180,6 +5494,8 @@ class _Package:
         self.MeshCudaHasher = MeshCudaHasher
         self.make_cuda_fanout = make_cuda_fanout
         self.int_probe, self.probe_cli, self.sass = int_probe, probe_cli, sass
+        self.ptxas = ptxas
+        self.parity, self.frontier, self.tune = parity, frontier, tune
         self.pipe_bound_ms = sha256_torch.pipe_bound_ms
         self.pipeline = pipeline
         self.ScanRequest = ScanRequest
@@ -5213,6 +5529,12 @@ def serve_worker(pkg, counts_path: str, argv: list) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] != ["--serve-worker"]:
+        try:
+            options = parse_options(sys.argv[1:])
+        except ValueError as e:
+            print(f"chip_smoke: {e}", file=sys.stderr)
+            return 2
     try:
         import torch
     except ImportError:
@@ -5230,7 +5552,7 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--serve-worker"]:
         return serve_worker(pkg, sys.argv[2], sys.argv[3:])
-    return run(torch, pkg, mesh_only="--mesh-only" in sys.argv[1:])
+    return run(torch, pkg, **options)
 
 
 if __name__ == "__main__":

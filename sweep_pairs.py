@@ -30,8 +30,10 @@ and a Stratum session. One JSON line.
 
 ``python3 sweep_pairs.py ROOT --ptxas`` builds every library that the
 checkout's ``chip_smoke.py`` builds and prints ptxas' registers, spills
-and shared memory per kernel, and the SASS per pipe of each hit-buffer
-library's nonce loop. One JSON line.
+and shared memory per kernel (read by the checkout's
+``probes/ptxas.py``, or by its smoke's own parser where it has no such
+module), and the SASS per pipe of each hit-buffer library's nonce loop.
+One JSON line.
 
 ``python3 sweep_pairs.py ROOT --telemetry N`` (a checkout with the
 telemetry package) sweeps the genesis nonces through ``cli.bench`` with
@@ -203,6 +205,10 @@ def ptxas(root: str) -> dict:
     t0 = time.perf_counter()
     logs = csrc.build(names)
     seconds = time.perf_counter() - t0
+    try:  # the package's parser; an older checkout's smoke kept its own
+        from bitcoin_miner_tpu_torch.probes.ptxas import ptxas_table
+    except ImportError:
+        ptxas_table = chip_smoke.ptxas_table
     loops = {}
     for name in names:
         if not name.startswith("scan_hitbuf"):
@@ -215,7 +221,7 @@ def ptxas(root: str) -> dict:
                     sass.loop_body(insns))
     return {"root": root, "card": card(), "libraries": len(names),
             "build_seconds": seconds,
-            "ptxas": chip_smoke.ptxas_table(logs), "hitbuf_loops": loops}
+            "ptxas": ptxas_table(logs), "hitbuf_loops": loops}
 
 
 def telemetry_legs(root: str, rounds: int) -> dict:

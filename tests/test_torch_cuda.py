@@ -573,3 +573,19 @@ def test_served_tile_hasher_matches_the_local_one(cuda):
     finally:
         client.close()
         server.stop(grace=None)
+
+
+@pytest.mark.parametrize("legs,ks", [("core", (4,)), ("vshare", (2, 4, 8))])
+def test_bulk_parity_gate_on_the_card(cuda, legs, ks):
+    """Each leg of ``probes.parity`` at 2^14 hashes on the card: every
+    configuration without a mismatch, every library it names launched."""
+    from bitcoin_miner_tpu_torch.probes import parity
+
+    before = {c.name: c.value for c in csrc.counters()}
+    records, ok = parity.run_gate(bits=14, legs=legs, device="cuda", ks=ks,
+                                  emit=lambda r: None)
+    assert ok, [r for r in records if not r.get("ok")]
+    after = {c.name: c.value for c in csrc.counters()}
+    for r in records[:-1]:
+        for lib in r["libraries"]:
+            assert after.get(lib, 0) > before.get(lib, 0), (lib, r)
