@@ -39,7 +39,11 @@ non-null reason as rejected); a submit cut by the session's stop lowers
 leaves both raised); and only an answer from the pool restarts or stops
 a slot's stall clock (the reference restarts it on a local timeout too
 and stops it once nothing is pending, so a muted pool whose submits time
-out at the stall bound never degrades).
+out at the stall bound never degrades); and a Stratum slot whose session
+drops disowns its jobs (``PoolFabric.forget_jobs``), so a share of the
+dead session is dropped as ``stale_unroutable`` even when the next
+session announces the same job id (the reference submits it under the
+new extranonce1, where it is judged a low-difficulty share).
 The slot windows take a lock: the SLO engine and the observatory read
 them from their own threads.
 """
@@ -506,6 +510,9 @@ class StratumSlot(PoolSlot):
         self._last_params = None
         self._last_difficulty = None
         self._job = None
+        # Job ids and extranonce1 are per connection: a share of the dead
+        # session is stale, even under an id the next session reuses.
+        self.fabric.forget_jobs(self)
         was_routable = self.state in (SYNCING, ACTIVE, DEGRADED)
         if established:
             self.reconnects += 1
@@ -1057,6 +1064,13 @@ class PoolFabric:
             return
         self._pending_failover = reason
         await self._route("failover", avoid=slot)
+
+    def forget_jobs(self, slot: PoolSlot) -> None:
+        """Disown every job ``slot`` announced (its session dropped): their
+        late shares go the ``stale_unroutable`` way, until the slot's next
+        install owns its id again."""
+        for nsid in [k for k, s in self._job_owner.items() if s is slot]:
+            del self._job_owner[nsid]
 
     def owner_of(self, namespaced_job_id: str) -> Optional[PoolSlot]:
         """The slot that announced this namespaced job (None: unknown or

@@ -28,6 +28,7 @@ from .sha256_torch import (
     _meets,
     _u32,
     _words,
+    one_at_a_time_on_cpu,
     shard_min_plain,
     ticket_words,
 )
@@ -205,6 +206,7 @@ def job_block_from_header(header76: bytes, target: int, nonce_base: int,
     return torch.from_numpy(words)
 
 
+@one_at_a_time_on_cpu
 def scan_tile_plain(job_block: torch.Tensor, *, n_steps: int, block: int,
                     word7: bool = False, vshare: int = 1,
                     lowest: bool = False) -> Tuple[torch.Tensor, ...]:

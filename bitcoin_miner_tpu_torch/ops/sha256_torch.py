@@ -30,6 +30,7 @@ with one chain, in one launch: the tile hasher's rescans.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -44,24 +45,31 @@ _W2_TAIL = [0x80000000, 0, 0, 0, 0, 0, 0, 256]  # padding of a 32-byte message
 _CHUNK2_PAD = [0x80000000] + [0] * 10 + [640]  # words 4-15 of an 80-byte header
 
 
-def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & MASK32
+def _doubled(x):
+    """``x`` in both halves of an int64 word: the low 32 bits of
+    ``_doubled(x) >> n`` are ``rotr(x, n)`` for any n < 32, one shift for
+    each rotation. The top bit may wrap to the sign, which no n < 32 reads."""
+    return (x << 32) | x
 
 
 def _big_sigma0(x):
-    return _rotr(x, 2) ^ _rotr(x, 13) ^ _rotr(x, 22)
+    xx = _doubled(x)
+    return ((xx >> 2) ^ (xx >> 13) ^ (xx >> 22)) & MASK32
 
 
 def _big_sigma1(x):
-    return _rotr(x, 6) ^ _rotr(x, 11) ^ _rotr(x, 25)
+    xx = _doubled(x)
+    return ((xx >> 6) ^ (xx >> 11) ^ (xx >> 25)) & MASK32
 
 
 def _small_sigma0(x):
-    return _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+    xx = _doubled(x)
+    return ((xx >> 7) ^ (xx >> 18) ^ (x >> 3)) & MASK32
 
 
 def _small_sigma1(x):
-    return _rotr(x, 17) ^ _rotr(x, 19) ^ (x >> 10)
+    xx = _doubled(x)
+    return ((xx >> 17) ^ (xx >> 19) ^ (x >> 10)) & MASK32
 
 
 def _ch(e, f, g):
@@ -474,6 +482,29 @@ def shard_min_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.tensor(least, dtype=torch.int64).to(torch.uint32).to(x.device)
 
 
+#: The plain scans of one process take turns on the CPU. Each is thousands
+#: of tensor operations on a few hundred words, and every operation hands
+#: the GIL over: two threads interleaving them (a fleet's children are
+#: threads) made each of two concurrent scans about 5x slower than alone,
+#: slower in all than running them one after the other.
+_CPU_PLAIN_TURN = threading.RLock()
+
+
+def one_at_a_time_on_cpu(fn):
+    """Run ``fn`` under :data:`_CPU_PLAIN_TURN` when its first argument
+    lies on the CPU; tensors on a card run it unserialised."""
+
+    @functools.wraps(fn)
+    def wrapper(first, *args, **kwargs):
+        if _device_of(first).type != "cpu":
+            return fn(first, *args, **kwargs)
+        with _CPU_PLAIN_TURN:
+            return fn(first, *args, **kwargs)
+
+    return wrapper
+
+
+@one_at_a_time_on_cpu
 def scan_batch_vshare_plain(midstates, tail3, target_limbs, nonce_base, limit,
                             *, inner_size: int, n_steps: int, max_hits: int,
                             word7: bool = False, lowest: bool = False
@@ -700,6 +731,7 @@ def _check_rescan(k: int, tile: int, max_hits: int) -> None:
         raise ValueError(f"max_hits must be in [1, 65536], got {max_hits}")
 
 
+@one_at_a_time_on_cpu
 def rescan_steps_plain(job, slots, *, k: int, tile: int, max_hits: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-enumerate steps of a tile dispatch exactly, one chain each.

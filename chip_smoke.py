@@ -230,6 +230,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    probes.tune --limit 4`` at 2^26 nonces in its child processes, every
    row ok (``tune_sweep``). The gate's and the ranker's launches check
    kernels: they are not the main path's and are not counted there.
+13. runs the BASELINE matrix runner (``probes.run.main``, the counterpart
+   of ``benchmarks/run.py``) in this process at full size, twice: on
+   ``cuda-tile`` and on ``cuda --inner-bits 14``. Each run passes all
+   five configurations (the genesis digest, a 2^20-nonce sweep finding
+   the genesis nonce, a 2^18-nonce scan equal to the native oracle's, a
+   regtest GBT session with an accepted block, a Stratum session with 3
+   accepted version-rolled shares) with a scan kernel launched in each of
+   configurations 2 to 5, and prints each configuration's seconds and
+   launches (``baseline_matrix``).
 
 With ``--mesh-only`` it builds the baseline libraries and runs the
 single-device sweeps of 3 and 5 and the multi-device phases of 9 alone
@@ -245,7 +254,8 @@ against its 1200 s budget and its five longest phases
 (``smoke_seconds``, ``budget_s``, ``longest``).
 
 Phases 3 to 7f (but for the load probe, host work with no kernel), 9's
-sweeps, session and ladder, and 10's probe run are the main path (the
+sweeps, session and ladder, 10's probe run and 13's matrix are the main
+path (the
 sharded frontend's kill is counted in its session's phase): the launch counts are set to 0 just before each and read just
 after, and each kernel must have launched. The bench's children count
 their own launches over the timed sweep and print them (``launches``),
@@ -320,7 +330,9 @@ OBS_SWEEP_WARM = 7
 OBS_FAST_WINDOW, OBS_SLOW_WINDOW = 4, 12
 #: fabric_session: the chaos pools' share difficulty (~1.5 shares a second
 #: at the card's rate, a share or none per request, so a worker parked on
-#: the muted pool holds one), seconds mined before pool A goes mute, the
+#: the muted pool holds one), seconds mined after pool A's first accepted
+#: share before A goes mute (a first quantum of the GBT slot can outlast
+#: these seconds, and a mute of A before A served measures nothing), the
 #: most seconds to wait after that (in the session that is held to a
 #: failover) for a moment A's shares flow and A keeps the dispatcher for
 #: the next 10 s quantum (so that A still owns it when the 10 s stall
@@ -412,6 +424,11 @@ PARITY_KS = (2, 4, 8)
 #: timed per configuration.
 TUNE_CONFIGS = 4
 TUNE_BITS = 26
+#: baseline_matrix: the runner's two configurations (``probes.run``
+#: options), the tile kernel at its defaults and the reference's geometry
+#: on the hit-buffer kernel.
+MATRIX_RUNS = (("cuda-tile", ("--backend", "cuda-tile")),
+               ("cuda", ("--backend", "cuda", "--inner-bits", "14")))
 #: The smoke's seconds: the time limit it runs under with no option.
 BUDGET_S = 1200
 #: Every phase, in the order the smoke runs them. ``device_and_build``
@@ -437,7 +454,7 @@ PHASES = (
     "int_probe", "mesh_vs_single", "genesis_sweep_mesh",
     "genesis_sweep_fanout", "stratum_session_mesh_native",
     "mesh_native_ladder", "timings", "bulk_parity", "layout_frontier",
-    "tune_sweep",
+    "tune_sweep", "baseline_matrix",
 )
 #: Phases that read what other phases left behind (the plain versions'
 #: outputs, a rate to compare with, a session's rows), and those phases.
@@ -2738,6 +2755,54 @@ def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
                     "unroll", "spec", "mhs", "seconds", "compile_s")}
                     for r in rows], "adopted": tuned}
 
+    def baseline_matrix():
+        """``probes.run.main`` (the BASELINE matrix runner) in this process
+        at full size, on each of :data:`MATRIX_RUNS`: rc 0, five passing
+        configurations, its lines and table, and a scan kernel launched
+        in each of configurations 2 to 5 (each configuration's launches
+        are the counters' growth while it ran). The runner's launches are
+        the main path's."""
+        out = {}
+        for label, argv in MATRIX_RUNS:
+            s.reset_counts()
+            rows = []
+            before: dict = {}
+
+            def after(result: dict) -> None:
+                now = {c.name: c.value for c in pkg.csrc.counters()}
+                grew = {k: v - before.get(k, 0) for k, v in now.items()
+                        if v > before.get(k, 0)}
+                before.update(now)
+                rows.append({**result, "launches": grew})
+
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = pkg.matrix.main(list(argv), after_config=after)
+            seconds = time.perf_counter() - t0
+            counts = s.read_counts()
+            lines = [json.loads(line) for line in text.getvalue().splitlines()
+                     if line.startswith("{")]
+            assert rc == 0, (label, rc, rows)
+            assert [r["config"] for r in rows] == [1, 2, 3, 4, 5], rows
+            assert all(r["pass"] for r in rows), rows
+            assert lines == [{k: v for k, v in r.items() if k != "launches"}
+                             for r in rows], lines
+            assert text.getvalue().rstrip().splitlines()[-7:-5] == [
+                "| # | scenario | pass | metric |", "|---|---|---|---|"]
+            for r in rows[1:]:
+                scans = sum(n for name, n in r["launches"].items()
+                            if name.startswith(("scan_tile", "scan_hitbuf")))
+                assert scans >= 1, (label, r)
+            out[label] = {
+                "argv": list(argv), "seconds": seconds,
+                "configs": [{k: r[k] for k in (
+                    "config", "name", "pass", "seconds", "mhs",
+                    "blocks_accepted", "shares_accepted", "shares_rejected",
+                    "launches") if k in r} for r in rows],
+                "launches": launched(counts)}
+        return out
+
     timing = {}
 
     def timing_phase():
@@ -2789,7 +2854,7 @@ def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
         "stratum_session_mesh_native": stratum_session_mesh_native,
         "mesh_native_ladder": mesh_native_ladder, "timings": timing_phase,
         "bulk_parity": bulk_parity, "layout_frontier": layout_frontier,
-        "tune_sweep": tune_sweep,
+        "tune_sweep": tune_sweep, "baseline_matrix": baseline_matrix,
     }
     assert tuple(functions) == PHASES, "PHASES and the phase functions"
     selected = list(PHASES) if phases is None else phases
@@ -3771,8 +3836,9 @@ async def fabric_stratum(pkg, fixed_mute: bool) -> dict:
     ``cli.run_session`` runs it, with the command line's routing defaults,
     on a fresh telemetry bundle: A and B chaos pools at
     :data:`FABRIC_DIFFICULTY`, N the fake node at regtest's nbits taking
-    each accepted block as its next tip. After :data:`FABRIC_PRE_MUTE_S`
-    of mining A goes mute (reads every request, answers none): with
+    each accepted block as its next tip. :data:`FABRIC_PRE_MUTE_S` after
+    A's first accepted share A goes mute (reads every request, answers
+    none): with
     ``fixed_mute`` at once, wherever the dispatcher is, and the session
     mines :data:`FABRIC_POST_MUTE_S` more (a stall is a failover only for
     the slot owning the dispatcher at a routing tick, so this mute is
@@ -3886,8 +3952,8 @@ async def fabric_stratum(pkg, fixed_mute: bool) -> dict:
     out = {}
     t0 = time.perf_counter()
     try:
-        await until(task, lambda: stats.shares_accepted >= 1,
-                    "a first accepted share", where, 120)
+        await until(task, lambda: any(sh.accepted for sh in a.shares),
+                    "a first share accepted by pool A", where, 120)
         t_first = time.perf_counter()
         await until(task, lambda: time.perf_counter() - t_first
                     >= FABRIC_PRE_MUTE_S, "pre-mute window", where,
@@ -5429,6 +5495,7 @@ class _Package:
         from bitcoin_miner_tpu_torch.testing.chaos_hasher import ChaosHasher
         from bitcoin_miner_tpu_torch.probes import int_probe as probe_cli
         from bitcoin_miner_tpu_torch.probes import load_probe
+        from bitcoin_miner_tpu_torch.probes import run as matrix
         from bitcoin_miner_tpu_torch.probes import (
             frontier,
             parity,
@@ -5503,6 +5570,7 @@ class _Package:
         self.native, self.NativeCpuHasher = native, NativeCpuHasher
         self.get_hasher, self.poolserver = get_hasher, poolserver
         self.load_probe, self.sample_key = load_probe, sample_key
+        self.matrix = matrix
 
     @staticmethod
     def hasher_service():

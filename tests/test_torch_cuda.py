@@ -5,6 +5,8 @@ without one. On a machine with a card:
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``
 (the conftest imports JAX, which that machine need not have)."""
 
+import json
+
 import pytest
 import torch
 
@@ -589,3 +591,25 @@ def test_bulk_parity_gate_on_the_card(cuda, legs, ks):
     for r in records[:-1]:
         for lib in r["libraries"]:
             assert after.get(lib, 0) > before.get(lib, 0), (lib, r)
+
+
+@pytest.mark.parametrize("argv", [["--backend", "cuda-tile"],
+                                  ["--backend", "cuda", "--inner-bits", "14"]],
+                         ids=["cuda-tile", "cuda"])
+def test_baseline_matrix_quick_on_the_card(cuda, argv, capsys):
+    """``probes.run --quick`` on the card: rc 0, five passing lines, and a
+    scan kernel launched by configurations 2 to 5."""
+    from bitcoin_miner_tpu_torch.probes import run
+
+    scans = []
+
+    def after(result):
+        scans.append(sum(c.value for c in csrc.counters()
+                         if c.name.startswith(("scan_tile", "scan_hitbuf"))))
+
+    assert run.main([*argv, "--quick"], after_config=after) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+             if line.startswith("{")]
+    assert [(r["config"], r["pass"]) for r in lines] == [
+        (c, True) for c in range(1, 6)]
+    assert all(b > a for a, b in zip(scans[:-1], scans[1:])), scans

@@ -18,7 +18,8 @@
   answer of the stale family counts stale; a submit cut by the stop
   lowers the in-flight counts; only the pool's answers restart the stall
   clock; the observatory reads a slot's window rate), each pinned against
-  the reference's behaviour on the same input.
+  the reference's behaviour on the same input; and a share of a Stratum
+  slot's dropped session is never submitted.
 """
 
 import asyncio
@@ -49,6 +50,7 @@ from bitcoin_miner_tpu_torch.miner import multipool as port_mp
 from bitcoin_miner_tpu_torch.miner.dispatcher import MinerStats, Share
 from bitcoin_miner_tpu_torch.miner.runner import StratumMiner
 from bitcoin_miner_tpu_torch.protocol import getwork as port_getwork
+from bitcoin_miner_tpu_torch.protocol import stratum as port_stratum
 from bitcoin_miner_tpu_torch.telemetry import pipeline as port_pipeline
 from bitcoin_miner_tpu_torch.telemetry import slo as port_slo
 from bitcoin_miner_tpu_torch.telemetry import tsdb as port_tsdb
@@ -432,6 +434,73 @@ def test_unroutable_share_dropped_not_cross_submitted():
         events = fabric.telemetry.flightrec.snapshot()
         assert [e["stage"] for e in events if e["kind"] == "stale_drop"] \
             == ["fabric", "fabric"]
+
+    run(main())
+
+
+def test_shares_of_a_dropped_connection_are_not_submitted():
+    """Job ids and extranonce1 are per connection. A slot's share routed
+    after its session dropped carries the dead extranonce1: a pool that
+    announces the same job ids on every session (the sharded frontend's
+    respawned child gives out ``t1`` again) would judge it against the new
+    one. The fabric counts it stale and never submits it; a share of the
+    new connection's job, under the same namespaced id, goes to the new
+    connection. (The reference submits all three, as ``StratumMiner`` did
+    before the same fix.)"""
+    async def main():
+        fabric = port_mp.PoolFabric(
+            [port_mp.parse_pool_spec("stratum+tcp://127.0.0.1:1")],
+            telemetry=port_pipeline.PipelineTelemetry(), stats=MinerStats())
+        installed = []
+        fabric.on_active_job = lambda slot, job: installed.append(
+            (job.job_id, slot.client.extranonce1)) or len(installed)
+        slot = fabric.slots[0]
+        client = slot.client
+        submitted = []
+
+        async def submit_share(share):
+            submitted.append((share.nonce, share.job_id, client.extranonce1))
+            return True
+
+        client.submit_share = submit_share
+        client.extranonce2_size = 4
+        params = port_stratum.StratumJobParams.from_notify(
+            ["t1", "00" * 32, "01000000", "00000000", [], "20000000",
+             "1d00ffff", "66000001", True])
+
+        def share(nonce):
+            return Share(job_id="p0/t1", extranonce2=b"\0" * 4,
+                         ntime=0x66000001, nonce=nonce, header80=b"",
+                         hash_int=0, is_block=False)
+
+        old_e1, new_e1 = bytes.fromhex("f00d0000"), bytes.fromhex("f00d8000")
+        client.extranonce1 = old_e1
+        client._session_established = True
+        await slot._on_connect()
+        await slot._on_job(params)
+        assert fabric.active is slot and fabric.owner_of("p0/t1") is slot
+        old = share(1)
+        assert await fabric.submit(old) == "accepted"
+        await slot._on_disconnect()
+        client.extranonce1 = new_e1
+        # Found before the new connection's job is installed, and the
+        # old share routed again: both belong to the dead session.
+        assert await fabric.submit(share(2)) is None
+        assert await fabric.submit(old) is None
+        assert fabric.owner_of("p0/t1") is None
+        await slot._on_connect()
+        await slot._on_job(params)
+        assert installed == [("p0/t1", old_e1), ("p0/t1", new_e1)]
+        assert fabric.owner_of("p0/t1") is slot
+        assert await fabric.submit(share(3)) == "accepted"
+        assert submitted == [(1, "t1", old_e1), (3, "t1", new_e1)]
+        stats = fabric.stats
+        assert (stats.shares_accepted, stats.shares_stale) == (2, 2)
+        assert fabric.stale_unroutable == 2
+        events = fabric.telemetry.flightrec.snapshot()
+        assert [(e["stage"], e["job_id"]) for e in events
+                if e["kind"] == "stale_drop"] == [("fabric", "p0/t1")] * 2
+        assert fabric.telemetry.submits_inflight.value == 0
 
     run(main())
 

@@ -24,7 +24,7 @@ def test_default_is_every_phase():
     assert chip_smoke.PHASES[0] == "device_and_build"
     assert len(set(chip_smoke.PHASES)) == len(chip_smoke.PHASES)
     for name in ("bulk_parity", "layout_frontier", "tune_sweep", "timings",
-                 "int_probe", "fabric_session"):
+                 "int_probe", "fabric_session", "baseline_matrix"):
         assert name in chip_smoke.PHASES
 
 
@@ -47,6 +47,10 @@ def test_closure_pulls_what_a_phase_needs_in_the_smokes_order():
                        "layout_frontier"]
     assert chip_smoke.phase_closure(["bulk_parity"]) == [
         "device_and_build", "bulk_parity"]
+    # The matrix runner builds its own hashers and reads nothing another
+    # phase leaves: it runs alone.
+    assert chip_smoke.phase_closure(["baseline_matrix"]) == [
+        "device_and_build", "baseline_matrix"]
     assert chip_smoke.phase_closure(["perf_capture"]) == [
         "device_and_build", "genesis_sweep", "bench_json", "perf_capture"]
     # Named twice, or named with what it needs: each runs once.
@@ -123,7 +127,8 @@ def test_budget_line():
 def test_docstring_names_the_new_phases_and_options():
     doc = chip_smoke.__doc__
     for word in ("--phases", "--mesh-only", "bulk_parity", "layout_frontier",
-                 "tune_sweep", "smoke_seconds", "budget_s"):
+                 "tune_sweep", "baseline_matrix", "probes.run.main",
+                 "smoke_seconds", "budget_s"):
         assert word in doc, word
 
 
@@ -134,3 +139,20 @@ def test_layouts_are_the_packages():
     layouts = chip_smoke.tile_layouts(sha256_tile)
     assert layouts == sha256_tile.driven_layouts()
     assert len(layouts) == 28
+
+
+def test_matrix_runs_drive_both_kernels_at_full_size():
+    """``baseline_matrix`` drives the runner on the tile kernel at its
+    defaults and on the hit-buffer kernel at the reference's geometry,
+    both at full size (no ``--quick``), and each parses as the runner's
+    options."""
+    from bitcoin_miner_tpu_torch.probes import run
+
+    assert [label for label, _ in chip_smoke.MATRIX_RUNS] == ["cuda-tile",
+                                                              "cuda"]
+    for label, argv in chip_smoke.MATRIX_RUNS:
+        args = run.build_parser().parse_args(list(argv))
+        assert (args.backend, args.device, args.quick, args.batch_bits) == (
+            label, "cuda", False, 20)
+    assert run.build_parser().parse_args(
+        list(chip_smoke.MATRIX_RUNS[1][1])).inner_bits == 14
