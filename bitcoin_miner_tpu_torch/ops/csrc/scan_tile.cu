@@ -69,6 +69,15 @@
 //   staged first. Each thread reads and writes only its own column, so the
 //   barriers order nothing between threads, and a warp's 32 accesses hit
 //   32 banks. At most 9 slots fit in a block's 227 KB.
+// - warps per SM: the card hides a round's latencies with the other
+//   resident warps, not with one thread's interleaved dataflow. Layouts at
+//   8 warps per SM ran at 0.56-0.65 of their SASS bound, those at 16 or
+//   more at 0.83-0.95. The builds that the thread count alone left at 8
+//   (SCAN_TILE_MIN_BLOCKS) ask ptxas for the blocks that make 16: regchain
+//   keeps its one pass of K chains behind one window, vroll-db its two
+//   staged groups per body, whose passes other warps now overlap (past 4
+//   chains the groups' passes run in a rolled loop, kRolledGroups);
+//   vroll-db at two nonces in flight stages a partial plane (TilePlane).
 // - the launch's least min, where asked for, is folded in by each block's
 //   step epilogue (fold_lowest): one atomicMax of its complement into a
 //   word of the stream's scratch, a fence and a ticket; the block that
@@ -92,6 +101,30 @@
 #define INTERLEAVE 1
 #endif
 
+// Blocks per SM that a build's launch bounds ask ptxas for, where the thread
+// count alone left it at 8 warps per SM: regchain at more than 4 chains
+// (one pass of all K chains: 175 registers at K=8, one block of 256
+// threads) takes two blocks of 256, so at most 128 registers; vroll-db at
+// more than 4 chains (its two staged groups' passes compiled to 254
+// registers at K=8, two blocks of 128) and at two nonces in flight (four
+// slots of the full plane, 96 KB: two blocks) takes four blocks of 128, so
+// at most 128 registers and a quarter of the SM's shared memory. 16 warps
+// per SM either way. Every other build keeps the one-argument bounds, which
+// ptxas need not compile as a minimum of 1.
+#if VARIANT == 1 && VSHARE > 4 && INTERLEAVE == 1
+#define SCAN_TILE_MIN_BLOCKS 2
+#elif VARIANT == 5 && (VSHARE > 4 || INTERLEAVE == 2)
+#define SCAN_TILE_MIN_BLOCKS 4
+#else
+#define SCAN_TILE_MIN_BLOCKS 0
+#endif
+#if SCAN_TILE_MIN_BLOCKS
+#define SCAN_TILE_BOUNDS(threads) \
+  __launch_bounds__(threads, SCAN_TILE_MIN_BLOCKS)
+#else
+#define SCAN_TILE_BOUNDS(threads) __launch_bounds__(threads)
+#endif
+
 namespace {
 
 // The order of ops/sha256_tile.py::VARIANTS.
@@ -108,9 +141,39 @@ static_assert(1 <= kInterleave, "INTERLEAVE >= 1");
 constexpr int kMaxThreads = 256;    // windowed kernels
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kStagedThreads = 128;  // staged kernels
-constexpr int kPlaneWords = 48;      // W[16..63] per nonce and slot
+constexpr int kMinBlocks = SCAN_TILE_MIN_BLOCKS;
 constexpr int kSlots = (kVariant == kVrollDb ? 2 : 1) * kInterleave;
+// Shared memory of an SM on the H100, what each resident block reserves of
+// it, and store_step's arrays at 8 chains.
+constexpr int kSmemPerSm = 233472;
+constexpr int kSmemReserved = 1024;
+constexpr int kStepArraysBytes = 2 * 8 * kMaxWarps * 4;
+// The plane holds W[16..63] per nonce and slot (sha256d::Plane), but for
+// vroll-db at two nonces in flight in a fully unrolled form, whose four
+// slots must fit a quarter of the SM: a partial plane from W[18] (W[16] and
+// W[17] read only the job) of the 27 words W[18..44] that fit (54 KB a
+// block); each pass expands W[45..63] again from the words it loaded.
+constexpr bool kPartialPlane =
+    kVariant == kVrollDb && kInterleave == 2 && !sha256d::kRolled;
+constexpr int kPlaneFirst = kPartialPlane ? 18 : 16;
+constexpr int kPlaneWords =
+    kPartialPlane ? (kSmemPerSm / (kMinBlocks > 0 ? kMinBlocks : 1) -
+                     kSmemReserved - kStepArraysBytes) /
+                        (kSlots * kStagedThreads * 4)
+                  : 48;
+using TilePlane = sha256d::Plane<kPlaneFirst, kPlaneWords>;
 constexpr int kPlaneBytes = kSlots * kPlaneWords * kStagedThreads * 4;
+// vroll-db at more than 4 chains runs its two groups' passes in a rolled
+// loop: the same code for each group, one group after the other, both
+// groups staged first. Unrolled, the two groups' 2K passes took 254
+// registers at K=8, and spilled under a cap of 128; one group's K passes
+// are vroll's, which fit 128 registers.
+constexpr bool kRolledGroups = kVariant == kVrollDb && kChains > 4;
+// regchain past 4 chains binds its chains' round-3 states to the nonce
+// (sha256d::chains_meet's BIND), so that the job-only parts of their first
+// rounds are not held across the nonce loop: under the two blocks' 128
+// registers they spilled.
+constexpr bool kBindStates = kVariant == kRegchain && kMinBlocks > 0;
 
 // The job block as a kernel parameter: each word a constant-bank operand.
 template <int K>
@@ -217,7 +280,7 @@ __device__ __forceinline__ void windowed_step(const Job& job,
         nonce[v] = base + off[v];
       }
       bool meets[I][K];
-      sha256d::chains_meet<K, G, I, WORD7>(job, nonce, meets);
+      sha256d::chains_meet<K, G, I, WORD7, kBindStates>(job, nonce, meets);
 #pragma unroll
       for (int v = 0; v < I; ++v) {
 #pragma unroll
@@ -245,7 +308,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // regchain, wsplit: the job block as launch parameters.
 template <int K, int G, int I, bool WORD7>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void SCAN_TILE_BOUNDS(kMaxThreads)
     scan_tile_param_kernel(const __grid_constant__ JobWords<K> job,
                            int32_t* __restrict__ counts,
                            uint32_t* __restrict__ mins, uint32_t block,
@@ -274,7 +337,7 @@ __device__ __forceinline__ void staged_passes(const JobWords<K>& job,
     constexpr int N = K - c0 < G ? K - c0 : G;
     __syncwarp();
     bool meets[N];
-    sha256d::staged_pass<K, c0, N, kStagedThreads, WORD7>(
+    sha256d::staged_pass<K, c0, N, kStagedThreads, WORD7, TilePlane>(
         job, nonce[v], col + v * kPlaneWords * kStagedThreads, meets);
 #pragma unroll
     for (int g = 0; g < N; ++g) {
@@ -290,14 +353,14 @@ __device__ __forceinline__ void staged_passes(const JobWords<K>& job,
 
 // wstage, vroll, vroll-db: the schedule plane in shared memory.
 template <int K, int G, int I, bool WORD7, Variant V>
-__global__ void __launch_bounds__(kStagedThreads)
+__global__ void SCAN_TILE_BOUNDS(kStagedThreads)
     scan_tile_staged_kernel(const __grid_constant__ JobWords<K> job,
                             int32_t* __restrict__ counts,
                             uint32_t* __restrict__ mins, uint32_t block,
                             const LaunchMin launch_min) {
   constexpr int T = kStagedThreads;
   constexpr int S = (V == kVrollDb ? 2 : 1) * I;  // slots per loop body
-  extern __shared__ uint32_t plane[];             // [S][48][T]
+  extern __shared__ uint32_t plane[];  // [S][kPlaneWords][T]
   uint32_t* const col = plane + threadIdx.x;
   const uint32_t base = job[16 * K + 11];
   const uint32_t limit = job[16 * K + 12];
@@ -323,9 +386,28 @@ __global__ void __launch_bounds__(kStagedThreads)
     }
 #pragma unroll
     for (int v = 0; v < S; ++v) {
-      sha256d::stage_schedule<K, T>(job, nonce[v], col + v * kPlaneWords * T);
+      sha256d::stage_schedule<K, T, TilePlane>(job, nonce[v],
+                                               col + v * kPlaneWords * T);
     }
-    staged_passes<K, G, I, WORD7, V, S>(job, nonce, live, col, count, lowest);
+    if constexpr (kRolledGroups) {
+      // Group n holds slots nI .. nI + I - 1 (kRolledGroups).
+#pragma unroll 1
+      for (int n = 0; n < 2; ++n) {
+        uint32_t group_nonce[I];
+        bool group_live[I];
+#pragma unroll
+        for (int v = 0; v < I; ++v) {
+          group_nonce[v] = n == 0 ? nonce[v] : nonce[I + v];
+          group_live[v] = n == 0 ? live[v] : live[I + v];
+        }
+        staged_passes<K, G, I, WORD7, V, I>(job, group_nonce, group_live,
+                                            col + n * I * kPlaneWords * T,
+                                            count, lowest);
+      }
+    } else {
+      staged_passes<K, G, I, WORD7, V, S>(job, nonce, live, col, count,
+                                          lowest);
+    }
   }
   store_step<K>(count, lowest, counts, mins, launch_min);
 }

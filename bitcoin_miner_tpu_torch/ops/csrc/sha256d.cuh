@@ -331,8 +331,13 @@ __device__ __forceinline__ bool second_meets(const Job& job, int c,
 // compiler unrolls and leave the chains' arrays in local memory. `job`
 // holds the constants of K chains (Layout<K>), read where each is used:
 // through a pointer, a load the compiler may hold or repeat; from launch
-// parameters, a constant-bank operand.
-template <int K, int G, int I, bool WORD7, int C0 = 0, class Job>
+// parameters, a constant-bank operand. With BIND each round-3 state word is
+// offset by __umulhi(nonce, 1): 0, but not known to be by the compiler, so
+// no part of the chains' first rounds becomes a loop invariant held in
+// registers across the nonce loop (at K=8 in one pass, under a 128-register
+// cap, such invariants took 19 words of spill, reloaded every nonce).
+template <int K, int G, int I, bool WORD7, bool BIND = false, int C0 = 0,
+          class Job>
 __device__ __forceinline__ void chains_meet(const Job& job,
                                             const uint32_t (&nonce)[I],
                                             bool (&meets)[I][K]) {
@@ -350,6 +355,7 @@ __device__ __forceinline__ void chains_meet(const Job& job,
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           s[v][g][i] = job[L::kState3 + 8 * (C0 + g) + i];
+          if constexpr (BIND) s[v][g][i] += __umulhi(nonce[v], 1u);
         }
       }
     }
@@ -361,7 +367,7 @@ __device__ __forceinline__ void chains_meet(const Job& job,
         meets[v][C0 + g] = second_meets<K, WORD7>(job, C0 + g, s[v][g]);
       }
     }
-    chains_meet<K, G, I, WORD7, C0 + G>(job, nonce, meets);
+    chains_meet<K, G, I, WORD7, BIND, C0 + G>(job, nonce, meets);
   }
 }
 
@@ -376,18 +382,29 @@ __device__ __forceinline__ void nonce_meets(const uint32_t* __restrict__ job,
   for (int c = 0; c < K; ++c) meets[c] = m[0][c];
 }
 
-// Staged tile, phase 1: one nonce's chunk-2 schedule words W[16..63],
-// expanded in its window and stored to the thread's column of a plane of T
-// threads, col[(t - 16) * T], so that a warp stores 32 consecutive words.
-template <int K, int T, class Job>
+// What a staged plane holds per nonce and slot, in the thread's column of
+// a plane of T threads, word j at col[j * T] (a warp's 32 accesses hit 32
+// banks): the schedule words W[FIRST .. FIRST + WORDS), by default all of
+// W[16..63].
+template <int FIRST = 16, int WORDS = 48>
+struct Plane {
+  static_assert(16 <= FIRST && FIRST + WORDS <= 64, "a part of W[16..63]");
+  static constexpr int kFirst = FIRST;
+  static constexpr int kWords = WORDS;
+  static constexpr bool kWhole = FIRST == 16 && WORDS == 48;
+};
+
+// Staged tile, phase 1: one nonce's words of the plane P, expanded in its
+// window.
+template <int K, int T, class P = Plane<>, class Job>
 __device__ __forceinline__ void stage_schedule(const Job& job, uint32_t nonce,
                                                uint32_t* col) {
   uint32_t w[16];
   window<K>(job, nonce, w);
 #pragma unroll
-  for (int i = 16; i < 64; ++i) {
+  for (int i = 16; i < P::kFirst + P::kWords; ++i) {
     w[i & 15] = schedule(w, i);
-    col[(i - 16) * T] = w[i & 15];
+    if (i >= P::kFirst) col[(i - P::kFirst) * T] = w[i & 15];
   }
 }
 
@@ -396,11 +413,17 @@ __device__ __forceinline__ void stage_schedule(const Job& job, uint32_t nonce,
 // words 4-15 the padding, and words 16-63 are loaded back from the thread's
 // column of the plane, each once per pass and fed to the pass's chains: no
 // schedule window lives across the rounds. Then each chain's second
-// compression.
-template <int K, int C0, int N, int T, bool WORD7, class Job>
+// compression. A partial plane (not P::kWhole; fully unrolled forms only)
+// holds W[FIRST .. FIRST + WORDS): the pass expands the others in a
+// window, W[16..FIRST) from the job alone (they do not read the nonce's
+// W[3]) and the tail from the words it loaded.
+template <int K, int C0, int N, int T, bool WORD7, class P = Plane<>,
+          class Job>
 __device__ __forceinline__ void staged_pass(const Job& job, uint32_t nonce,
                                             const uint32_t* col,
                                             bool (&meets)[N]) {
+  static_assert(P::kWhole || !kRolled,
+                "a partial plane needs the unrolled rounds");
   using L = Layout<K>;
   uint32_t s[N][8];
 #pragma unroll
@@ -408,18 +431,33 @@ __device__ __forceinline__ void staged_pass(const Job& job, uint32_t nonce,
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[g][i] = job[L::kState3 + 8 * (C0 + g) + i];
   }
-  const uint32_t w3 = bswap32(nonce);
+  if constexpr (P::kWhole) {
+    const uint32_t w3 = bswap32(nonce);
 #if UNROLL >= 64
 #pragma unroll
 #else
 #pragma unroll(kUnroll)
 #endif
-  for (int i = 3; i < 64; ++i) {
-    const uint32_t wi = i >= 16 ? col[(i - 16) * T]
-                        : i == 3 ? w3
-                                 : chunk2_word(i);
+    for (int i = 3; i < 64; ++i) {
+      const uint32_t wi = i >= 16 ? col[(i - 16) * T]
+                          : i == 3 ? w3
+                                   : chunk2_word(i);
 #pragma unroll
-    for (int g = 0; g < N; ++g) sha_round(s[g], i, wi);
+      for (int g = 0; g < N; ++g) sha_round(s[g], i, wi);
+    }
+  } else {
+    uint32_t w[16];
+    window<K>(job, nonce, w);
+#pragma unroll
+    for (int i = 3; i < 64; ++i) {
+      if (i >= P::kFirst && i < P::kFirst + P::kWords) {
+        w[i & 15] = col[(i - P::kFirst) * T];
+      } else if (i >= 16) {
+        w[i & 15] = schedule(w, i);
+      }
+#pragma unroll
+      for (int g = 0; g < N; ++g) sha_round(s[g], i, w[i & 15]);
+    }
   }
 #pragma unroll
   for (int g = 0; g < N; ++g) {

@@ -101,34 +101,93 @@ def check_layout(vshare: int, variant: str, cgroup: int, interleave: int,
             "(0 = variant default)")
 
 
-#: Threads per block of the staged kernels, and the words of a nonce's
-#: schedule they stage (W[16..63]).
+#: Threads per block of the windowed kernels (at most) and of the staged
+#: ones, and the words of a nonce's schedule the staged ones stage
+#: (W[16..63]; vroll-db at two nonces in flight stages a part of them,
+#: :func:`plane_words`).
+MAX_THREADS = 256
 STAGED_THREADS = 128
 PLANE_WORDS = 48
+#: Shared memory of an SM on an H100, what each resident block reserves of
+#: it, and the kernels' own reduction arrays at 8 chains.
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+STEP_ARRAYS_BYTES = 2 * 8 * 8 * 4
 #: Shared memory one thread block may use on an H100, less the kernels'
 #: own reduction arrays at 8 chains.
-MAX_PLANE_BYTES = 232448 - 2 * 8 * 8 * 4
+MAX_PLANE_BYTES = 232448 - STEP_ARRAYS_BYTES
 
 
-def plane_bytes(variant: str, interleave: int) -> int:
+def min_blocks(vshare: int, variant: str, interleave: int) -> int:
+    """The blocks per SM a layout's launch bounds ask ptxas for, 0 for the
+    thread count alone (``csrc/scan_tile.cu``'s ``SCAN_TILE_MIN_BLOCKS``):
+    regchain at more than 4 chains two blocks of 256 threads, vroll-db at
+    more than 4 chains or at two nonces in flight four of 128. Each is 16
+    warps per SM at no more than 128 registers a thread; the thread count
+    alone left these builds at 8."""
+    if variant == "regchain" and vshare > 4 and interleave == 1:
+        return 2
+    if variant == "vroll-db" and (vshare > 4 or interleave == 2):
+        return 4
+    return 0
+
+
+def plane_words(variant: str, interleave: int,
+                unroll: int = 64) -> Tuple[int, int]:
+    """(first word, words) of the schedule a staged layout's plane holds
+    per nonce and slot: W[16..63], (16, 48); for vroll-db at two nonces in
+    flight in a fully unrolled form, the part of W[18..63] whose four slots
+    fit a quarter of the SM beside three other blocks, (18, 27): W[16] and
+    W[17] read only the job, and each pass expands W[45..63] again."""
+    if variant == "vroll-db" and interleave == 2 and unroll >= 64:
+        slots = 2 * interleave
+        fit = (SMEM_PER_SM // min_blocks(1, variant, interleave)
+               - SMEM_RESERVED - STEP_ARRAYS_BYTES)
+        return 18, fit // (slots * STAGED_THREADS * 4)
+    return 16, PLANE_WORDS
+
+
+def plane_bytes(variant: str, interleave: int, unroll: int = 64) -> int:
     """Dynamic shared memory of a staged kernel's block: one plane slot
-    per nonce in flight (2·interleave for vroll-db), 0 for the others."""
+    per nonce in flight (2·interleave for vroll-db) of
+    :func:`plane_words`; 0 for the others."""
     if variant not in STAGED_VARIANTS:
         return 0
     slots = interleave * (2 if variant == "vroll-db" else 1)
-    return slots * PLANE_WORDS * 4 * STAGED_THREADS
+    words = plane_words(variant, interleave, unroll)[1]
+    return slots * words * 4 * STAGED_THREADS
+
+
+def rolled_groups(vshare: int, variant: str) -> bool:
+    """Whether a layout runs vroll-db's two staged groups' passes in a
+    rolled loop, one group after the other (``csrc/scan_tile.cu``'s
+    ``kRolledGroups``): vroll-db at more than 4 chains. Its nonce loop's
+    SASS then holds one group's passes, which run twice an iteration."""
+    return variant == "vroll-db" and vshare > 4
+
+
+def launch_threads(variant: str, interleave: int, block: int) -> int:
+    """Threads per block of a launch over steps of ``block`` nonces, as
+    ``csrc/scan_tile.cu``'s ``launch`` picks them: 128 for the staged
+    layouts; for the windowed ones 256, fewer for a smaller step, and 128
+    where two or more nonces in flight do not divide the step by 256."""
+    if variant in STAGED_VARIANTS:
+        return STAGED_THREADS
+    if interleave == 1:
+        return min(block, MAX_THREADS)
+    return MAX_THREADS if block % (MAX_THREADS * interleave) == 0 else 128
 
 
 def check_plane(variant: str, interleave: int) -> None:
     """Refuse a staged layout whose plane does not fit one thread block's
     shared memory on the card (vroll-db beyond interleave 4, wstage and
     vroll beyond 9)."""
-    if plane_bytes(variant, interleave) > MAX_PLANE_BYTES:
+    need = plane_bytes(variant, interleave)
+    if need > MAX_PLANE_BYTES:
         raise ValueError(
-            f"{variant} at interleave={interleave} needs "
-            f"{plane_bytes(variant, interleave)} bytes of shared memory per "
-            f"block of {STAGED_THREADS} threads; an H100 block has "
-            f"{MAX_PLANE_BYTES} for the plane")
+            f"{variant} at interleave={interleave} needs {need} bytes of "
+            f"shared memory per block of {STAGED_THREADS} threads; an H100 "
+            f"block has {MAX_PLANE_BYTES} for the plane")
 
 
 def tile_library(vshare: int, variant: str = "baseline", cgroup: int = 0,

@@ -330,17 +330,15 @@ def _own_passes(cfg: Dict) -> int:
 def _launch_shape(cfg: Dict) -> Tuple[int, int, int]:
     """(threads per block, blocks per 2^24-nonce dispatch, nonces per
     loop iteration of a thread)."""
+    from ..ops.sha256_tile import launch_threads
     from ..ops.sha256_torch import hitbuf_geometry
 
     if cfg["kernel"] == "hitbuf":
         return 256, hitbuf_geometry(DISPATCH)[1], 1
     block = cfg["sublanes"] * 128 * cfg["inner_tiles"]
-    i = cfg["interleave"]
-    if cfg["variant"] in STAGED:
-        return 128, DISPATCH // block, i * (2 if cfg["variant"] == "vroll-db"
-                                            else 1)
-    threads = 256 if i == 1 or block % (256 * i) == 0 else 128
-    return threads, DISPATCH // block, i
+    i, variant = cfg["interleave"], cfg["variant"]
+    per_iter = i * (2 if variant == "vroll-db" else 1)
+    return launch_threads(variant, i, block), DISPATCH // block, per_iter
 
 
 def _kernel_name(cfg: Dict) -> str:
@@ -357,7 +355,10 @@ def stub_read(cfg: Dict) -> Dict:
     """A deterministic read for the CPU smoke — NOT evidence: the loop's
     instructions from the operation count (with the staged plane's
     shared-memory traffic), registers growing with the chains in flight,
-    spills past 255 registers, blocks per SM from the registers."""
+    spills past 255 registers or past the cap of a build's launch bounds
+    (``sha256_tile.min_blocks``), blocks per SM from the registers and the
+    plane (``sha256_tile.plane_bytes``)."""
+    from ..ops.sha256_tile import min_blocks, plane_bytes, plane_words
     from ..ops.sha256_torch import ops_per_nonce
 
     k, staged = cfg["vshare"], cfg.get("variant") in STAGED
@@ -366,17 +367,24 @@ def stub_read(cfg: Dict) -> Dict:
                         cfg["spec"] and cfg["unroll"] >= 64)
     passes = _own_passes(cfg) if not staged else k
     g = k if cfg["kernel"] == "hitbuf" else -(-k // passes)
-    shared = 48 * (1 + passes) if staged else 0
+    smem = words = 0
+    if staged:
+        i, unroll = cfg["interleave"], cfg["unroll"]
+        words = plane_words(cfg["variant"], i, unroll)[1]
+        smem = plane_bytes(cfg["variant"], i, unroll)
+    shared = words * (1 + passes)
     alu = int(ops.logic * 1.08) * per_iter
     other = (shared + 40) * per_iter
     fma = int(ops.adds * 0.42) * per_iter
     want = 40 + 22 * g * per_iter + (0 if staged else 8 * (k - g))
-    registers = min(255, want)
-    spill = max(0, want - 255) * 4
+    cap = 255
+    if cfg["kernel"] == "tile":
+        blocks = min_blocks(k, cfg["variant"], cfg["interleave"])
+        if blocks:
+            cap = min(cap, REGS_PER_SM // (blocks * threads))
+    registers = min(cap, want)
+    spill = max(0, want - cap) * 4
     local = spill // 4
-    smem = 0
-    if staged:
-        smem = per_iter * 48 * 4 * threads
     return {"ok": True, "registers": registers, "spill_stores": spill,
             "spill_loads": spill, "static_smem": 8 * k * 4,
             "threads": threads, "n_blocks": n_blocks,
@@ -396,12 +404,15 @@ def _is_word7(mangled: str, kernel: str) -> bool:
         return False
 
 
-def read_kernel(kernel: str, log: str, listing: str) -> Dict:
+def read_kernel(kernel: str, log: str, listing: str,
+                inner_trips: int = 1) -> Dict:
     """What one library's word7 ``kernel`` compiled to: its ptxas ``-v``
     registers, spills and static shared memory, and its nonce loop's
     instructions per pipe with its local, shared and global memory ones,
     from the ``cuobjdump -sass`` listing (only that kernel's part of it
-    is parsed)."""
+    is parsed). A loop inside the nonce loop that runs ``inner_trips``
+    times an iteration (``sha256_tile.rolled_groups``: twice) counts that
+    many times."""
     from . import ptxas, sass
 
     fields = next((f for name, f in ptxas.entries(log).items()
@@ -412,9 +423,15 @@ def read_kernel(kernel: str, log: str, listing: str) -> Dict:
         return {"ok": False, "error": f"no word7 {kernel} in the library"}
     (insns,) = sass.functions("Function : " + part).values()
     body = sass.loop_body(insns)
-    loop = sass.pipe_counts(body)
+    runs = [body] + [sass.inner_loop(insns, body)] * (inner_trips - 1)
+    loop = dict.fromkeys((*sass.PIPES, "all"), 0)
     for op in (*LOCAL_OPS, *SHARED_OPS, "LDG"):
-        loop[op] = sum(1 for insn in body if insn.base == op)
+        loop[op] = 0
+    for run in runs:
+        for key, n in sass.pipe_counts(run).items():
+            loop[key] += n
+        for op in (*LOCAL_OPS, *SHARED_OPS, "LDG"):
+            loop[op] += sum(1 for insn in run if insn.base == op)
     return {"ok": True, **fields, "loop": loop}
 
 
@@ -437,12 +454,21 @@ def with_launch(read: Dict, cfg: Dict,
             "blocks_per_sm_source": source}
 
 
+def _inner_trips(cfg: Dict) -> int:
+    """Runs of the loop inside a candidate's nonce loop per iteration: 2
+    for a layout whose staged groups run in a rolled loop, else 1."""
+    from ..ops.sha256_tile import rolled_groups
+
+    return 2 if cfg["kernel"] == "tile" and rolled_groups(
+        cfg["vshare"], cfg["variant"]) else 1
+
+
 def read_library(cfg: Dict, log: str, listing: str,
                  blocks_per_sm: Optional[int] = None) -> Dict:
     """The static read of one candidate from its library's ptxas log and
     SASS listing (:func:`read_kernel`, :func:`with_launch`)."""
-    return with_launch(read_kernel(_kernel_name(cfg), log, listing), cfg,
-                       blocks_per_sm)
+    return with_launch(read_kernel(_kernel_name(cfg), log, listing,
+                                   _inner_trips(cfg)), cfg, blocks_per_sm)
 
 
 def card_of_this_machine() -> Dict:
@@ -493,7 +519,7 @@ def nvcc_reads(cfgs: List[Dict], log=print) -> List[Dict]:
         name = library_of(c)
         if name not in kernels:
             kernels[name] = read_kernel(_kernel_name(c), logs[name],
-                                        listings[name])
+                                        listings[name], _inner_trips(c))
     return [with_launch(kernels[library_of(c)], c,
                         occupancy.get(library_of(c))) for c in cfgs]
 

@@ -123,6 +123,16 @@ def loop_body(insns: List[Insn]) -> List[Insn]:
     return best
 
 
+def inner_loop(insns: List[Insn], body: List[Insn]) -> List[Insn]:
+    """The largest loop of ``insns`` strictly inside the loop ``body`` (a
+    :func:`loop_body`): empty when ``body`` holds none."""
+    if not body:
+        return []
+    first, last = body[0].addr, body[-1].addr
+    return loop_body([insn for insn in insns
+                      if first <= insn.addr < last])
+
+
 def pipe_counts(insns: List[Insn]) -> Dict[str, int]:
     """Instructions per pipe, and ``all`` of them."""
     counts = dict.fromkeys(PIPES, 0)

@@ -988,23 +988,38 @@ def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
                            mode == "word7", k)._asdict()}
                 for mode in ("word7", "exact")}
         # Each staged library must read its plane back from shared memory:
-        # 48 loads per slot and chain pass, not words forwarded in registers.
+        # a load per word of the plane (48, or the partial plane's) per slot
+        # and chain pass, not words forwarded in registers.
         staged = {}
         for k, variant, cgroup, interleave in layouts:
             if variant not in tile.STAGED_VARIANTS:
                 continue
             name = tile.tile_library(k, variant, cgroup, interleave)
-            slots = tile.plane_bytes(variant, interleave) // (
-                4 * tile.PLANE_WORDS * tile.STAGED_THREADS)
+            first, words = tile.plane_words(variant, interleave)
+            slots = interleave * (2 if variant == "vroll-db" else 1)
+            # A rolled group loop holds one group's passes, run twice.
+            read = interleave if tile.rolled_groups(k, variant) else slots
             passes = len(tile._chain_groups(
                 k, tile._cgroup_size(cgroup, variant, k)))
             for fn, ops in sass[name].items():
-                assert ops["STS"] >= tile.PLANE_WORDS * slots, (name, fn, ops)
-                assert ops["LDS"] >= tile.PLANE_WORDS * slots * passes, (
-                    name, fn, ops)
+                assert ops["STS"] >= words * slots, (name, fn, ops)
+                assert ops["LDS"] >= words * read * passes, (name, fn, ops)
             staged[name] = {"slots": slots, "passes": passes,
-                            "plane_loads_expected": tile.PLANE_WORDS * slots
-                            * passes}
+                            "plane": [first, first + words],
+                            "rolled_groups": read < slots,
+                            "plane_loads_expected": words * read * passes}
+        # scan_tile_occupancy reports the shape launch() gives the smoke's
+        # 8192-nonce steps, and a build whose launch bounds ask for a
+        # minimum of blocks per SM gets them.
+        for k, variant, cgroup, interleave in layouts:
+            name = tile.tile_library(k, variant, cgroup, interleave)
+            for mode, occ in occupancy_of[name].items():
+                want = (tile.launch_threads(variant, interleave, 8192),
+                        tile.plane_bytes(variant, interleave))
+                assert (occ["threads"], occ["dynamic_smem"]) == want, (
+                    name, mode, occ, want)
+                assert occ["blocks_per_sm"] >= tile.min_blocks(
+                    k, variant, interleave), (name, mode, occ)
         return {"card": name_power, "sm_clock_max_mhz": sm_clock_mhz,
                 "sms": sms, "torch": torch.__version__,
                 "cuda": torch.version.cuda,
@@ -2381,7 +2396,8 @@ def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
                 k, tile._cgroup_size(cgroup, variant, k)))
             staged = variant in tile.STAGED_VARIANTS
             own = 1 if staged else passes  # schedule expansions per nonce
-            smem_bytes = 4 * tile.PLANE_WORDS * (1 + passes) if staged else 0
+            words = tile.plane_words(variant, interleave)[1]
+            smem_bytes = 4 * words * (1 + passes) if staged else 0
             smem_ms = (DISPATCH * smem_bytes / (SMEM_BYTES_PER_CLOCK * sms
                                                 * sm_clock_mhz * 1e6) * 1e3)
             own_bound = bound(DISPATCH, True, k, own)
@@ -2408,6 +2424,8 @@ def run(torch, pkg, mesh_only: bool = False, phases: list = None) -> int:
                     occupancy_of[name][mode]["blocks_per_sm"])
             row["threads"] = occupancy_of[name]["word7"]["threads"]
             row["dynamic_smem"] = occupancy_of[name]["word7"]["dynamic_smem"]
+            row["warps_per_sm"] = (row["blocks_per_sm_word7"]
+                                   * row["threads"] // 32)
             rows[name] = row
 
         for k in (1, 2, 3, 4, 8):

@@ -32,8 +32,19 @@ and a Stratum session. One JSON line.
 checkout's ``chip_smoke.py`` builds and prints ptxas' registers, spills
 and shared memory per kernel (read by the checkout's
 ``probes/ptxas.py``, or by its smoke's own parser where it has no such
-module), and the SASS per pipe of each hit-buffer library's nonce loop.
-One JSON line.
+module), and the SASS per pipe of each scan library's nonce loop (the
+hit-buffer and the tile kernels, per library, kernel and mode). One JSON
+line.
+
+``python3 sweep_pairs.py ROOT --layouts K:VARIANT[:CGROUP[:INTERLEAVE]]
+...`` builds those layouts' tile libraries of the checkout (and its
+one-chain ``scan_tile``, whose queued scans keep the card busy) and times
+each as ``chip_smoke.py``'s ``timings`` phase does: the mean of 20
+2^24-nonce launches of the genesis job, word7 and exact, with CUDA events
+behind queued 2^24 scans. One JSON line: per library the two times, the
+operation bound at its K (``bound_ms``) and the share of it, ptxas'
+registers and spills, and the launch shape ``scan_tile_occupancy``
+reports (threads, dynamic shared bytes, blocks and warps per SM).
 
 ``python3 sweep_pairs.py ROOT --telemetry N`` (a checkout with the
 telemetry package) sweeps the genesis nonces through ``cli.bench`` with
@@ -47,6 +58,7 @@ checkout and run parent, change, change, parent in one call.
 """
 
 import asyncio
+import concurrent.futures
 import json
 import os
 import statistics
@@ -187,6 +199,11 @@ def fused(root: str) -> dict:
             "easy": easy_scans(root)}
 
 
+#: The nonce-loop kernels whose SASS ``--ptxas`` reads per pipe.
+SCAN_KERNELS = ("scan_hitbuf_kernel", "scan_tile_kernel",
+                "scan_tile_param_kernel", "scan_tile_staged_kernel")
+
+
 def ptxas(root: str) -> dict:
     """Registers, spills and shared memory of every library the checkout's
     smoke test builds, and its hit-buffer loops' SASS per pipe."""
@@ -209,19 +226,118 @@ def ptxas(root: str) -> dict:
         from bitcoin_miner_tpu_torch.probes.ptxas import ptxas_table
     except ImportError:
         ptxas_table = chip_smoke.ptxas_table
+    scans = [n for n in names if n.startswith(("scan_hitbuf", "scan_tile"))]
+    with concurrent.futures.ThreadPoolExecutor(16) as pool:
+        listings = dict(zip(scans, pool.map(
+            lambda n: sass.listing(csrc.library_path(n)), scans)))
     loops = {}
-    for name in names:
-        if not name.startswith("scan_hitbuf"):
-            continue
-        for fn, insns in sass.functions(
-                sass.listing(csrc.library_path(name))).items():
-            if "scan_hitbuf_kernel" in fn:
+    for name in scans:
+        for fn, insns in sass.functions(listings[name]).items():
+            kernel = next((k for k in SCAN_KERNELS if k in fn), None)
+            if kernel is not None:
                 mode = "word7" if "Lb1E" in fn else "exact"
-                loops[f"{name}/{mode}"] = sass.pipe_counts(
+                loops[f"{name}/{kernel}/{mode}"] = sass.pipe_counts(
                     sass.loop_body(insns))
     return {"root": root, "card": card(), "libraries": len(names),
             "build_seconds": seconds,
-            "ptxas": ptxas_table(logs), "hitbuf_loops": loops}
+            "ptxas": ptxas_table(logs),
+            "hitbuf_loops": {k: v for k, v in loops.items()
+                             if "scan_hitbuf_kernel" in k},
+            "tile_loops": {k: v for k, v in loops.items()
+                           if k.startswith("scan_tile")}}
+
+
+#: A ``--layouts`` argument: K:VARIANT[:CGROUP[:INTERLEAVE]].
+LAYOUT_FORM = "K:VARIANT[:CGROUP[:INTERLEAVE]]"
+#: Nonces per launch and per step of the ``--layouts`` timings, and
+#: launches per timing: the smoke's.
+LAYOUT_NONCES, LAYOUT_BLOCK, LAYOUT_REPS = 1 << 24, 8192, 20
+
+
+def parse_layouts(specs: list) -> list:
+    """(K, variant, cgroup, interleave) of each :data:`LAYOUT_FORM`
+    argument: cgroup 0 (the variant's default) and interleave 1 unless
+    given. Raises ValueError on a malformed or missing one; the layout
+    itself is checked by the checkout's ``sha256_tile.check_layout``."""
+    if not specs:
+        raise ValueError(f"--layouts needs at least one {LAYOUT_FORM}")
+    out = []
+    for spec in specs:
+        parts = spec.split(":")
+        try:
+            if not 2 <= len(parts) <= 4 or not parts[1]:
+                raise ValueError
+            k = int(parts[0])
+            cgroup = int(parts[2]) if len(parts) > 2 else 0
+            interleave = int(parts[3]) if len(parts) > 3 else 1
+        except ValueError:
+            raise ValueError(f"bad layout {spec!r}: want {LAYOUT_FORM}, "
+                             "e.g. 8:regchain or 2:vroll-db:0:2") from None
+        out.append((k, parts[1], cgroup, interleave))
+    return out
+
+
+def layout_row(layout: tuple, ms: float, ms_exact: float, bound_ms: float,
+               ptxas: dict, occupancy: dict) -> dict:
+    """One library's entry of the ``--layouts`` line: its times, its
+    operation bound and the share of it, ptxas' registers and spills per
+    mode (``ptxas``: mode → its row) and its launch shape (``occupancy``:
+    ``chip_smoke.tile_occupancy``)."""
+    k, variant, cgroup, interleave = layout
+    row = {"vshare": k, "variant": variant, "cgroup": cgroup,
+           "interleave": interleave, "ms": ms, "ms_exact": ms_exact,
+           "bound_ms": bound_ms, "of_bound": bound_ms / ms}
+    for mode in ("word7", "exact"):
+        row[f"registers_{mode}"] = ptxas.get(mode, {}).get("registers")
+        row[f"spill_bytes_{mode}"] = ptxas.get(mode, {}).get("spill_stores")
+        row[f"blocks_per_sm_{mode}"] = occupancy[mode]["blocks_per_sm"]
+    row["threads"] = occupancy["word7"]["threads"]
+    row["dynamic_smem"] = occupancy["word7"]["dynamic_smem"]
+    row["warps_per_sm"] = row["blocks_per_sm_word7"] * row["threads"] // 32
+    return row
+
+
+def layouts(root: str, specs: list) -> dict:
+    """The ``--layouts`` line of the checkout at ``root`` (see the module's
+    docstring)."""
+    import torch
+
+    import chip_smoke  # the checkout's
+    from bitcoin_miner_tpu_torch.ops import csrc, sha256_tile
+
+    for k, variant, cgroup, interleave in specs:
+        sha256_tile.check_layout(k, variant, cgroup, interleave,
+                                 LAYOUT_BLOCK // sha256_tile.LANES)
+    names = [sha256_tile.tile_library(*l) for l in specs]
+    logs = csrc.build(["scan_tile", *names])
+    pkg = chip_smoke._Package()
+    rows_of = {(r["library"], r["mode"]): r
+               for r in pkg.ptxas.ptxas_table(logs)}
+    s = chip_smoke.Smoke(torch, pkg)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = float(chip_smoke.nvidia_smi("clocks.max.sm", units=False)) * 1e6
+    genesis76 = bytes.fromhex(pkg.GENESIS_HEADER_HEX)[:76]
+    diff1 = pkg.nbits_to_target(0x1D00FFFF)
+    base = chip_smoke.GENESIS_NONCE - LAYOUT_NONCES // 2
+    out = {}
+    for layout, name in zip(specs, names):
+        k, variant, cgroup, interleave = layout
+        job = s.job(genesis76, diff1, base, LAYOUT_NONCES, k)
+        host = s.job(genesis76, diff1, base, LAYOUT_NONCES, k, host=True)
+        kw = dict(n_steps=LAYOUT_NONCES // LAYOUT_BLOCK, block=LAYOUT_BLOCK,
+                  vshare=k, variant=variant, cgroup=cgroup,
+                  interleave=interleave, host_words=host)
+        ms = s.time_ms(lambda: pkg.scan_tile(job, word7=True, **kw),
+                       LAYOUT_REPS)
+        ms_exact = s.time_ms(lambda: pkg.scan_tile(job, **kw), LAYOUT_REPS)
+        out[name] = layout_row(
+            layout, ms, ms_exact,
+            pkg.bound_ms(LAYOUT_NONCES, True, sms, hz, vshare=k),
+            {mode: rows_of.get((name, mode), {})
+             for mode in ("word7", "exact")},
+            chip_smoke.tile_occupancy(csrc, name))
+    return {"root": root, "card": card(), "nonces": LAYOUT_NONCES,
+            "layouts": out}
 
 
 def telemetry_legs(root: str, rounds: int) -> dict:
@@ -270,12 +386,22 @@ def telemetry_legs(root: str, rounds: int) -> dict:
 
 
 def main() -> int:
+    specs = None
+    if sys.argv[2:3] == ["--layouts"]:
+        try:
+            specs = parse_layouts(sys.argv[3:])
+        except ValueError as e:
+            print(f"sweep_pairs: {e}", file=sys.stderr)
+            return 2
     root = os.path.abspath(sys.argv[1])
     sys.path.insert(0, root)
     os.chdir(root)
     from bitcoin_miner_tpu_torch import cli
     from bitcoin_miner_tpu_torch.ops import csrc
 
+    if specs is not None:
+        print(json.dumps(layouts(sys.argv[1], specs)), flush=True)
+        return 0
     if sys.argv[2:] == ["--easy"]:
         csrc.build(["scan_tile", "scan_hitbuf"])
         print(json.dumps(easy_scans(sys.argv[1])), flush=True)

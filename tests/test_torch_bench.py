@@ -33,6 +33,9 @@ from bitcoin_miner_tpu_torch.core.header import (  # noqa: E402
 from bitcoin_miner_tpu_torch.core.target import nbits_to_target  # noqa: E402
 from bitcoin_miner_tpu_torch.probes import trace_report  # noqa: E402
 from bitcoin_miner_tpu_torch.telemetry import get_telemetry  # noqa: E402
+from bitcoin_miner_tpu_torch.telemetry import (  # noqa: E402
+    pipeline as port_pipeline,
+)
 
 #: a small in-process bench of the tile hasher's plain version.
 CPU_ARGV = ["--device", "cpu", "--sweep-bits", "12", "--batch-bits", "10"]
@@ -297,8 +300,15 @@ def test_ledger_row_names_the_platform_it_ran_on(tmp_path, capsys):
 def test_profile_and_trace_of_the_timed_sweep(tmp_path, capsys):
     profile = tmp_path / "profile"
     trace = tmp_path / "trace.json"
-    assert bench.main([*CPU_ARGV, "--profile", str(profile),
-                       "--trace-out", str(trace)]) == 0
+    # --trace-out writes every span of the process default bundle: the run
+    # gets a bundle of its own, so that no earlier test's spans (in the same
+    # worker process) are counted with the bench's.
+    port_pipeline.set_telemetry(None)
+    try:
+        assert bench.main([*CPU_ARGV, "--profile", str(profile),
+                           "--trace-out", str(trace)]) == 0
+    finally:
+        port_pipeline.set_telemetry(None)
     line = _line(capsys)
     assert [os.path.basename(p) for p in trace_report.find_traces(
         str(profile))] == [f"bench.{os.getpid()}.pt.trace.json"]

@@ -613,3 +613,64 @@ def test_baseline_matrix_quick_on_the_card(cuda, argv, capsys):
     assert [(r["config"], r["pass"]) for r in lines] == [
         (c, True) for c in range(1, 6)]
     assert all(b > a for a, b in zip(scans[:-1], scans[1:])), scans
+
+
+# The layouts redesigned for the card's register file and shared memory:
+# their launch bounds ask for the blocks that make 16 warps per SM
+# (``sha256_tile.min_blocks``), and vroll-db at two nonces in flight stages
+# a partial plane (``sha256_tile.plane_words``).
+REDESIGNED = [(8, "regchain", 0, 1), (8, "vroll-db", 0, 1),
+              (2, "vroll-db", 0, 2)]
+
+
+@pytest.mark.parametrize("layout", REDESIGNED,
+                         ids=lambda l: "-".join(map(str, l)))
+@pytest.mark.parametrize("word7", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_redesigned_layout_with_lowest_matches_plain(cuda, case, word7,
+                                                     layout):
+    """Counts, mins and the fused ``lowest``, word7 and exact; the
+    ``easy_cut`` case's limit is not a multiple of the step."""
+    k, variant, cgroup, interleave = layout
+    job = _k_job(case, k, cuda)
+    kw = dict(n_steps=N // 8192, block=8192, word7=word7, vshare=k)
+    counter = csrc.launch_counter(tile_library(*layout))
+    before = counter.value
+    got = scan_tile(job, variant=variant, cgroup=cgroup,
+                    interleave=interleave, lowest=True,
+                    host_words=_k_job(case, k, cuda, host=True), **kw)
+    assert counter.value == before + 1
+    counts, mins = scan_tile_plain(job, **kw)
+    assert _equal(got, (counts, mins, shard_min_plain(mins)))
+
+
+@pytest.mark.parametrize("layout", REDESIGNED,
+                         ids=lambda l: "-".join(map(str, l)))
+def test_redesigned_layout_occupancy(cuda, layout):
+    """``scan_tile_occupancy`` reports the shape ``launch`` gives an
+    8192-nonce step (threads, the plane's dynamic shared bytes), ptxas
+    kept the registers under the launch bounds' cap, and the blocks per
+    SM make at least 16 warps."""
+    import ctypes
+
+    from bitcoin_miner_tpu_torch.probes import ptxas
+
+    k, variant, cgroup, interleave = layout
+    name = tile_library(*layout)
+    threads = sha256_tile.launch_threads(variant, interleave, 8192)
+    blocks = sha256_tile.min_blocks(k, variant, interleave)
+    assert blocks * threads // 32 == 16
+    rows = [r for r in ptxas.ptxas_table(csrc.build([name]))
+            if r["library"] == name and r["mode"] in ("word7", "exact")]
+    assert {r["mode"] for r in rows} == {"word7", "exact"}
+    for row in rows:
+        assert row["registers"] <= 65536 // (blocks * threads), row
+    lib = csrc.load(name)
+    for word7 in (1, 0):
+        vals = [ctypes.c_int() for _ in range(3)]
+        csrc.check(lib.scan_tile_occupancy(
+            word7, *(ctypes.addressof(v) for v in vals)), name)
+        got_threads, smem, per_sm = (v.value for v in vals)
+        assert (got_threads, smem) == (
+            threads, sha256_tile.plane_bytes(variant, interleave))
+        assert per_sm >= blocks and per_sm * threads // 32 >= 16

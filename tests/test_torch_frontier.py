@@ -158,6 +158,26 @@ _LOG = ("ptxas info    : Compiling entry function '_ZN4_GLOBAL__16scan_tile_"
         "ptxas info    : Used 40 registers, 64 bytes smem\n")
 
 
+_NESTED = """
+\tcode for sm_90a
+\t\tFunction : _ZN4_GLOBAL__23scan_tile_staged_kernelILi8ELi1ELi1ELb1ELNS_7VariantE5EEEvNS_8JobWordsIXT_EEEPiPjjNS_9LaunchMinE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_1:
+        /*0010*/                   STS [R1], R2 ;
+        /*0020*/                   IADD3 R1, R1, 0x1, RZ ;
+.L_x_2:
+        /*0030*/                   LDS R4, [R1] ;
+        /*0040*/                   LOP3.LUT R2, R1, R4, RZ, 0x3c, !PT ;
+        /*0050*/               @P0 BRA `(.L_x_2) ;
+        /*0060*/                   IADD3 R3, R3, 0x1, RZ ;
+        /*0070*/                   BRA `(.L_x_1) ;
+"""
+_NESTED_LOG = ("ptxas info    : Compiling entry function '_ZN4_GLOBAL__23scan_"
+               "tile_staged_kernelILi8ELi1ELi1ELb1ELNS_7VariantE5EEEvNS_8Job"
+               "WordsIXT_EEEPiPjjNS_9LaunchMinE' for 'sm_90a'\n"
+               "ptxas info    : Used 128 registers, 512 bytes smem\n")
+
+
 class TestRead:
     def test_reads_the_word7_kernel_only(self):
         read = frontier.read_kernel("scan_tile_kernel", _LOG, _LISTING)
@@ -166,6 +186,25 @@ class TestRead:
                         "loop": {"alu": 2, "fma": 0, "other": 3, "all": 5,
                                  "LDL": 1, "STL": 0, "LDS": 1, "STS": 0,
                                  "LDG": 0}}
+
+    def test_a_rolled_inner_loop_counts_once_a_run(self):
+        """The nonce loop (.L_x_1) holds a rolled loop (.L_x_2) that runs
+        twice an iteration: its 3 instructions count twice."""
+        once = frontier.read_kernel("scan_tile_staged_kernel", _NESTED_LOG,
+                                    _NESTED)
+        twice = frontier.read_kernel("scan_tile_staged_kernel", _NESTED_LOG,
+                                     _NESTED, inner_trips=2)
+        assert once["loop"] == {"alu": 3, "fma": 0, "other": 4, "all": 7,
+                                "LDL": 0, "STL": 0, "LDS": 1, "STS": 1,
+                                "LDG": 0}
+        assert twice["loop"] == {"alu": 4, "fma": 0, "other": 6, "all": 10,
+                                 "LDL": 0, "STL": 0, "LDS": 2, "STS": 1,
+                                 "LDG": 0}
+        cfg = _cfg(vshare=8, variant="vroll-db")
+        assert frontier._inner_trips(cfg) == 2
+        assert frontier.read_library(cfg, _NESTED_LOG, _NESTED) == (
+            frontier.with_launch(twice, cfg))
+        assert frontier._inner_trips(_cfg(vshare=4, variant="vroll-db")) == 1
 
     def test_a_missing_kernel_is_a_failed_read(self):
         read = frontier.read_library(_cfg(variant="wstage"), _LOG, _LISTING)
@@ -596,3 +635,85 @@ class TestRecordedOnTheCard:
                     "predicted_ms"] for r in at],
                 [r["measured_ms"] for r in at])
             assert rho >= floor, (k, rho)
+
+
+class TestRedesignedGeometry:
+    """The ranker's model of blocks per SM for the launch shapes of the
+    builds whose launch bounds ask for a minimum of blocks
+    (``sha256_tile.min_blocks``): at the registers those bounds allow and
+    the plane they stage, 16 warps per SM; at the parent's registers and
+    full plane, recorded on the card in the fixture, 8."""
+
+    REDESIGNED = {"tile_k8_regchain": (8, "regchain", 0, 1),
+                  "tile_k8_vroll_db": (8, "vroll-db", 0, 1),
+                  "tile_k2_vroll_db_i2": (2, "vroll-db", 0, 2)}
+
+    @pytest.mark.parametrize("read", sorted(REDESIGNED))
+    def test_sixteen_warps_at_the_new_registers_and_plane(self, read):
+        from bitcoin_miner_tpu_torch.ops import sha256_tile
+
+        k, variant, cgroup, interleave = self.REDESIGNED[read]
+        cfg = _cfg(vshare=k, variant=variant, cgroup=cgroup,
+                   interleave=interleave)
+        threads, _, _ = frontier._launch_shape(cfg)
+        assert threads == sha256_tile.launch_threads(variant, interleave,
+                                                     8192)
+        blocks = sha256_tile.min_blocks(k, variant, interleave)
+        cap = frontier.REGS_PER_SM // (blocks * threads)
+        assert cap == 128
+        smem = sha256_tile.plane_bytes(variant, interleave)
+        assert frontier.blocks_from_registers(cap, threads, smem) == blocks
+        assert blocks * threads // 32 == 16
+        # The stub compiler keeps to the same bounds.
+        stub = frontier.stub_read(cfg)
+        assert stub["registers"] <= cap
+        assert stub["blocks_per_sm"] * threads // 32 >= 16
+
+    @pytest.mark.parametrize("read", sorted(REDESIGNED))
+    def test_eight_warps_at_the_parents_reads(self, read):
+        with open(FIXTURE) as fh:
+            static = json.load(fh)["reads"][read]["static"]
+        # vroll-db stages one full slot per nonce of an iteration.
+        full = static["nonces_per_iter"] * 48 * 4 * 128 if (
+            "vroll" in read) else 0
+        blocks = frontier.blocks_from_registers(
+            static["registers"], static["threads"], full)
+        assert blocks == static["blocks_per_sm"]
+        assert blocks * static["threads"] // 32 == 8
+
+    def test_the_partial_plane(self):
+        """vroll-db at two nonces in flight stages W[18..44]: four slots of
+        27 words fit a quarter of the SM beside three other blocks, the
+        full 48 words would not; its rolled forms keep the full plane."""
+        from bitcoin_miner_tpu_torch.ops import sha256_tile
+
+        assert sha256_tile.plane_words("vroll-db", 2) == (18, 27)
+        assert sha256_tile.plane_bytes("vroll-db", 2) == 4 * 27 * 4 * 128
+        quarter = frontier.SMEM_PER_SM // 4 - frontier.SMEM_RESERVED
+        assert sha256_tile.plane_bytes("vroll-db", 2) <= quarter - 512
+        assert 4 * 28 * 4 * 128 > quarter - 512
+        assert sha256_tile.plane_words("vroll-db", 2, unroll=8) == (16, 48)
+        for variant, interleave in (("vroll-db", 1), ("vroll-db", 4),
+                                    ("vroll", 2), ("wstage", 2)):
+            assert sha256_tile.plane_words(variant, interleave) == (16, 48)
+
+    def test_vroll_db_past_4_chains_rolls_its_groups(self):
+        """vroll-db at K=8 runs its groups' passes in a rolled loop; no
+        other layout, and no vroll-db at K <= 4, does."""
+        from bitcoin_miner_tpu_torch.ops import sha256_tile
+
+        assert sha256_tile.rolled_groups(8, "vroll-db")
+        for k in (1, 2, 4):
+            assert not sha256_tile.rolled_groups(k, "vroll-db")
+        for variant in ("wstage", "vroll", "regchain", "baseline"):
+            assert not sha256_tile.rolled_groups(8, variant)
+
+    def test_only_the_redesigned_driven_builds_ask_for_blocks(self):
+        """Among the layouts the smoke, the gate and the ranker drive, the
+        three redesigned builds alone change their launch bounds; every
+        other library keeps the thread count alone."""
+        from bitcoin_miner_tpu_torch.ops import sha256_tile
+
+        asked = [l for l in sha256_tile.driven_layouts()
+                 if sha256_tile.min_blocks(l[0], l[1], l[3])]
+        assert sorted(asked) == sorted(self.REDESIGNED.values())

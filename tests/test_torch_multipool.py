@@ -1254,18 +1254,30 @@ def test_cli_fabric_session_serves_its_snapshot(tmp_path):
                      "--workers", "2", "--stream-depth", "0",
                      "--status-port", str(port), "--health-interval", "0.2",
                      tmp_path=tmp_path)
-        previous = port_pipeline.set_telemetry(
+        port_pipeline.set_telemetry(
             port_pipeline.PipelineTelemetry())
         try:
             miner = cli.make_miner(args)
             task = asyncio.create_task(cli.run_session(miner, args))
             await wait_for(lambda: accepted(a) + accepted(b) >= 2)
             tele = json.loads((await _get(port, "/telemetry"))[1])
-            status, body = await _get(port, "/healthz")
+            # /healthz answers from the watchdog's last report, at most one
+            # period old: the first one is taken when the session starts,
+            # before the fabric publishes its slots, and the two shares can
+            # come before the next tick. Read a report that saw the slots.
+            got = {}
+
+            async def read_healthz():
+                got["status"], got["body"] = await _get(port, "/healthz")
+
+            await wait_for(lambda: "body" in got and "pools" in json.loads(
+                got["body"])["components"], timeout_s=10.0,
+                step=read_healthz)
+            status, body = got["status"], got["body"]
             miner.stop()
             await asyncio.wait_for(task, 30)
         finally:
-            port_pipeline.set_telemetry(previous)
+            port_pipeline.set_telemetry(None)
             await a.stop()
             await b.stop()
         snap = tele["pool_fabric"]

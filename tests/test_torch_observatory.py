@@ -50,10 +50,10 @@ def _one_torch_thread():
 
 @pytest.fixture
 def fresh_default():
-    previous = port_pipeline.set_telemetry(port_pipeline.PipelineTelemetry())
+    port_pipeline.set_telemetry(port_pipeline.PipelineTelemetry())
     yield
     port_pipeline.get_telemetry().flightrec.disarm()
-    port_pipeline.set_telemetry(previous)
+    port_pipeline.set_telemetry(None)  # the next reader builds its own
 
 
 def free_port() -> int:

@@ -137,8 +137,7 @@ def test_adaptive_probe_lifts_onto_the_dispatch_grid():
 
 
 def test_timed_dispatches_are_traced_when_tracing_is_armed(tmp_path):
-    previous = set_telemetry(PipelineTelemetry(
-        trace_path=str(tmp_path / "t.json")))
+    set_telemetry(PipelineTelemetry(trace_path=str(tmp_path / "t.json")))
     try:
         out = pipeline_probe.measure_pipeline(
             get_hasher("native"), [
@@ -150,6 +149,6 @@ def test_timed_dispatches_are_traced_when_tracing_is_armed(tmp_path):
 
         names = [e["name"] for e in get_telemetry().tracer.events()]
     finally:
-        set_telemetry(previous)
+        set_telemetry(None)  # the next reader builds its own
     assert out["batches"] == 3 and len(out["hits"]) == 3
     assert names.count("device_dispatch") == 3

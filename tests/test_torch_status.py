@@ -47,12 +47,13 @@ def _one_torch_thread():
 
 @pytest.fixture
 def fresh_default():
-    """A fresh process-default bundle for the test, the previous one put
-    back after it (with its flight recorder's hooks undone)."""
-    previous = port_pipeline.set_telemetry(port_pipeline.PipelineTelemetry())
+    """A fresh process-default bundle for the test, dropped after it (with
+    its flight recorder's hooks undone): the next reader builds its own,
+    so no test's spans or counts reach a later test of the worker."""
+    port_pipeline.set_telemetry(port_pipeline.PipelineTelemetry())
     yield
     port_pipeline.get_telemetry().flightrec.disarm()
-    port_pipeline.set_telemetry(previous)
+    port_pipeline.set_telemetry(None)
 
 
 class FakeClock:

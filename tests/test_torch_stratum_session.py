@@ -32,6 +32,7 @@ from bitcoin_miner_tpu_torch.miner.runner import (
 )
 from bitcoin_miner_tpu_torch.parallel import ranges as port_ranges
 from bitcoin_miner_tpu_torch.protocol.stratum import StratumClient
+from bitcoin_miner_tpu_torch.telemetry import pipeline as port_pipeline
 from bitcoin_miner_tpu_torch.testing import mock_pool as port_pool
 from bitcoin_miner_tpu_torch.utils.checkpoint import SweepCheckpoint
 
@@ -592,4 +593,10 @@ def test_shares_of_a_dropped_connection_are_not_submitted():
         assert tel.pool_acks.labels(result="lost").value == 2
         assert tel.submits_inflight.value == 0
 
-    run(main())
+    # The counts are the session's: a bundle of its own, not the process
+    # default that earlier tests of the worker may have counted into.
+    port_pipeline.set_telemetry(port_pipeline.PipelineTelemetry())
+    try:
+        run(main())
+    finally:
+        port_pipeline.set_telemetry(None)

@@ -993,13 +993,13 @@ def test_fanout_counts_per_card_and_inherits_the_trace():
     fan = _fanout()
     tel = port_pipeline.PipelineTelemetry(
         tracer=port_tracing.Tracer(enabled=True))
-    previous = port_pipeline.set_telemetry(tel)
+    port_pipeline.set_telemetry(tel)
     try:
         with tel.tracer.context("caller-trace"):
             results = list(fan.scan_stream(iter(_requests(6, 1 << 11,
                                                           1 << 11))))
     finally:
-        port_pipeline.set_telemetry(previous)
+        port_pipeline.set_telemetry(None)
     assert [r.request.tag for r in results] == list(range(6))
     assert {k[0]: c.value for k, c in tel.chip_dispatches.children()} == {
         "c0": 3, "c1": 3}
@@ -1039,7 +1039,7 @@ def test_fanout_child_error_is_recorded_and_gives_back_inflight():
 # --------------------------------------------------------- mesh-native ring
 def test_mesh_native_counts_shards_and_ladder_steps():
     tel = port_pipeline.PipelineTelemetry()
-    previous = port_pipeline.set_telemetry(tel)
+    port_pipeline.set_telemetry(tel)
     try:
         h = MeshCudaHasher(devices=["cpu"] * 2, kernel="cuda-tile",
                            batch_per_device=1 << 10, sublanes=8,
@@ -1058,4 +1058,4 @@ def test_mesh_native_counts_shards_and_ladder_steps():
         assert {k[0]: c.value for k, c in tel.mesh_rebuilds.children()} == {
             "quarantine": 1, "rebuild": 1, "restore": 1}
     finally:
-        port_pipeline.set_telemetry(previous)
+        port_pipeline.set_telemetry(None)
